@@ -1,0 +1,139 @@
+// Shared-memory building blocks of the port's CSA and GMTI kernels:
+// complex helpers, radix-2 FFTs over whole sequences held in shared memory,
+// deterministic block reductions and windowed sums.
+//
+// The TPU kernels ran their FFTs as four-step DFT contractions on the MXU,
+// with every f32 operand split into bf16 hi/lo halves by hand. Hopper runs
+// f32 FMAs at full precision, so here each block transforms whole columns or
+// rows in shared memory with plain radix-2 butterflies in f32. Twiddles come
+// from a table computed in float64 on the host and rounded once to f32.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Dynamic shared memory of every kernel (16-byte aligned).
+extern __shared__ float4 nis_smem[];
+
+namespace nis {
+
+static __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+static __device__ __forceinline__ float2 cscale(float2 a, float s) {
+  return make_float2(a.x * s, a.y * s);
+}
+
+// p with its low log2n bits reversed.
+static __device__ __forceinline__ int bitrev(int p, int log2n) {
+  return (int)(__brev((unsigned)p) >> (32 - log2n));
+}
+
+// tw[k] = exp(-2 pi i k / n), k < n/2; the inverse transform uses conj.
+static __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw,
+                                                 int k, bool inverse) {
+  float2 w = __ldg(tw + k);
+  if (inverse) w.y = -w.y;
+  return w;
+}
+
+// In place on `nseq` sequences of n = 2^log2n points stored back to back in
+// shared memory, by all threads of the block. Decimation in frequency:
+// natural order in, bit-reversed order out. Unnormalised. The caller
+// synchronises before; the function synchronises after every stage.
+static __device__ void fft_dif(float2* x, int nseq, int n, int log2n,
+                               const float2* __restrict__ tw, bool inverse) {
+  const int half_n = n >> 1;
+  const int total = nseq * half_n;
+  for (int s = log2n; s >= 1; --s) {
+    const int half = 1 << (s - 1);
+    const int step = n >> s;
+    for (int b = threadIdx.x; b < total; b += blockDim.x) {
+      const int k = b & (half_n - 1);
+      const int pos = k & (half - 1);
+      const int i = (b >> (log2n - 1)) * n + ((k >> (s - 1)) << s) + pos;
+      const int j = i + half;
+      const float2 u = x[i];
+      const float2 v = x[j];
+      x[i] = make_float2(u.x + v.x, u.y + v.y);
+      x[j] = cmul(make_float2(u.x - v.x, u.y - v.y),
+                  twiddle(tw, pos * step, inverse));
+    }
+    __syncthreads();
+  }
+}
+
+// As fft_dif, but decimation in time: bit-reversed order in, natural out.
+static __device__ void fft_dit(float2* x, int nseq, int n, int log2n,
+                               const float2* __restrict__ tw, bool inverse) {
+  const int half_n = n >> 1;
+  const int total = nseq * half_n;
+  for (int s = 1; s <= log2n; ++s) {
+    const int half = 1 << (s - 1);
+    const int step = n >> s;
+    for (int b = threadIdx.x; b < total; b += blockDim.x) {
+      const int k = b & (half_n - 1);
+      const int pos = k & (half - 1);
+      const int i = (b >> (log2n - 1)) * n + ((k >> (s - 1)) << s) + pos;
+      const int j = i + half;
+      const float2 u = x[i];
+      const float2 t = cmul(twiddle(tw, pos * step, inverse), x[j]);
+      x[i] = make_float2(u.x + t.x, u.y + t.y);
+      x[j] = make_float2(u.x - t.x, u.y - t.y);
+    }
+    __syncthreads();
+  }
+}
+
+// Sum / max of one value per thread over the block (blockDim.x a power of
+// two), as a fixed tree in shared memory `red` (blockDim.x floats): the same
+// association on every run, no atomics. Synchronises on entry and exit.
+static __device__ float block_sum(float* red, float v) {
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+static __device__ float block_max(float* red, float v) {
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s)
+      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+    __syncthreads();
+  }
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// Sum of v[i - half .. i + half] clipped to [0, n): a locally windowed sum
+// (never a difference of running sums, which float32 cannot afford on power
+// maps spanning 80-100 dB).
+static __device__ __forceinline__ float window_sum(const float* v, int n,
+                                                   int i, int half) {
+  const int lo = i - half > 0 ? i - half : 0;
+  const int hi = i + half < n - 1 ? i + half : n - 1;
+  float s = 0.0f;
+  for (int q = lo; q <= hi; ++q) s += v[q];
+  return s;
+}
+
+// Threads per block for a pass over sequences of n points (a power of two).
+static inline int threads_for(int n) {
+  return n >= 1024 ? 512 : (n / 2 > 32 ? n / 2 : 32);
+}
+
+static inline int log2_of(int n) {
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
+}
+
+}  // namespace nis
