@@ -24,6 +24,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.cuda import csa_kernel
 from nis_sar_amtigmti_video_tpu_torch.ops.echo import (
     multi_channel_phase_history, window_start_time)
 from nis_sar_amtigmti_video_tpu_torch.scene.targets import PointTargets
+from nis_sar_amtigmti_video_tpu_torch.utils.device import entry_device
 
 
 class GmtiProducts(NamedTuple):
@@ -45,10 +46,12 @@ def simulate_two_channel(sc: ScenarioConfig, moving: PointTargets,
                          static: Optional[PointTargets] = None, *,
                          device=None):
     """Raw phase histories of both channels: ((2, P, Ns) complex64 on
-    ``device``, trajectory, window start time t0).
+    ``device``, trajectory, window start time t0). ``device`` None means
+    the card (a RuntimeError where there is none: pass ``device="cpu"``).
 
     The moving and stationary scatterer sets are simulated separately (each
     with its own rigid velocity) and summed."""
+    device = entry_device(device)
     r, g, c = sc.radar, sc.geometry, sc.collect
     n_p = c.num_pulses(r.prf_hz)
     traj = orbit.make_trajectory(
@@ -143,8 +146,8 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
 def run(sc: ScenarioConfig, moving: PointTargets, target_velocity,
         static: Optional[PointTargets] = None, *, device=None,
         **kw) -> GmtiProducts:
-    """Scene -> two-channel echo on ``device`` -> CPI products
-    (``kw`` go to :func:`focus_and_products`)."""
+    """Scene -> two-channel echo on ``device`` (None: the card) -> CPI
+    products (``kw`` go to :func:`focus_and_products`)."""
     raw, _, t0 = simulate_two_channel(sc, moving, target_velocity, static,
                                       device=device)
     return focus_and_products(raw, sc, t0, **kw)

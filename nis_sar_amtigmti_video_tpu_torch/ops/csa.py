@@ -1,7 +1,8 @@
 """Chirp Scaling Algorithm (CSA) focusing — the grid-free fused form.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/ops/csa.py`` (its ``CsaParams``,
-``CsaFactors``, ``csa_factors``, ``apply_csa_fused`` and ``csa_axes``).
+``CsaFactors``, ``csa_factors``, ``apply_csa_fused``, ``csa_axes``, and the
+grid-phase path ``csa_phases`` / ``apply_csa`` / ``focus_csa``).
 
     az-FFT -> Phi1 (chirp scaling) -> rg-FFT -> Phi2 (range compression +
     bulk RCMC) -> rg-IFFT -> Phi3 (azimuth compression + residual) -> az-IFFT
@@ -140,6 +141,59 @@ def apply_csa_fused(phist: torch.Tensor, f: CsaFactors) -> torch.Tensor:
                   + f.g[:, None] * f.dr[None, :]
                   - f.c3[:, None] * u * u)
     return torch.fft.ifft(s, dim=-2)
+
+
+class CsaPhases(NamedTuple):
+    phi1: torch.Tensor   # (n_az, n_rg) complex64 — chirp scaling
+    phi2: torch.Tensor   # (n_az, n_rg) complex64 — range comp + bulk RCMC
+    phi3: torch.Tensor   # (n_az, n_rg) complex64 — azimuth comp + residual
+
+
+def _expj64(phase64: torch.Tensor) -> torch.Tensor:
+    """exp(j*phase) with the float64 wrap before the complex64 cast."""
+    return expj(_wrap(phase64).to(torch.float32))
+
+
+def csa_phases(p: CsaParams, device=None) -> CsaPhases:
+    """All three CSA phase grids, computed in float64 on ``device`` and
+    wrapped to complex64 (the grid-phase path)."""
+    n_az, n_rg = p.num_pulses, p.num_samples
+    lam, kr, vr, r_ref = (p.wavelength_m, p.chirp_rate, p.velocity_mps,
+                          p.range_ref_m)
+    f64 = torch.float64
+    tau = p.t_start_fast + torch.arange(n_rg, dtype=f64,
+                                        device=device) / p.fs_hz
+    fr = _fftfreq64(n_rg, 1.0 / p.fs_hz).to(device)
+    fa = _fftfreq64(n_az, 1.0 / p.prf_hz).to(device)
+    arg = 1.0 - (lam * fa / (2.0 * vr)) ** 2
+    d_fa = torch.sqrt(torch.where(arg < 0.0, torch.full_like(arg, 1e-9), arg))
+    cs = 1.0 / d_fa - 1.0
+
+    tau_ref = 2.0 * r_ref / (_C * d_fa)
+    phi1 = _expj64(-math.pi * kr * cs[:, None]
+                   * (tau[None, :] - tau_ref[:, None]) ** 2)
+    phi2 = _expj64(math.pi * fr[None, :] ** 2 / (kr * (1.0 + cs[:, None]))
+                   + (4.0 * math.pi / _C) * r_ref * cs[:, None] * fr[None, :])
+    r_vec = _C * tau / 2.0
+    tau_diff = tau - 2.0 * r_ref / _C
+    phi3 = _expj64((4.0 * math.pi / lam) * r_vec[None, :] * d_fa[:, None]
+                   - math.pi * kr * (cs * (1.0 + cs))[:, None]
+                   * tau_diff[None, :] ** 2)
+    return CsaPhases(phi1, phi2, phi3)
+
+
+def apply_csa(phist: torch.Tensor, phases: CsaPhases) -> torch.Tensor:
+    """Complex64 CSA with precomputed phase grids: (..., n_az, n_rg) raw ->
+    SLC (torch.fft throughout)."""
+    s = torch.fft.fft(phist, dim=-2) * phases.phi1
+    s = torch.fft.fft(s, dim=-1) * phases.phi2
+    s = torch.fft.ifft(s, dim=-1) * phases.phi3
+    return torch.fft.ifft(s, dim=-2)
+
+
+def focus_csa(phist: torch.Tensor, p: CsaParams) -> torch.Tensor:
+    """Phases + pipeline on phist's device; SLC as (n_az, n_rg)."""
+    return apply_csa(phist, csa_phases(p, phist.device))
 
 
 def csa_axes(p: CsaParams):

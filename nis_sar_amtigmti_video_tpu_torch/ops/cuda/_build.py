@@ -114,14 +114,16 @@ def on_cpu(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {x.device}")
 
 
-def check(name: str, tensors: Sequence[torch.Tensor], shape, device) -> None:
-    """Each tensor f32, contiguous, of ``shape``, on ``device``."""
+def check(name: str, tensors: Sequence[torch.Tensor], shape, device,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Each tensor of ``dtype`` (float32 unless given: complex64, int32,
+    ...), contiguous, of ``shape``, on ``device``."""
     for i, t in enumerate(tensors):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: argument {i} is not a tensor")
-        if t.dtype != torch.float32:
+        if t.dtype != dtype:
             raise TypeError(f"{name}: argument {i} is {t.dtype}, "
-                            "needs torch.float32")
+                            f"needs {dtype}")
         if t.device != device:
             raise ValueError(f"{name}: argument {i} is on {t.device}, "
                              f"the others on {device}")

@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card, at 256^2 and at the slice's 4096^2. Marked ``cuda``: they skip
+on the card: the GMTI kernels at 256^2 and at the slice's 4096^2, the
+fast-BP recentre kernels at nfft 16,384 and at the VideoSAR reference shape
+(2,500 x 22,004 samples, nfft 32,768, presum 4). Marked ``cuda``: they skip
 where no CUDA device is present (the kernels have no CPU mode). On a GPU
 machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q``."""
 
@@ -14,7 +16,10 @@ from nis_sar_amtigmti_video_tpu_torch.gmti import fused
 from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import CfarParams
 from nis_sar_amtigmti_video_tpu_torch.models import gmti
 from nis_sar_amtigmti_video_tpu_torch.ops import csa
-from nis_sar_amtigmti_video_tpu_torch.ops.cuda import csa_kernel, gmti_kernel
+from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
+from nis_sar_amtigmti_video_tpu_torch.ops import bp
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (csa_kernel, fft_kernel,
+                                                       gmti_kernel)
 
 pytestmark = pytest.mark.cuda
 CP = CfarParams()
@@ -152,3 +157,85 @@ def test_wrappers_reject_bad_planes(dev):
         gmti_kernel.k1_gmti_planes(*(v[:192] for v in x), f)
     with pytest.raises(ValueError, match="on cpu"):
         gmti_kernel.k1_gmti_planes(x[0], x[1].cpu(), *x[2:], f)
+
+
+# --------------------------------------------------------------------------
+# fast-BP recentre kernels
+# --------------------------------------------------------------------------
+
+BP_CASES = {"small": (12, 10000, 3, (40, 90)),        # nfft 16,384
+            "reference": (2500, 22004, 4, (82, 97)),  # nfft 32,768
+            "wide": (8, 40000, 2, (100, 300))}        # nfft 65,536
+RING_OFFSETS = {"small": (3, 6, 9), "reference": (500, 1000, 2000),
+                "wide": (2, 4, 6)}
+
+
+def _bp_case(name, dev):
+    """Seeded raw pulses on the card, the videosar geometry's float64
+    trajectory there, BpParams and t_ref, presum d and band rows."""
+    n_p, ns, d, rows = BP_CASES[name]
+    sc = config.videosar()
+    r = sc.radar
+    traj = orbit.make_trajectory(sc.geometry,
+                                 orbit.slow_time_grid(n_p / r.prf_hz, n_p))
+    p = bp.BpParams(fc_hz=r.fc_hz, chirp_rate=r.chirp_rate, fs_hz=r.fs_hz,
+                    pulse_width_s=r.pulse_width_s, num_samples=ns)
+    rng = np.random.default_rng(21)
+    rc = torch.from_numpy((rng.standard_normal((n_p, ns))
+                           + 1j * rng.standard_normal((n_p, ns))
+                           ).astype(np.complex64)).to(dev)
+    f64 = [torch.as_tensor(a, device=dev) for a in
+           (traj.positions, traj.velocities, traj.times)]
+    vf = torch.tensor([3.0, -2.0, 0.0], dtype=torch.float64, device=dev)
+    t_ref = float(2.0 * np.linalg.norm(traj.positions, axis=1).mean()
+                  / 299792458.0)
+    return rc, f64, vf, p, t_ref, d, rows
+
+
+@pytest.mark.parametrize("case", sorted(BP_CASES))
+def test_forward_spectra_matches_plain(dev, case):
+    rc, _, _, p, _, _, _ = _bp_case(case, dev)
+    before = fft_kernel.forward_spectra.launches
+    got = fft_kernel.forward_spectra(rc, p)
+    torch.cuda.synchronize()
+    assert fft_kernel.forward_spectra.launches == before + 1
+    assert _rel(got, fft_kernel.forward_spectra_plain(rc, p)) <= 1e-4
+
+
+@pytest.mark.parametrize("case", sorted(BP_CASES))
+def test_recentre_kernels_match_plain(dev, case):
+    rc, traj, vf, p, t_ref, d, rows = _bp_case(case, dev)
+    want = fft_kernel.recenter_presum_plain(rc, *traj, vf, p, d, t_ref,
+                                            out_rows=rows)
+    fused = fft_kernel.recenter_presum(rc, *traj, vf, p, d, t_ref,
+                                       out_rows=rows)
+    assert fused[0].shape == want[0].shape
+    assert _rel(fused[0], want[0]) <= 1e-4
+    for a, b in zip(fused[1:], want[1:]):
+        assert torch.equal(a, b)
+    spec = fft_kernel.forward_spectra(rc, p)
+    split = fft_kernel.recentre_from_spectra(spec, *traj, vf, p, d, t_ref,
+                                             out_rows=rows)
+    plain = fft_kernel.recentre_from_spectra_plain(spec, *traj, vf, p, d,
+                                                   t_ref, out_rows=rows)
+    assert _rel(split[0], plain[0]) <= 1e-4
+    assert _rel(split[0], fused[0]) <= 1e-4
+    # a ragged last group (P % d != 0) outside ring mode
+    rag = fft_kernel.recenter_presum(rc[:-1], *(t[:-1] for t in traj), vf,
+                                     p, d, t_ref, out_rows=rows)
+    rag_w = fft_kernel.recenter_presum_plain(rc[:-1], *(t[:-1] for t in traj),
+                                             vf, p, d, t_ref, out_rows=rows)
+    assert _rel(rag[0], rag_w[0]) <= 1e-4
+
+
+@pytest.mark.parametrize("case", sorted(BP_CASES))
+def test_ring_is_bit_identical(dev, case):
+    rc, traj, vf, p, t_ref, d, rows = _bp_case(case, dev)
+    spec = fft_kernel.forward_spectra(rc, p)
+    want = fft_kernel.recentre_from_spectra(spec, *traj, vf, p, d, t_ref,
+                                            out_rows=rows)[0]
+    for off in RING_OFFSETS[case]:
+        got = fft_kernel.recentre_from_spectra(
+            torch.roll(spec, off, 0), *traj, vf, p, d, t_ref, out_rows=rows,
+            ring_offset=off)[0]
+        assert torch.equal(got, want), off

@@ -129,7 +129,7 @@ def test_two_channel_echo_matches_reference():
     ship, clut = _scene()
     vel = (15.0, 0.0, 0.0)
     raw, traj, t0 = gmti.simulate_two_channel(_small(tcfg, 129, 256), ship,
-                                              vel, clut)
+                                              vel, clut, device="cpu")
     want, jtraj, jt0 = jgmti.simulate_two_channel(_small(jcfg, 129, 256),
                                                   ship, vel, clut)
     want = np.asarray(want)
@@ -216,7 +216,7 @@ def test_unported_echo_backends_raise(backend):
                                                 echo_backend=backend))
     ship, _ = _scene()
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        gmti.simulate_two_channel(sc, ship, (0.0, 0.0, 0.0))
+        gmti.simulate_two_channel(sc, ship, (0.0, 0.0, 0.0), device="cpu")
 
 
 # --------------------------------------------------------------------------
