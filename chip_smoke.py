@@ -25,7 +25,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 Then the VideoSAR fast-backprojection slice at config.videosar()'s full
 per-frame width (CPI 2,500 pulses x 22,004 samples, nfft 32,768, 512 x 512
 output), through the three recentre kernels (forward spectra, recentre from
-spectra, fused recentre + presum):
+spectra, fused recentre + presum) and the two accumulate kernels (pixel
+tile, coarse-tile factorized):
 
   6. bp       each recentre kernel vs its plain version on seeded raw pulses
               with the collect's plan, presum and band rows (<= 1e-4 of the
@@ -34,18 +35,33 @@ spectra, fused recentre + presum):
               chronological order; times (CUDA events, median of 5 after a
               warm-up) of each kernel, its plain version and cuFFT's
               transform beside the forward spectra
-  7. videosar models.videosar.run(bp_backend='fast_factor', num_frames=6)
-              on the destroyer scene, per-frame recentre (mode A) and the
-              spectra ring (mode B): the kernels of each mode launch, the
+  7. acc      the two fast-BP accumulate kernels (pixel tile, coarse-tile
+              factorized) vs their plain versions (<= 1e-4 of the peak) on
+              operands made as backproject_fast makes them: the fused
+              recentre kernel on the first CPI of seeded raw pulses, then the
+              frame geometry and coefficient fit; the pixel kernel with the
+              collect's 64-sample-window plan (1,664 x 640), the factorized
+              one with the first CPI's factor plan (1,664 x 768, 10 sub-
+              apertures); times of each and its plain version
+  8. videosar models.videosar.run(num_frames=6) on the destroyer scene with
+              bp_backend 'fast_factor' and 'fast_pallas' (the pixel-tile
+              accumulate kernel), each per frame (mode A) and on the spectra
+              ring (mode B): the kernels of each run launch, the
               (6, 512, 512) frames are finite and the modes agree to 2e-3 of
-              the peak; formation ms per frame of each mode on held inputs
-  8. bp gold  frame 0 of mode A against the port's exact float64
-              backprojection of 8x-upsampled range data: < 0.15 dB and
+              the peak; formation ms per frame of both backends in each mode
+              on held inputs, timed in alternating pairs; the stages of a
+              mode-A frame of each; then focus_bp_fast(accumulate=
+              'factor_kernel') on the first CPI's factor plan, against
+              accumulate='factor_pallas' on the same plan
+  9. bp gold  frame 0 of mode A of both backends and the 'factor_kernel'
+              frame against the port's exact float64 backprojection of
+              8x-upsampled range data (computed once): < 0.15 dB and
               < 0.02 rad at the peak, < 1.5 % field error
 
 The line before the last is a JSON record of each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports neither JAX nor the JAX package.
+A "[time]" line gives each phase's seconds. Imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -65,7 +81,9 @@ from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import CfarParams
 from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
 from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
 from nis_sar_amtigmti_video_tpu_torch.ops import bp, bp_fast, csa
-from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (_build, csa_kernel,
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (_build,
+                                                       bp_factor_kernel,
+                                                       bp_kernel, csa_kernel,
                                                        fft_kernel,
                                                        gmti_kernel)
 from nis_sar_amtigmti_video_tpu_torch.ops.echo import (phase_history,
@@ -104,6 +122,16 @@ BP_WRAPPERS = {
         fft_kernel.recenter_presum,
         "nis_sar_amtigmti_video_tpu_torch/csrc/fft_kernel.cu",
         "nis_sar_amtigmti_video_tpu/ops/pallas/fft_kernel.py:418"),
+}
+ACC_WRAPPERS = {
+    "accumulate_pallas": (
+        bp_kernel.accumulate_pallas,
+        "nis_sar_amtigmti_video_tpu_torch/csrc/bp_kernel.cu",
+        "nis_sar_amtigmti_video_tpu/ops/pallas/bp_kernel.py:214"),
+    "accumulate_factor_pallas": (
+        bp_factor_kernel.accumulate_factor_pallas,
+        "nis_sar_amtigmti_video_tpu_torch/csrc/bp_kernel.cu",
+        "nis_sar_amtigmti_video_tpu/ops/pallas/bp_factor_kernel.py:230"),
 }
 # the card's peaks for the bounds (H100 SXM data sheet, full power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -480,50 +508,164 @@ def phase_bp(dev) -> dict:
     return rec
 
 
+def acc_plans(p, traj, t0, cpi):
+    """The pixel kernel's plan (the whole collect, 64-sample windows, as
+    run builds it for 'fast_pallas') and the factor kernel's (the first
+    CPI, factorized)."""
+    return (bp_fast.make_plan(p, traj.positions, traj.times, float(t0),
+                              w_win=64),
+            bp_fast.make_plan(p, traj.positions[:cpi], traj.times[:cpi],
+                              float(t0), factorize=True))
+
+
+def acc_operands(rc, tr, vf, p, d, plan, fit_stride):
+    """backproject_fast's accumulate operands (rc2, u0, pa, pb, pc, b_t,
+    c_t, plan_acc): the fused recentre kernel's band rows, then the frame
+    geometry and the coefficient fit."""
+    rows = bp_fast.band_rows(plan)
+    t_mean = tr[2].mean()
+    rc2, pos2, vel2, t2 = fft_kernel.recenter_presum(
+        rc, *tr, vf, p, d, plan.t_ref, t_mean=t_mean, out_rows=rows)
+    rdir, cdir, dy = bp_fast._frame_geometry(pos2[pos2.shape[0] // 2], p,
+                                             plan)
+    co = bp_fast._fit_coeffs(pos2, vel2, t2, vf, p, plan, t_mean, rdir, cdir,
+                             dy, fit_stride=fit_stride)
+    plan_acc = dataclasses.replace(plan,
+                                   band_start=plan.band_start - rows[0] * 128)
+    return (rc2, *(c.contiguous() for c in co), plan_acc)
+
+
+def acc_work(ops, ncols, sub_p=None, nx=None):
+    """(bytes, f32 operations) of one accumulate call: each input read and
+    the output written once; per pixel and pulse a W-deep complex MAC
+    (8 W) plus ~20 for taper, phase and sum; per row and pulse the split
+    window DFT (8 W (W / 8 + 9)); for the factorized one, the merge (a
+    real matmul of each sub-aperture's real and imaginary planes, 4 nx_c
+    per fine pixel, and ~16 for the carrier and sum)."""
+    rc2, plan = ops[0], ops[-1]
+    num_p, w, ny = rc2.shape[0], plan.w_win, plan.ny_i
+    n_bytes = (rc2.numel() * 8 + 4 * num_p * ny * 4 + 2 * num_p * 4
+               + ny * (nx or ncols) * 8)
+    flops = num_p * ny * (ncols * (8 * w + 20) + 8 * w * (w // 8 + 9))
+    if sub_p is not None:
+        n_sub = -(-num_p // sub_p)
+        flops += n_sub * ny * nx * (4 * ncols + 16)
+    return n_bytes, flops
+
+
+def phase_acc(dev) -> dict:
+    """The two accumulate kernels vs their plain versions at full width,
+    on the first CPI of seeded raw pulses."""
+    sc, opts, t0, p, d, traj, _ = videosar_setup()
+    cpi = sc.video.cpi_pulses(sc.radar.prf_hz)
+    plan64, plan_cpi = acc_plans(p, traj, t0, cpi)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rc = torch.complex(
+        torch.randn((cpi, opts.num_samples), generator=gen, device=dev),
+        torch.randn((cpi, opts.num_samples), generator=gen, device=dev))
+    tr = [torch.as_tensor(a[:cpi], device=dev) for a in
+          (traj.positions, traj.velocities, traj.times)]
+    vf = torch.as_tensor([SHIP_SPEED * math.cos(math.radians(SHIP_HEADING)),
+                          SHIP_SPEED * math.sin(math.radians(SHIP_HEADING)),
+                          0.0], dtype=torch.float64, device=dev)
+    rec = {}
+    sub_p = max(1, plan_cpi.sub_raw // d)
+    cases = (
+        ("accumulate_pallas", plan64, 0, bp_kernel.accumulate_pallas,
+         bp_kernel.accumulate_pallas_plain, (), plan64.nx_i, {}),
+        ("accumulate_factor_pallas", plan_cpi, 16,
+         bp_factor_kernel.accumulate_factor_pallas,
+         bp_factor_kernel.accumulate_factor_pallas_plain, (sub_p,),
+         plan_cpi.nx_c, dict(sub_p=sub_p, nx=plan_cpi.nx_i)))
+    for name, plan, fs, kernel, plain, extra, ncols, wkw in cases:
+        ops = acc_operands(rc, tr, vf, p, d, plan, fs)
+        got = kernel(*ops, *extra)
+        want = plain(*ops, *extra)
+        torch.cuda.synchronize(dev)
+        err = rel_err(got, want)
+        assert err <= 1e-4, (name, err)
+        rec[name] = dict(max_abs_err=float((got - want).abs().max()),
+                         ms=median_ms(lambda: kernel(*ops, *extra)),
+                         plain_ms=median_ms(lambda: plain(*ops, *extra)),
+                         library_ms=None, **bound(*acc_work(ops, ncols,
+                                                            **wkw)))
+        r = rec[name]
+        if extra:              # the factor kernel's launch without the merge
+            inner = median_ms(lambda: bp_factor_kernel.inner_sums(*ops,
+                                                                  *extra))
+            print(f"[7 acc] {name}: the kernel's inner sums alone "
+                  f"{inner:.3f} ms, the rest is the merge")
+        print(f"[7 acc] {name} rel err {err:.2e}; {r['ms']:.3f} ms vs plain "
+              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}); P {ops[0].shape[0]}, grid {plan.ny_i} x "
+              f"{plan.nx_i}, w {plan.w_win}, columns {ncols}, band_start "
+              f"{ops[-1].band_start}" + (f", sub-apertures of {sub_p}"
+                                         if extra else ""))
+        del got, want, ops
+    return rec
+
+
 def reset_bp_launches():
-    for wrapper, _, _ in BP_WRAPPERS.values():
+    for wrapper, _, _ in (*BP_WRAPPERS.values(), *ACC_WRAPPERS.values()):
         wrapper.launches = 0
 
 
+def launch_counts() -> dict:
+    return {k: w.launches for k, (w, _, _)
+            in {**BP_WRAPPERS, **ACC_WRAPPERS}.items()}
+
+
 def phase_videosar(dev):
-    """videosar.run in mode A (per-frame fused recentre) and mode B (the
-    spectra ring) on the destroyer scene, then formation ms per frame of
-    each mode on held inputs."""
+    """videosar.run with 'fast_factor' and 'fast_pallas', each in mode A
+    (per-frame fused recentre) and mode B (the spectra ring), on the
+    destroyer scene; formation ms per frame of both backends on held
+    inputs; the 'factor_kernel' accumulate on the first CPI's factor
+    plan."""
     sc, opts, t0, p, d, traj, plan = videosar_setup()
+    cpi = sc.video.cpi_pulses(sc.radar.prf_hz)
+    plan64, plan_cpi = acc_plans(p, traj, t0, cpi)
     ship = targets.destroyer()
-    kw = dict(heading_deg=SHIP_HEADING, speed_mps=SHIP_SPEED, algorithm="mbp",
-              bp_backend="fast_factor", num_frames=VS_FRAMES, device=dev)
-    launches, imgs, secs = {}, {}, {}
-    for mode, extra in (("A", {}), ("B", dict(stream_spectra="ring",
-                                               noise_mode="per_segment"))):
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_bp_launches()
-        t = time.perf_counter()
-        out = videosar.run(sc, ship, **kw, **extra)
-        torch.cuda.synchronize(dev)
-        secs[mode] = time.perf_counter() - t
-        launches[mode] = {k: w.launches for k, (w, _, _)
-                          in BP_WRAPPERS.items()}
-        imgs[mode] = out.images
-        assert out.images.shape == (VS_FRAMES, 512, 512), out.images.shape
-        assert np.isfinite(out.images).all(), mode
-        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        print(f"[7 videosar] mode {mode}: run {secs[mode]:.2f} s (echo "
-              f"included); launches {launches[mode]}; peak memory "
-              f"{peak_gib:.2f} GiB")
-    assert launches["A"]["recenter_presum"] > 0, launches
-    assert launches["B"]["forward_spectra"] > 0, launches
-    assert launches["B"]["recentre_from_spectra"] > 0, launches
-    agree = [float(np.abs(imgs["A"][f] - imgs["B"][f]).max()
-                   / np.abs(imgs["A"][f]).max()) for f in range(VS_FRAMES)]
-    assert max(agree) <= 2e-3, agree
+    launches, imgs = {}, {}
+    for backend in ("fast_factor", "fast_pallas"):
+        kw = dict(heading_deg=SHIP_HEADING, speed_mps=SHIP_SPEED,
+                  algorithm="mbp", bp_backend=backend, num_frames=VS_FRAMES,
+                  device=dev)
+        for mode, extra in (("A", {}), ("B", dict(stream_spectra="ring",
+                                                   noise_mode="per_segment"))):
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_bp_launches()
+            t = time.perf_counter()
+            out = videosar.run(sc, ship, **kw, **extra)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t
+            launches[backend, mode] = launch_counts()
+            imgs[backend, mode] = out.images
+            assert out.images.shape == (VS_FRAMES, 512, 512), out.images.shape
+            assert np.isfinite(out.images).all(), (backend, mode)
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            print(f"[8 videosar] {backend} mode {mode}: run {secs:.2f} s "
+                  f"(echo included); launches {launches[backend, mode]}; "
+                  f"peak memory {peak_gib:.2f} GiB")
+        for b, m, k in ((backend, "A", "recenter_presum"),
+                        (backend, "B", "forward_spectra"),
+                        (backend, "B", "recentre_from_spectra")):
+            assert launches[b, m][k] > 0, (b, m, launches[b, m])
+        agree = max(float(np.abs(imgs[backend, "A"][f]
+                                 - imgs[backend, "B"][f]).max()
+                          / np.abs(imgs[backend, "A"][f]).max())
+                    for f in range(VS_FRAMES))
+        assert agree <= 2e-3, (backend, agree)
+        print(f"[8 videosar] {backend}: frames {imgs[backend, 'A'].shape}; "
+              f"modes A and B agree to {agree:.2e} of the peak (<= 2e-3)")
+    for mode in ("A", "B"):
+        assert launches["fast_pallas", mode]["accumulate_pallas"] > 0, mode
+        assert launches["fast_factor", mode]["accumulate_pallas"] == 0, mode
 
     # the echo of the run's pulses alone
     phi = math.radians(SHIP_HEADING)
     vel = np.array([SHIP_SPEED * math.cos(phi), SHIP_SPEED * math.sin(phi),
                     0.0])
     tgt = ship.rotate_z(SHIP_HEADING)
-    cpi = sc.video.cpi_pulses(sc.radar.prf_hz)
     step = sc.video.step_pulses(sc.radar.prf_hz)
     n_pulses = cpi + (VS_FRAMES - 1) * step
     t = time.perf_counter()
@@ -539,47 +681,92 @@ def phase_videosar(dev):
     tr = [torch.as_tensor(a[:cpi], device=dev) for a in
           (traj.positions, traj.velocities, traj.times)]
     vf = torch.as_tensor(vel, device=dev)
-    common = dict(presum=d, plan=plan, fit_stride=16,
-                  accumulate="factor2_pallas" if plan.sub_raw1 > 0
-                  else "factor_pallas")
+    routes = {"fast_factor": dict(presum=d, plan=plan, fit_stride=16,
+                                  accumulate="factor2_pallas"
+                                  if plan.sub_raw1 > 0 else "factor_pallas"),
+              "fast_pallas": dict(presum=d, plan=plan64, fit_stride=0,
+                                  accumulate="pallas")}
     spec = bp_fast.forward_spectra(raw0, p)
     new_raw = raw0[:step].clone()
     state = {"wp": 0}
 
-    def form_a():
-        return bp_fast.focus_bp_fast(raw0, *tr, vf, float(t0), p, **common)
+    def form_a(route):
+        return lambda: bp_fast.focus_bp_fast(raw0, *tr, vf, float(t0), p,
+                                             **routes[route])
 
-    def form_b():
-        wp = state["wp"]
-        spec[wp:wp + step] = bp_fast.forward_spectra(new_raw, p)
-        state["wp"] = (wp + step) % cpi
-        return bp_fast.focus_bp_fast(None, *tr, vf, float(t0), p,
-                                     raw_spectra=spec,
-                                     ring_offset=state["wp"] or None,
-                                     **common)
+    def form_b(route):
+        def step_frame():
+            wp = state["wp"]
+            spec[wp:wp + step] = bp_fast.forward_spectra(new_raw, p)
+            state["wp"] = (wp + step) % cpi
+            return bp_fast.focus_bp_fast(None, *tr, vf, float(t0), p,
+                                         raw_spectra=spec,
+                                         ring_offset=state["wp"] or None,
+                                         **routes[route])
+        return step_frame
 
-    ms_a, ms_b = paired_ms(form_a, form_b, pairs=5)
-    stages = frame_stages(raw0, tr, vf, p, d, plan, common["accumulate"])
-    print(f"[7 videosar] {VS_FRAMES} frames of (512, 512); modes A and B "
-          f"agree to {max(agree):.2e} of the peak (<= 2e-3); echo of "
-          f"{n_pulses} pulses x 35 points {echo_s:.2f} s; formation per "
-          f"frame (5 alternating pairs): A {quartiles(ms_a)}, B ring step "
-          f"{quartiles(ms_b)}; presum d {d}; plan ny_i {plan.ny_i} nx_i "
-          f"{plan.nx_i} sub_raw {plan.sub_raw} sub_raw1 {plan.sub_raw1} grp "
-          f"{plan.grp} p0/p1 {bp_fast.band_rows(plan)}; accumulate "
-          f"{common['accumulate']}")
-    print("[7 videosar] mode A frame by stage (ms, CUDA events, median of "
-          "5): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    launches_total = {k: launches["A"][k] + launches["B"][k]
-                      for k in BP_WRAPPERS}
-    return launches_total, imgs["A"][0], raw0, tr, vf, t0, p
+    ms = {}
+    for mode, form in (("A", form_a), ("B", form_b)):
+        ms["fast_pallas", mode], ms["fast_factor", mode] = paired_ms(
+            form("fast_pallas"), form("fast_factor"), pairs=5)
+    print(f"[8 videosar] echo of {n_pulses} pulses x 35 points {echo_s:.2f}"
+          f" s; formation per frame (5 alternating pairs per mode): "
+          + "; ".join(f"{b} {m} {quartiles(ms[b, m])}" for b, m in ms)
+          + f"; presum d {d}")
+    for route, r in routes.items():
+        pl_ = r["plan"]
+        stages = frame_stages(raw0, tr, vf, p, d, pl_, r["accumulate"],
+                              r["fit_stride"])
+        print(f"[8 videosar] {route} mode A frame by stage (ms, CUDA events,"
+              f" median of 5; accumulate {r['accumulate']}, plan ny_i "
+              f"{pl_.ny_i} nx_i {pl_.nx_i} w {pl_.w_win} sub_raw "
+              f"{pl_.sub_raw} p0/p1 {bp_fast.band_rows(pl_)}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # the factor kernel at the ops layer, on the first CPI's factor plan
+    fk = dict(presum=d, plan=plan_cpi, fit_stride=16)
+    reset_bp_launches()
+    img_fk = bp_fast.focus_bp_fast(raw0, *tr, vf, float(t0), p,
+                                   accumulate="factor_kernel", **fk)
+    torch.cuda.synchronize(dev)
+    launches["factor_kernel"] = launch_counts()
+    assert launches["factor_kernel"]["accumulate_factor_pallas"] == 1, \
+        launches["factor_kernel"]
+    assert launches["factor_kernel"]["recenter_presum"] == 1
+    ref_fk = bp_fast.focus_bp_fast(raw0, *tr, vf, float(t0), p,
+                                   accumulate="factor_pallas", **fk)
+    fk_err = rel_err(img_fk, ref_fk)
+    assert torch.isfinite(img_fk).all() and fk_err <= 1e-3, fk_err
+    fk_ms, fp_ms = paired_ms(
+        lambda: bp_fast.focus_bp_fast(raw0, *tr, vf, float(t0), p,
+                                      accumulate="factor_kernel", **fk),
+        lambda: bp_fast.focus_bp_fast(raw0, *tr, vf, float(t0), p,
+                                      accumulate="factor_pallas", **fk),
+        pairs=5)
+    print(f"[8 videosar] focus_bp_fast(accumulate='factor_kernel') on the "
+          f"first CPI's plan (ny_i {plan_cpi.ny_i} nx_i {plan_cpi.nx_i} "
+          f"sub_raw {plan_cpi.sub_raw} nx_c {plan_cpi.nx_c}): launches "
+          f"{launches['factor_kernel']}; vs 'factor_pallas' {fk_err:.2e} of "
+          f"the peak (<= 1e-3); frame {quartiles(fk_ms)} vs "
+          f"{quartiles(fp_ms)}")
+    totals = {k: launches["fast_factor", "A"][k]
+              + launches["fast_factor", "B"][k] for k in BP_WRAPPERS}
+    totals["accumulate_pallas"] = (
+        launches["fast_pallas", "A"]["accumulate_pallas"]
+        + launches["fast_pallas", "B"]["accumulate_pallas"])
+    totals["accumulate_factor_pallas"] = launches["factor_kernel"][
+        "accumulate_factor_pallas"]
+    frames0 = {"fast_factor mode A": imgs["fast_factor", "A"][0],
+               "fast_pallas mode A": imgs["fast_pallas", "A"][0],
+               "factor_kernel": img_fk.cpu().numpy()}
+    return totals, frames0, raw0, tr, vf, t0, p
 
 
-def frame_stages(raw0, tr, vf, p, d, plan, acc_name) -> dict:
+def frame_stages(raw0, tr, vf, p, d, plan, acc_name, fit_stride) -> dict:
     """Device ms of each stage of one mode-A frame on held inputs, in
     backproject_fast's order: fused recentre kernel, frame geometry and
-    anchored fit, accumulate ``acc_name``, finalize (mask, resample,
-    remodulation), presum droop correction."""
+    fit (anchored every ``fit_stride`` pulses), accumulate ``acc_name``,
+    finalize (mask, resample, remodulation), presum droop correction."""
     t_mean = tr[2].mean()
     rows = bp_fast.band_rows(plan)
     plan_acc = dataclasses.replace(plan,
@@ -596,7 +783,7 @@ def frame_stages(raw0, tr, vf, p, d, plan, acc_name) -> dict:
                                                  plan)
         return (rdir, cdir, dy), bp_fast._fit_coeffs(
             pos2, vel2, t2, vf, p, plan, t_mean, rdir, cdir, dy,
-            fit_stride=16)
+            fit_stride=fit_stride)
 
     geom, co = fit()
 
@@ -617,9 +804,10 @@ def frame_stages(raw0, tr, vf, p, d, plan, acc_name) -> dict:
         ("finalize", finalize), ("droop", droop))}
 
 
-def phase_bp_golden(img0, raw0, tr, vf, t0, p, u=8):
-    """Frame 0 of mode A vs the exact float64 BP of u-times FFT-upsampled
-    range data (tests/test_bp_fast.py's oracle recipe), on the card."""
+def phase_bp_golden(frames: dict, raw0, tr, vf, t0, p, u=8):
+    """Each frame of ``frames`` (frame 0 of the collect) vs the exact
+    float64 BP of u-times FFT-upsampled range data (tests/test_bp_fast.py's
+    oracle recipe), computed once on the card."""
     t = time.perf_counter()
     rc = bp.bp_range_compress(raw0, p)
     n_p, ns = rc.shape
@@ -642,44 +830,63 @@ def phase_bp_golden(img0, raw0, tr, vf, t0, p, u=8):
     want = bp.backproject(rc_u, *tr, vf, t0_u, p_u).cpu().numpy()
     oracle_s = time.perf_counter() - t
     del rc_u
-    a_f, a_w = np.abs(img0), np.abs(want)
+    a_w = np.abs(want)
     pk = np.unravel_index(a_w.argmax(), a_w.shape)
-    db = abs(20 * math.log10(a_f[pk] / a_w[pk]))
-    dphi = abs(float(np.angle(img0[pk] * np.conj(want[pk]))))
-    field = float(np.abs(a_f - a_w).max() / a_w.max())
-    print(f"[8 bp golden] frame 0 vs f64 exact BP of {u}x-upsampled data "
-          f"({oracle_s:.1f} s): peak {db:.2e} dB (< 0.15), peak phase "
-          f"{dphi:.2e} rad (< 0.02), field {field:.2e} (< 1.5e-2)")
-    assert db < 0.15 and dphi < 0.02 and field < 0.015, (db, dphi, field)
+    bad = {}
+    for name, img0 in frames.items():
+        a_f = np.abs(img0)
+        db = abs(20 * math.log10(a_f[pk] / a_w[pk]))
+        dphi = abs(float(np.angle(img0[pk] * np.conj(want[pk]))))
+        field = float(np.abs(a_f - a_w).max() / a_w.max())
+        print(f"[9 bp golden] {name} frame 0 vs f64 exact BP of "
+              f"{u}x-upsampled data: peak {db:.2e} dB (< 0.15), peak phase "
+              f"{dphi:.2e} rad (< 0.02), field {field:.2e} (< 1.5e-2)")
+        if not (db < 0.15 and dphi < 0.02 and field < 0.015):
+            bad[name] = (db, dphi, field)
+    print(f"[9 bp golden] oracle {oracle_s:.1f} s")
+    assert not bad, bad
+
+
+def timed_phase(name, fn, *args):
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name} {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on a GPU")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     # full float32 everywhere: the plain versions are the kernels' reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = phase_device(dev)
-    phase_build()
-    rec = phase_kernels(dev)
+    timed_phase("build", phase_build)
+    rec = timed_phase("kernels", phase_kernels, dev)
     torch.cuda.empty_cache()
-    launches, raw, sc, t0 = phase_main(dev)
-    phase_golden(raw, sc, t0)
+    launches, raw, sc, t0 = timed_phase("main", phase_main, dev)
+    timed_phase("golden", phase_golden, raw, sc, t0)
     del raw
     torch.cuda.empty_cache()
     for k, planes in GMTI_PLANES.items():
         rec[k].update(library_ms=None, **bound(planes * 4.0 * N * N, 0.0))
-    rec.update(phase_bp(dev))
+    rec.update(timed_phase("bp", phase_bp, dev))
     torch.cuda.empty_cache()
-    bp_launches, img0, raw0, tr, vf, t0v, p = phase_videosar(dev)
+    rec.update(timed_phase("acc", phase_acc, dev))
+    torch.cuda.empty_cache()
+    bp_launches, frames0, raw0, tr, vf, t0v, p = timed_phase(
+        "videosar", phase_videosar, dev)
     launches.update(bp_launches)
     torch.cuda.empty_cache()
-    phase_bp_golden(img0, raw0, tr, vf, t0v, p)
+    timed_phase("bp golden", phase_bp_golden, frames0, raw0, tr, vf, t0v, p)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **rec[k])
-               for k, (_, src, rep) in {**WRAPPERS, **BP_WRAPPERS}.items()]
+               for k, (_, src, rep)
+               in {**WRAPPERS, **BP_WRAPPERS, **ACC_WRAPPERS}.items()]
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

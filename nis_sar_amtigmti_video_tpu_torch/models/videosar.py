@@ -12,6 +12,12 @@ Noise: ``seed`` replaces the reference's key. Frame f draws from the
 generator of (seed, schedule index of f), segment s from (seed,
 1,000,000 + s), so a re-formed subset of frames draws the same noise.
 ``resume`` (which needs ``io/products.py``) is not ported yet.
+
+The fast backends run the hand-written CUDA kernels of ``ops/cuda/`` on the
+card: the recentre kernels (``fft_kernel.py``) for the ``*_pallas``
+backends and the streaming modes, and the pixel-tile accumulate
+(``bp_kernel.py``) for ``'fast_pallas'``; on CPU tensors each runs its
+plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops import bp as bp_ops
 from nis_sar_amtigmti_video_tpu_torch.ops import bp_fast
 from nis_sar_amtigmti_video_tpu_torch.ops import csa as csa_ops
 from nis_sar_amtigmti_video_tpu_torch.ops import noise as noise_ops
-from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import bp_kernel, fft_kernel
 from nis_sar_amtigmti_video_tpu_torch.ops.echo import (EchoOpts, phase_history,
                                                        window_start_time)
 from nis_sar_amtigmti_video_tpu_torch.parallel import pipeline
@@ -36,8 +42,9 @@ from nis_sar_amtigmti_video_tpu_torch.utils.device import entry_device
 from nis_sar_amtigmti_video_tpu_torch.video import scheduler
 
 # bp_backend -> bp_fast accumulate ('*_pallas': the hand-written CUDA
-# recentre kernel of ops/cuda/fft_kernel.py)
-ACC_MAP = {"fast": "xla", "fast_factor": "factor",
+# recentre kernel of ops/cuda/fft_kernel.py; 'fast_pallas' adds the
+# pixel-tile accumulate kernel of ops/cuda/bp_kernel.py)
+ACC_MAP = {"fast": "xla", "fast_pallas": "pallas", "fast_factor": "factor",
            "fast_factor_pallas": "factor_pallas", "fast_factor2": "factor2",
            "fast_factor2_pallas": "factor2_pallas"}
 SEGMENT_STREAM = 1_000_000
@@ -74,10 +81,6 @@ def bp_params_for(sc: ScenarioConfig, opts: EchoOpts,
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "fast_pallas":
-        raise NotImplementedError(
-            "bp_backend='fast_pallas' reaches the pixel-tile BP kernel "
-            "(ops/pallas/bp_kernel.py), which is not ported yet")
     if backend != "exact" and backend not in ACC_MAP:
         raise ValueError(f"unknown BP backend {backend!r}: pick 'exact' or "
                          f"one of {sorted(ACC_MAP)}")
@@ -169,8 +172,11 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     one the recentre kernels take — on every device, the CPU running the
     kernels' plain versions; elsewhere to 'fast_factor2', 'fast_factor'
     or, where the plan's bounds refuse a sub-aperture, 'fast'),
-    the explicit 'fast_factor*' names, or 'exact' (ops/bp.py).
-    'fast_pallas' raises: its kernel is not ported yet.
+    the explicit 'fast_factor*' names, 'fast_pallas' (a plan with 64-sample
+    windows, the recentre kernel and the pixel-tile accumulate kernel;
+    where that kernel does not take the plan it falls back to 'fast' with
+    32-sample windows on the CPU, as the reference does, and raises a
+    ValueError on the card), or 'exact' (ops/bp.py).
 
     noise_mode: 'per_frame' (fresh noise on each assembled CPI) or
     'per_segment' (once per step-sized pulse segment; needed by
@@ -225,9 +231,20 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         _check_backend(bp_backend)
     if algorithm in ("mbp", "stdbp") and bp_backend.startswith("fast"):
         factor = bp_backend.startswith("fast_factor")
-        bp_plan = bp_fast.make_plan(p_bp, traj.positions, traj.times,
-                                    float(t0), factorize=factor)
-        if bp_backend == "fast_factor" and fft_kernel.supported(
+        bp_plan = bp_fast.make_plan(
+            p_bp, traj.positions, traj.times, float(t0),
+            w_win=64 if bp_backend == "fast_pallas" else 32,
+            factorize=factor)
+        if bp_backend == "fast_pallas" and not bp_kernel.supported(bp_plan):
+            if dev.type != "cpu":
+                raise ValueError(
+                    "bp_backend='fast_pallas': the pixel-tile kernel takes a "
+                    "128-multiple grid, not the plan's "
+                    f"{bp_plan.ny_i} x {bp_plan.nx_i}: pick 'fast'")
+            bp_backend = "fast"        # the reference's routing, on the CPU
+            bp_plan = bp_fast.make_plan(p_bp, traj.positions, traj.times,
+                                        float(t0))
+        elif bp_backend == "fast_factor" and fft_kernel.supported(
                 bp_plan.nfft):
             # the recentre kernel serves every plan; where the bounds
             # refuse a sub-aperture (sub_raw == 0, as over a whole 5 s

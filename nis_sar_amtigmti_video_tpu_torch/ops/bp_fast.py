@@ -15,12 +15,14 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/ops/bp_fast.py``:
 
 The plan (:func:`make_plan`) is host numpy in float64, equal field by field
 to the reference's. The complex contractions run on ``torch.matmul`` in
-full float32. The recentre step reaches the hand-written CUDA kernels of
-``ops/cuda/fft_kernel.py`` for ``accumulate='factor_pallas'`` /
-``'factor2_pallas'`` and for ``raw_spectra=`` (the ``*_pallas`` names mean
-"the hand-written CUDA kernel" in this package); on CPU tensors those
-wrappers run their plain versions. ``accumulate='pallas'`` and
-``'factor_kernel'`` reach BP kernels that are not ported yet and raise.
+full float32. The accumulates of ``KERNEL_ACCUMULATE`` and
+``raw_spectra=`` recentre in the hand-written CUDA kernels of
+``ops/cuda/fft_kernel.py``; ``accumulate='pallas'`` then accumulates in
+``ops/cuda/bp_kernel.py`` and ``'factor_kernel'`` in
+``ops/cuda/bp_factor_kernel.py`` (the ``pallas`` names mean "the
+hand-written CUDA kernel" in this package). On CPU tensors those wrappers
+run their plain versions. The ``*_interpret`` names raise: the port has no
+kernel interpreter.
 """
 
 from __future__ import annotations
@@ -43,10 +45,13 @@ _TWO_PI = 2.0 * math.pi
 _C = 299792458.0
 F32, F64 = torch.float32, torch.float64
 
-# accumulate names: ported, and reaching BP kernels that are not ported yet
-ACCUMULATE = ("xla", "factor", "factor2", "factor_pallas", "factor2_pallas")
-NOT_PORTED = ("pallas", "pallas_interpret", "factor_kernel",
-              "factor_kernel_interpret")
+# accumulate names; those that run the recentre kernel, each with the plain
+# accumulate that takes other nffts; the reference's interpret-mode names
+ACCUMULATE = ("xla", "factor", "factor2", "factor_pallas", "factor2_pallas",
+              "pallas", "factor_kernel")
+KERNEL_ACCUMULATE = {"pallas": "xla", "factor_kernel": "factor",
+                     "factor_pallas": "factor", "factor2_pallas": "factor2"}
+INTERPRET = ("pallas_interpret", "factor_kernel_interpret")
 
 
 # --------------------------------------------------------------------------
@@ -175,6 +180,18 @@ def _upsample_matrix(plan: FastBpPlan) -> np.ndarray:
     """(nx_c, nx_i) coarse inner-sum columns -> fine internal grid."""
     return _interp_matrix(plan.nx_c, plan.nx_i, plan.nx_i / plan.nx_c, 1.0,
                           _UPS_FC, _UPS_D, _UPS_BETA)
+
+
+_UPSAMPLE_ON = {}      # (nx_c, nx_i, device) -> _upsample_matrix there
+
+
+def upsample_matrix(plan: FastBpPlan, dev) -> torch.Tensor:
+    """:func:`_upsample_matrix` on ``dev``, built once per grid and device
+    (the factorized merges read it every call)."""
+    key = (plan.nx_c, plan.nx_i, torch.device(dev))
+    if key not in _UPSAMPLE_ON:
+        _UPSAMPLE_ON[key] = torch.from_numpy(_upsample_matrix(plan)).to(dev)
+    return _UPSAMPLE_ON[key]
 
 
 def _upsample_matrix_l1(plan: FastBpPlan) -> np.ndarray:
@@ -594,12 +611,11 @@ def _accumulate_factor(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
     ny, nx, nxc = plan.ny_i, plan.nx_i, plan.nx_c
     f_m, xi = _fm_xi(plan, dev)
     xic = _coarse_cols(nxc, nx, dev)
-    u_mat = torch.from_numpy(_upsample_matrix(plan)).to(dev)
+    u_mat = upsample_matrix(plan, dev)
     band = _band(rc2, plan)
-    n_sub = -(-num_p // sub_p)
+    ci = subaperture_anchors(num_p, sub_p, dev)
+    n_sub = ci.shape[0]
     p_pad = n_sub * sub_p
-    ci = (torch.arange(n_sub, device=dev) * sub_p + sub_p // 2).clamp(
-        max=num_p - 1)
     pa_c, pb_c, pc_c = pa[ci], pb[ci], pc[ci]
     band, wl = _edge_pad(band, p_pad, False), _edge_pad(
         torch.ones((num_p,), dtype=F32, device=dev), p_pad, False)
@@ -614,11 +630,26 @@ def _accumulate_factor(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
                 + (pb[t] - pb_c[s][None])[:, :, None] * xc
                 + (pc[t] - pc_c[s][None])[:, :, None] * xc ** 2)
         j_s = torch.sum(val * expj(d_ph) * wl[t][:, None, None], dim=0)
-        j_up = _cmatmul_real(j_s, u_mat)
-        carrier = expj(pa_c[s][:, None] + pb_c[s][:, None] * xi[None, :]
-                       + pc_c[s][:, None] * xi[None, :] ** 2)
-        img = img + carrier * j_up
+        img = merge_subaperture(img, j_s, u_mat, pa_c[s], pb_c[s], pc_c[s],
+                                xi)
     return img
+
+
+def subaperture_anchors(num_p: int, sub_p: int, dev) -> torch.Tensor:
+    """The anchor (centre) pulse of each sub-aperture of ``sub_p`` pulses,
+    min(s*sub_p + sub_p//2, P-1), so a ragged last one anchors on a live
+    pulse."""
+    return (torch.arange(-(-num_p // sub_p), device=dev) * sub_p
+            + sub_p // 2).clamp(max=num_p - 1)
+
+
+def merge_subaperture(img, j_s, u_mat, pa_c, pb_c, pc_c, xi):
+    """``img`` plus one sub-aperture's coarse inner sums ``j_s`` (ny, nx_c)
+    upsampled to the fine grid by ``u_mat`` and remodulated by its anchor
+    carrier exp(j (pa_c + pb_c xi + pc_c xi^2))."""
+    carrier = expj(pa_c[:, None] + pb_c[:, None] * xi[None, :]
+                   + pc_c[:, None] * xi[None, :] ** 2)
+    return img + carrier * _cmatmul_real(j_s, u_mat)
 
 
 def _accumulate_factor2(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
@@ -633,7 +664,7 @@ def _accumulate_factor2(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
     f_m, xi = _fm_xi(plan, dev)
     xic = _coarse_cols(nxc, nx, dev)
     xic1 = _coarse_cols(nxc1, nx, dev)
-    u_mat = torch.from_numpy(_upsample_matrix(plan)).to(dev)
+    u_mat = upsample_matrix(plan, dev)
     u12 = torch.from_numpy(_upsample_matrix_l1(plan)).to(dev)
     band = _band(rc2, plan)
 
@@ -763,10 +794,12 @@ def _finalize(img_i, phase_coeffs, pos2, vel2, t2, vf, t_mean_v,
 # --------------------------------------------------------------------------
 
 def _check_modes(accumulate: str, math_mode: str) -> None:
-    if accumulate in NOT_PORTED:
+    if accumulate in INTERPRET:
         raise NotImplementedError(
-            f"accumulate={accumulate!r} reaches a BP kernel that is not "
-            "ported yet (ops/pallas/bp_kernel.py / bp_factor_kernel.py)")
+            f"accumulate={accumulate!r}: interpret mode is not ported yet "
+            "(the port has no kernel interpreter); pass CPU tensors with "
+            f"accumulate={accumulate[:-len('_interpret')]!r} to run the "
+            "kernel's plain version")
     if accumulate not in ACCUMULATE:
         raise ValueError(f"unknown accumulate {accumulate!r}: pick one of "
                          f"{ACCUMULATE}")
@@ -795,8 +828,11 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
 
     ``accumulate``: 'xla' (plain iso-range), 'factor', 'factor2', or
     'factor_pallas' / 'factor2_pallas' (the same accumulates after the
-    hand-written fused recentre+presum CUDA kernel). Returns (ny, nx)
-    complex64.
+    hand-written fused recentre+presum CUDA kernel), 'pallas' (the
+    recentre kernel, then the pixel-tile accumulate kernel; needs a
+    ``w_win=64`` plan) or 'factor_kernel' (the recentre kernel, then the
+    coarse-tile factorized accumulate kernel where the plan takes it; see
+    :func:`accumulate_grid`). Returns (ny, nx) complex64.
     """
     from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
 
@@ -826,12 +862,12 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
             raw_spectra, pos, vel, ts, vf, p, d, plan.t_ref,
             t_mean=t_mean_v, out_rows=(p0, p1), ring_offset=ring_offset)
         plan_acc = _dc_replace(plan, band_start=plan.band_start - p0 * 128)
-    elif accumulate.endswith("_pallas"):
+    elif accumulate in KERNEL_ACCUMULATE:
         if not fft_kernel.supported(plan.nfft):
             raise ValueError(
                 f"accumulate={accumulate!r} runs the recentre kernel, which "
                 f"does not take plan.nfft={plan.nfft}: pick "
-                f"{accumulate[:-len('_pallas')]!r}")
+                f"{KERNEL_ACCUMULATE[accumulate]!r}")
         rc2, pos2, vel2, t2 = fft_kernel.recenter_presum(
             rc, pos, vel, ts, vf, p, d, plan.t_ref, filter_compress=compress,
             t_mean=t_mean_v, out_rows=(p0, p1))
@@ -854,10 +890,30 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
 
 def accumulate_grid(accumulate: str, coeffs, d: int):
     """The internal-grid image of ``accumulate`` on ``coeffs`` = (rc2, u0,
-    pa, pb, pc, b_t, c_t, plan_acc): 'factor2*' where the plan has a second
-    level, 'factor*' where it has a sub-aperture, else the plain iso-range
-    accumulate (presum ``d`` scales the sub-aperture lengths)."""
+    pa, pb, pc, b_t, c_t, plan_acc): 'pallas' the pixel-tile kernel;
+    'factor_kernel' the coarse-tile kernel where it takes the plan (on CPU
+    tensors, as in the reference, the plain accumulate of 'factor' on other
+    plans; on CUDA tensors a ValueError there); 'factor2*' where the plan
+    has a second level, 'factor*' where it has a sub-aperture, else the
+    plain iso-range accumulate (presum ``d`` scales the sub-aperture
+    lengths)."""
     plan = coeffs[-1]
+    if accumulate == "pallas":
+        from nis_sar_amtigmti_video_tpu_torch.ops.cuda import bp_kernel
+        return bp_kernel.accumulate_pallas(*coeffs)
+    if accumulate == "factor_kernel":
+        from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (
+            bp_factor_kernel)
+        if bp_factor_kernel.supported(plan):
+            return bp_factor_kernel.accumulate_factor_pallas(
+                *coeffs, max(1, plan.sub_raw // d))
+        if coeffs[0].device.type != "cpu":
+            got = (plan.w_win, plan.nx_c, plan.sub_raw, plan.ny_i, plan.nx_i)
+            raise ValueError(
+                "accumulate='factor_kernel': the coarse-tile kernel takes "
+                "w_win 32, nx_c 128, a sub-aperture and a 128-multiple grid, "
+                f"not (w_win, nx_c, sub_raw, ny_i, nx_i) = {got}: pick "
+                "'factor_pallas'")
     if accumulate.startswith("factor2") and plan.sub_raw1 > 0:
         return _accumulate_factor2(*coeffs, max(1, plan.sub_raw1 // d),
                                    plan.grp)
@@ -885,11 +941,13 @@ def focus_bp_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     """Fused range compression + fast BP + presum rescale/droop: raw pulses
     see one fast-time FFT round trip end to end. ``raw_spectra`` (from
     :func:`forward_spectra`) skips the forward transform; ``raw`` may then
-    be None, and ``ring_offset`` marks the spectra as a ring buffer."""
+    be None, and ``ring_offset`` marks the spectra as a ring buffer.
+    Without a ``plan``, 'pallas' builds one with 64-sample windows."""
     _check_modes(accumulate, math_mode)
     if plan is None:
         plan = make_plan(p, np.asarray(sat_pos), np.asarray(t_slow),
                          float(t_start),
+                         w_win=64 if accumulate == "pallas" else 32,
                          factorize=accumulate.startswith("factor"))
     img = backproject_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, p, plan,
                            presum=presum, compress=True,

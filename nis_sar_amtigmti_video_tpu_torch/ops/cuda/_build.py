@@ -1,10 +1,15 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``nis_sar_amtigmti_video_tpu_torch/csrc`` are compiled at
-first use with ``nvcc`` into one shared library with a plain C interface,
+first use with ``nvcc``, one process per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/libnis_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu
+
+then linked into one shared library with a plain C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/kernels/libnis_kernels_<hash>.so *.o
 
 and loaded with ``ctypes``. ``build/kernels/`` sits at the root of the
 checkout; the file name carries a hash of the sources and flags, so a second
@@ -35,12 +40,13 @@ _PKG = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(SOURCE_DIR.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -59,21 +65,48 @@ def _nvcc() -> str:
     return found
 
 
+def _finish(cmd, proc) -> None:
+    """Wait for one nvcc process; raise with its message if it failed."""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{err}")
+
+
 def build() -> Path:
-    """Compile the sources unless a library for them exists; return it."""
+    """Compile the sources (in parallel) and link them unless a library
+    for them exists; return it."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(SOURCE_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    tmp = out.with_name(f"{out.name}.{tag}")
+    objs, jobs = [], []
+    try:
+        for src in sorted(SOURCE_DIR.glob("*.cu")):
+            obj = out.with_name(f"{out.stem}.{src.stem}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failure = None
+        for cmd, proc in jobs:          # wait for every job, keep the first
+            try:
+                _finish(cmd, proc)
+            except RuntimeError as e:
+                failure = failure or e
+        if failure is not None:
+            raise failure
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -256,8 +256,8 @@ def test_fused_recentre_accumulate_matches_plain_recentre(scenes):
     assert _rel(got, want) < 1e-5
 
 
-@pytest.mark.parametrize("acc", ["pallas", "pallas_interpret",
-                                 "factor_kernel", "factor_kernel_interpret"])
+@pytest.mark.parametrize("acc", ["pallas_interpret",
+                                 "factor_kernel_interpret"])
 def test_unported_accumulates_raise(scenes, acc):
     raw, traj, kw, t0, vf = scenes["static"]
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -51,7 +51,8 @@ def test_build_compiles_once_and_reuses(toolchain):
     out = _build.build()
     assert out.is_file() and out == _build.library_path()
     assert _build.build() == out
-    assert calls.read_text().count("x") == 1
+    # one compile per source, then one link; none on the second call
+    assert calls.read_text().count("x") == 2
     assert not list(out.parent.glob("*.tmp"))
 
 

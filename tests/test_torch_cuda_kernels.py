@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card: the GMTI kernels at 256^2 and at the slice's 4096^2, the
 fast-BP recentre kernels at nfft 16,384 and at the VideoSAR reference shape
-(2,500 x 22,004 samples, nfft 32,768, presum 4). Marked ``cuda``: they skip
+(2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
+kernels on synthetic operands and at the VideoSAR full width. Marked ``cuda``: they skip
 where no CUDA device is present (the kernels have no CPU mode). On a GPU
 machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q``."""
 
@@ -14,12 +15,16 @@ import torch
 from nis_sar_amtigmti_video_tpu_torch import config
 from nis_sar_amtigmti_video_tpu_torch.gmti import fused
 from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import CfarParams
-from nis_sar_amtigmti_video_tpu_torch.models import gmti
+from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
 from nis_sar_amtigmti_video_tpu_torch.ops import csa
 from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
-from nis_sar_amtigmti_video_tpu_torch.ops import bp
-from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (csa_kernel, fft_kernel,
+from nis_sar_amtigmti_video_tpu_torch.ops import bp, bp_fast
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (bp_factor_kernel,
+                                                       bp_kernel, csa_kernel,
+                                                       fft_kernel,
                                                        gmti_kernel)
+from nis_sar_amtigmti_video_tpu_torch.ops.echo import window_start_time
+from nis_sar_amtigmti_video_tpu_torch.scene import targets
 
 pytestmark = pytest.mark.cuda
 CP = CfarParams()
@@ -239,3 +244,167 @@ def test_ring_is_bit_identical(dev, case):
             torch.roll(spec, off, 0), *traj, vf, p, d, t_ref, out_rows=rows,
             ring_offset=off)[0]
         assert torch.equal(got, want), off
+
+
+# --------------------------------------------------------------------------
+# fast-BP accumulate kernels
+# --------------------------------------------------------------------------
+
+def _acc_operands(dev, n_p, ny, nx, w, seed, scales, stride=1, nx_c=0,
+                  sub_raw=0):
+    """tests/test_bp_fast.py's synthetic accumulate operands, on the card:
+    band_start 7 of 512 samples per pulse."""
+    plan = bp_fast.FastBpPlan(ny_i=ny, nx_i=nx, w_win=w, stride=stride,
+                              band_start=7, nfft=512, dx_m=1.0, t_ref=1e-3,
+                              n_org=100.0, sub_raw=sub_raw, nx_c=nx_c)
+    u0_mid, pb_s, pc_s, bt_s, ct_s = scales
+    rng = np.random.default_rng(seed)
+    rc2 = (rng.standard_normal((n_p, 512))
+           + 1j * rng.standard_normal((n_p, 512))).astype(np.complex64)
+    f32 = np.float32
+    ops = (rc2, (u0_mid + 2.0 * rng.standard_normal((n_p, ny))).astype(f32),
+           rng.uniform(-3, 3, (n_p, ny)).astype(f32),
+           (pb_s * rng.standard_normal((n_p, ny))).astype(f32),
+           (pc_s * rng.standard_normal((n_p, ny))).astype(f32),
+           (bt_s * rng.standard_normal(n_p)).astype(f32),
+           (ct_s * rng.standard_normal(n_p)).astype(f32))
+    return tuple(torch.from_numpy(a).to(dev) for a in ops), plan
+
+
+def _collect_operands(dev, factor):
+    """Full width: config.videosar()'s first CPI of seeded raw pulses
+    through the fused recentre kernel and the coefficient fit, with the
+    collect's 64-sample-window plan (pixel) or the first CPI's factor plan;
+    the accumulate sees a band_start relative to the kernel's band rows."""
+    sc = config.videosar()
+    g, r, v = sc.geometry, sc.radar, sc.video
+    opts = videosar.spotlight_echo_opts(
+        sc, videosar.antenna_length_for_swath(sc, sc.processing.bp_scene_size_m))
+    t0 = window_start_time(g.slant_range_m, opts, sc.collect.window_length_s,
+                           "centered")
+    p = videosar.bp_params_for(sc, opts)
+    d = bp.presum_factor(p, r.prf_hz, r.wavelength_m, g.slant_range_m,
+                         g.effective_velocity_mps)
+    cpi = v.cpi_pulses(r.prf_hz)
+    traj = orbit.make_trajectory(g, np.linspace(
+        -v.duration_s / 2.0, v.duration_s / 2.0, v.total_pulses(r.prf_hz)))
+    n = cpi if factor else len(traj.times)
+    plan = bp_fast.make_plan(p, traj.positions[:n], traj.times[:n], float(t0),
+                             w_win=32 if factor else 64, factorize=factor)
+    rng = np.random.default_rng(8)
+    rc = torch.from_numpy((rng.standard_normal((cpi, opts.num_samples))
+                           + 1j * rng.standard_normal((cpi, opts.num_samples))
+                           ).astype(np.complex64)).to(dev)
+    tr = [torch.as_tensor(a[:cpi], device=dev) for a in
+          (traj.positions, traj.velocities, traj.times)]
+    vf = torch.tensor([3.0, -2.0, 0.0], dtype=torch.float64, device=dev)
+    rows = bp_fast.band_rows(plan)
+    t_mean = tr[2].mean()
+    rc2, pos2, vel2, t2 = fft_kernel.recenter_presum(
+        rc, *tr, vf, p, d, plan.t_ref, t_mean=t_mean, out_rows=rows)
+    rdir, cdir, dy = bp_fast._frame_geometry(pos2[pos2.shape[0] // 2], p,
+                                             plan)
+    co = bp_fast._fit_coeffs(pos2, vel2, t2, vf, p, plan, t_mean, rdir, cdir,
+                             dy, fit_stride=16 if factor else 0)
+    plan_acc = dataclasses.replace(plan,
+                                   band_start=plan.band_start - rows[0] * 128)
+    return (rc2, *(c.contiguous() for c in co)), plan_acc, d
+
+
+PIXEL_SCALES = (30.0, 0.01, 1e-4, 0.05, 1e-4)
+FACTOR_SCALES = (15.0, 0.003, 3e-6, 0.01, 1e-5)
+
+
+@pytest.mark.parametrize("n_p,stride", [(5, 1), (21, 2), (300, 1)])
+def test_accumulate_pallas_matches_plain(dev, n_p, stride):
+    """21 and 300 pulses are not multiples of the TPU kernel's 16-pulse
+    block; two launches are bit-identical (no atomics)."""
+    ops, plan = _acc_operands(dev, n_p, 128, 256, 64, 3, PIXEL_SCALES,
+                              stride)
+    before = bp_kernel.accumulate_pallas.launches
+    got = bp_kernel.accumulate_pallas(*ops, plan)
+    torch.cuda.synchronize()
+    assert bp_kernel.accumulate_pallas.launches == before + 1
+    assert _rel(got, bp_kernel.accumulate_pallas_plain(*ops, plan)) <= 1e-4
+    assert torch.equal(got, bp_kernel.accumulate_pallas(*ops, plan))
+
+
+@pytest.mark.parametrize("n_p,sub_p", [(11, 4), (130, 64)])
+def test_accumulate_factor_matches_plain(dev, n_p, sub_p):
+    """Ragged last sub-apertures (3 of 4 and 2 of 64 pulses)."""
+    ops, plan = _acc_operands(dev, n_p, 128, 512, 32, 5, FACTOR_SCALES,
+                              nx_c=128, sub_raw=sub_p)
+    before = bp_factor_kernel.accumulate_factor_pallas.launches
+    got = bp_factor_kernel.accumulate_factor_pallas(*ops, plan, sub_p)
+    torch.cuda.synchronize()
+    assert bp_factor_kernel.accumulate_factor_pallas.launches == before + 1
+    want = bp_factor_kernel.accumulate_factor_pallas_plain(*ops, plan, sub_p)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("factor", [False, True])
+def test_accumulate_kernels_match_plain_full_width(dev, factor):
+    ops, plan, d = _collect_operands(dev, factor)
+    assert plan.band_start > 0
+    if factor:
+        assert bp_factor_kernel.supported(plan)
+        sub_p = plan.sub_raw // d
+        got = bp_factor_kernel.accumulate_factor_pallas(*ops, plan, sub_p)
+        want = bp_factor_kernel.accumulate_factor_pallas_plain(*ops, plan,
+                                                               sub_p)
+    else:
+        assert bp_kernel.supported(plan)
+        got = bp_kernel.accumulate_pallas(*ops, plan)
+        want = bp_kernel.accumulate_pallas_plain(*ops, plan)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("sub_raw,nx_c", [(0, 128), (4, 64)])
+def test_factor_kernel_route_raises_where_the_kernel_refuses(dev, sub_raw,
+                                                             nx_c):
+    """On the card, accumulate='factor_kernel' never runs a plain
+    accumulate: a plan the kernel refuses raises, naming the route that
+    takes it."""
+    ops, plan = _acc_operands(dev, 11, 128, 512, 32, 5, FACTOR_SCALES,
+                              nx_c=nx_c, sub_raw=sub_raw)
+    before = bp_factor_kernel.accumulate_factor_pallas.launches
+    with pytest.raises(ValueError, match="pick 'factor_pallas'"):
+        bp_fast.accumulate_grid("factor_kernel", (*ops, plan), 1)
+    assert bp_factor_kernel.accumulate_factor_pallas.launches == before
+
+
+def test_run_fast_pallas_raises_on_a_plan_the_kernel_refuses(dev):
+    """A 480 m scene at the 512-sample window gives a 400-row w_win=64
+    plan; on the card 'fast_pallas' raises instead of running 'fast'."""
+    sc = config.videosar()
+    sc = sc.replace(
+        radar=dataclasses.replace(sc.radar, bandwidth_hz=120e6,
+                                  pulse_width_s=2e-6, fs_hz=150e6,
+                                  prf_hz=1000.0),
+        collect=dataclasses.replace(sc.collect, window_length_s=512 / 150e6),
+        processing=dataclasses.replace(sc.processing, bp_grid=48,
+                                       bp_scene_size_m=480.0),
+        video=config.VideoConfig(duration_s=1.0, fps=5.0, cpi_s=0.4))
+    with pytest.raises(ValueError, match="pick 'fast'"):
+        videosar.run(sc, targets.point_target((0.0, 0.0, 0.0), 50.0),
+                     heading_deg=90.0, speed_mps=30.0, algorithm="mbp",
+                     bp_backend="fast_pallas", device=dev)
+
+
+def test_accumulate_wrappers_reject_bad_operands(dev):
+    ops, plan = _acc_operands(dev, 5, 128, 256, 64, 3, PIXEL_SCALES)
+    bad = {1: (lambda x: x.double(), TypeError, "float32"),
+           2: (lambda x: x.cpu(), ValueError, "on cpu"),
+           3: (lambda x: x[:, :64], ValueError, "shape"),
+           4: (lambda x: x.t().contiguous().t(), ValueError, "contiguous"),
+           0: (lambda x: x.to(torch.complex128), TypeError, "complex64")}
+    for i, (f, err, match) in bad.items():
+        args = list(ops)
+        args[i] = f(args[i])
+        with pytest.raises(err, match=match):
+            bp_kernel.accumulate_pallas(*args, plan)
+    fops, fplan = _acc_operands(dev, 11, 128, 512, 32, 5, FACTOR_SCALES,
+                                nx_c=128, sub_raw=4)
+    with pytest.raises(ValueError, match="shape"):
+        bp_factor_kernel.accumulate_factor_pallas(fops[0], fops[1][:, :64],
+                                                  *fops[2:], fplan, 4)

@@ -167,8 +167,6 @@ ERRORS = {
     "segments": (ValueError, "segment-aligned",
                  dict(sc=_stream(tcfg), bp_backend="fast_factor",
                       stream_spectra=True, num_frames=1)),
-    "fast_pallas": (NotImplementedError, "not ported yet",
-                    dict(bp_backend="fast_pallas")),
     "csa_pallas": (NotImplementedError, "not ported yet",
                    dict(algorithm="csa", sc=_reduced(tcfg).replace(
                        processing=dataclasses.replace(
