@@ -5,17 +5,20 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/gmti/fused.py``:
 * :func:`gmti_product_step` — the products composed after formation
   (balance sum + peak, then phase / DPCA power / CFAR) in plain PyTorch.
 * :func:`gmti_cpi` / :class:`GmtiCpi` — raw phase-history planes in, SLC
-  planes + products out, through the four kernels of ``ops/cuda``:
+  planes + products out, through the kernels of ``ops/cuda``:
 
     K1g   azimuth FFT + Phi1 for both channels, raw balance sums
     K2    range FFT -> Phi2 -> range IFFT -> Phi3 for both channels
     K3g   azimuth IFFT; SLCs, ATI phase, |s1|^2, DPCA power, column box sums
     K4    range box sums, noise / SNR, phase mask, dmag
 
+  or, with ``k1_impl='split'`` (the reference's other route), the raw
+  balance kernel, then K1 and K2 single for each channel, then K3g and K4.
   Between them only scalars are reduced on the device: cal =
-  atan2(sum im, sum re) of K1g's per-column sums, and peak2 = max of K3g's
-  per-column peaks. The reference's TPU tiling knobs (mode, variants, rows,
-  implementations) have no counterpart here.
+  atan2(sum im, sum re) of the balance partial sums, and peak2 = max of
+  K3g's per-column peaks. The reference's other TPU knobs (mode, variants,
+  rows, ``balance_impl``, ``k2_impl``, ``epilogue``) have no counterpart
+  here.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from torch import nn
 from nis_sar_amtigmti_video_tpu_torch.gmti import cfar as cfar_mod
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import csa_kernel, gmti_kernel
+
+K1_IMPLS = ("fused2ch", "split")
 
 
 def gmti_product_step(s1, s2, *, balance: bool = True,
@@ -82,19 +87,37 @@ class GmtiCpi(nn.Module):
     def factors(self) -> CsaFactors:
         return CsaFactors(*(getattr(self, n) for n in CsaFactors._fields))
 
+    def _k12(self, xr, xi, f: CsaFactors):
+        """K1 then K2 single on one channel's raw planes."""
+        zr, zi = csa_kernel.k1_call(xr, xi, f, twiddles=self.tw_az)
+        return csa_kernel.k2_call(zr, zi, f, twiddles=self.tw_rg)
+
     def forward(self, x1r, x1i, x2r, x2i, *, balance: bool = True,
-                mask_threshold: float = 0.05):
-        """Returns (s1r, s1i, s2r, s2i, cal, phase, dmag, CfarResult)."""
+                mask_threshold: float = 0.05, k1_impl: str = "fused2ch"):
+        """Returns (s1r, s1i, s2r, s2i, cal, phase, dmag, CfarResult).
+
+        k1_impl: 'fused2ch' (K1g with the balance sums riding its read, K2
+        pair) or 'split' (the raw balance kernel, then K1 and K2 single for
+        each channel); the same products to f32 rounding."""
+        if k1_impl not in K1_IMPLS:
+            raise ValueError(f"unknown k1_impl {k1_impl!r}: "
+                             f"{' | '.join(K1_IMPLS)}")
         p = self.cfar_params
         h_out, h_in = p.guard + p.train, p.guard
         f = self.factors()
-        z1r, z1i, z2r, z2i, xs_re, xs_im = gmti_kernel.k1_gmti_planes(
-            x1r, x1i, x2r, x2i, f, balance=balance, twiddles=self.tw_az)
+        if k1_impl == "fused2ch":
+            z1r, z1i, z2r, z2i, xs_re, xs_im = gmti_kernel.k1_gmti_planes(
+                x1r, x1i, x2r, x2i, f, balance=balance, twiddles=self.tw_az)
+            z1r, z1i, z2r, z2i = csa_kernel.k2_pair_call(
+                z1r, z1i, z2r, z2i, f, twiddles=self.tw_rg)
+        else:
+            if balance:
+                xs_re, xs_im = gmti_kernel.raw_balance(x1r, x1i, x2r, x2i)
+            z1r, z1i, z2r, z2i = (
+                *self._k12(x1r, x1i, f), *self._k12(x2r, x2i, f))
         cal = (torch.atan2(xs_im, xs_re) if balance
                else torch.zeros((), dtype=torch.float32, device=x1r.device))
         cal_cs = torch.stack([torch.cos(cal), torch.sin(cal)])
-        z1r, z1i, z2r, z2i = csa_kernel.k2_pair_call(
-            z1r, z1i, z2r, z2i, f, twiddles=self.tw_rg)
         (s1r, s1i, s2r, s2i, ph_raw, mag, power, cso, csi,
          peaks) = gmti_kernel.k3_gmti_planes(
             z1r, z1i, z2r, z2i, cal_cs, h_out=h_out, h_in=h_in,
@@ -111,14 +134,16 @@ class GmtiCpi(nn.Module):
 
 def gmti_cpi(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance: bool = True,
              mask_threshold: float = 0.05,
-             cfar_params: cfar_mod.CfarParams | None = None):
+             cfar_params: cfar_mod.CfarParams | None = None,
+             k1_impl: str = "fused2ch"):
     """Full two-channel GMTI CPI — (n_az, n_rg) float32 raw planes of both
     channels in, SLC planes + products out — on the planes' device.
 
     Same products as :func:`gmti_product_step` composed after formation, to
     f32 rounding (the balance sum runs over the raw pair; see
-    ``ops/cuda/gmti_kernel.py``). Returns (s1r, s1i, s2r, s2i, cal, phase,
-    dmag, CfarResult)."""
+    ``ops/cuda/gmti_kernel.py``). ``k1_impl``: 'fused2ch' or 'split' (see
+    :meth:`GmtiCpi.forward`). Returns (s1r, s1i, s2r, s2i, cal, phase, dmag,
+    CfarResult)."""
     cpi = GmtiCpi(f, cfar_params).to(x1r.device)
     return cpi(x1r, x1i, x2r, x2i, balance=balance,
-               mask_threshold=mask_threshold)
+               mask_threshold=mask_threshold, k1_impl=k1_impl)

@@ -79,12 +79,17 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
     """DPCA shift -> dual CSA -> ATI/DPCA/velocity/CFAR products, on the
     device of ``raw2ch`` ((2, P, Ns) complex64, or a pair of channels).
 
-    path: 'composed' (CSA x2 with torch.fft, then the products op by op),
-    'kernel_fused' (gmti/fused.py::gmti_cpi: the four CUDA kernels on a CUDA
-    device, their plain versions on the CPU; needs a CPI shape the kernels
-    take, else ValueError), or 'auto' (kernel_fused where the config opted
-    into the kernel numeric class with ``sc.processing.fft_impl='pallas'``,
-    the shape is supported and the data is on CUDA; composed otherwise).
+    path: 'composed' (CSA x2 through ``ops/csa.py::apply_csa_fused`` with
+    ``sc.processing.fft_impl``: torch.fft, or with 'pallas' the K1 / K2 /
+    K3 kernels; then the products op by op), 'kernel_fused'
+    (gmti/fused.py::gmti_cpi: the four CUDA kernels on a CUDA device, their
+    plain versions on the CPU; needs a CPI shape the kernels take, else
+    ValueError), or 'auto' (kernel_fused where the config opted into the
+    kernel numeric class with ``sc.processing.fft_impl='pallas'``, the
+    shape is supported and the data is on CUDA; composed otherwise).
+    With 'pallas' at a shape the kernels do not take, the composed route
+    runs torch.fft on the CPU and raises ValueError on the card, under
+    'auto' as under 'composed': ``fft_impl='auto'`` takes any shape.
     """
     r, g = sc.radar, sc.geometry
     raw1, raw2 = dpca.pulse_shift_coregister(raw2ch[0], raw2ch[1],
@@ -124,8 +129,9 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
         # cancellation ratio on the kernel's |dpca| plane (abs is a no-op)
         ratio = dpca.cancellation_ratio(slc1, dmag)
     else:
-        slc1 = csa_ops.apply_csa_fused(raw1, f)
-        slc2 = csa_ops.apply_csa_fused(raw2, f)
+        fft_impl = sc.processing.fft_impl
+        slc1 = csa_ops.apply_csa_fused(raw1, f, fft_impl)
+        slc2 = csa_ops.apply_csa_fused(raw2, f, fft_impl)
         cal = ati.channel_balance_phase(slc1, slc2)
         if balance:
             slc2 = ati.apply_balance(slc2, cal)

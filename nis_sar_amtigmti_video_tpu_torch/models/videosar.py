@@ -16,8 +16,9 @@ generator of (seed, schedule index of f), segment s from (seed,
 The fast backends run the hand-written CUDA kernels of ``ops/cuda/`` on the
 card: the recentre kernels (``fft_kernel.py``) for the ``*_pallas``
 backends and the streaming modes, and the pixel-tile accumulate
-(``bp_kernel.py``) for ``'fast_pallas'``; on CPU tensors each runs its
-plain version.
+(``bp_kernel.py``) for ``'fast_pallas'``, and the CSA kernels
+(``csa_kernel.py``) for ``algorithm='csa'`` with ``fft_impl='pallas'``; on
+CPU tensors each runs its plain version.
 """
 
 from __future__ import annotations
@@ -120,18 +121,19 @@ def form_frames_bp(raw_frames, pos_frames, vel_frames, t_frames, vel_focus,
 
 def form_frames_csa(raw_frames, p: csa_ops.CsaParams, fused: bool = True,
                     fft_impl: str = "xla"):
-    """CSA formation: (F, cpi, Ns) -> (F, cpi, Ns) SLC frames (torch.fft).
-    ``fft_impl='pallas'`` reaches the single-channel CSA kernels, which are
-    not ported yet."""
-    if fft_impl == "pallas":
-        raise NotImplementedError(
-            "fft_impl='pallas' reaches the single-channel CSA kernels (K1, "
-            "K2 single, K3), which are not ported yet")
+    """CSA formation: (F, cpi, Ns) -> (F, cpi, Ns) SLC frames. ``fused``:
+    the grid-free ``apply_csa_fused`` with ``fft_impl`` (torch.fft, or
+    'pallas': the K1 / K2 / K3 kernels where they take (cpi, Ns), torch.fft
+    on the CPU elsewhere, a ValueError on the card elsewhere, e.g. at
+    config.videosar()'s 2,500 x 22,004); else the grid-phase ``apply_csa``,
+    which has no kernel route and raises for 'pallas' as the reference
+    does."""
     dev = raw_frames.device
     if fused:
         return csa_ops.apply_csa_fused(raw_frames,
-                                       csa_ops.csa_factors(p, dev))
-    return csa_ops.apply_csa(raw_frames, csa_ops.csa_phases(p, dev))
+                                       csa_ops.csa_factors(p, dev), fft_impl)
+    return csa_ops.apply_csa(raw_frames, csa_ops.csa_phases(p, dev),
+                             fft_impl)
 
 
 def simulate_cpi(sc: ScenarioConfig, targets: PointTargets, traj_slice,
@@ -163,8 +165,12 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     ``device`` (None: the card; a RuntimeError where there is none).
 
     algorithm: 'mbp' (focus on the target velocity), 'stdbp' (zero focus
-    velocity) or 'csa'. ``frame_indices`` selects a subset of schedule
-    frames. ``seed`` turns noise on (None: noise-free).
+    velocity) or 'csa' (:func:`form_frames_csa` with
+    ``sc.processing.csa_fused`` and ``fft_impl``; with 'pallas' at the full
+    VideoSAR width, 2,500 x 22,004 per CPI, not a power of two, it raises
+    ValueError on the card and runs torch.fft on the CPU).
+    ``frame_indices`` selects a subset of schedule frames. ``seed`` turns
+    noise on (None: noise-free).
 
     bp_backend: 'fast' (gather-free iso-range BP), 'fast_factor' (the
     factorized accumulate; resolves to 'fast_factor2_pallas' where the plan

@@ -127,9 +127,41 @@ def expj(phase: torch.Tensor) -> torch.Tensor:
     return torch.complex(torch.cos(phase), torch.sin(phase))
 
 
-def apply_csa_fused(phist: torch.Tensor, f: CsaFactors) -> torch.Tensor:
+# The reference's FFT implementations (ops/fft.py::get_impl). Its MXU einsum
+# FFTs are a TPU device choice: here every one of them is torch.fft.
+FFT_IMPLS = ("auto", "xla", "mxu", "hybrid")
+
+
+def _check_fft_impl(fft_impl: str) -> None:
+    if fft_impl not in FFT_IMPLS:
+        raise ValueError(f"unknown fft impl {fft_impl!r}; options: "
+                         f"{', '.join(FFT_IMPLS)}")
+
+
+def apply_csa_fused(phist: torch.Tensor, f: CsaFactors,
+                    fft_impl: str = "xla") -> torch.Tensor:
     """Grid-free CSA: (..., n_az, n_rg) complex64 raw -> SLC, with the
-    phases generated inline from the 1-D factors (torch.fft throughout)."""
+    phases generated inline from the 1-D factors.
+
+    fft_impl: 'auto' | 'xla' | 'mxu' | 'hybrid' run torch.fft; 'pallas' runs
+    the three CSA kernels (``ops/cuda/csa_kernel.py::apply_csa_pallas``:
+    launched on CUDA tensors, their plain versions on CPU tensors) where
+    :func:`csa_kernel.supported` takes the shape. Elsewhere 'pallas' runs
+    torch.fft on the CPU, as the reference falls back, and raises
+    ValueError on the card (``fft_impl='auto'`` takes any shape there)."""
+    if fft_impl == "pallas":
+        # imported here: ops/cuda/csa_kernel imports this module
+        from nis_sar_amtigmti_video_tpu_torch.ops.cuda import csa_kernel
+        shape = tuple(phist.shape[-2:])
+        if csa_kernel.supported(*shape):
+            return csa_kernel.apply_csa_pallas(phist, f)
+        if phist.device.type != "cpu":
+            raise ValueError(
+                f"fft_impl='pallas': the CSA kernels take power-of-two "
+                f"sides in [{csa_kernel.MIN_N}, {csa_kernel.MAX_N}], got "
+                f"{shape} on {phist.device}; fft_impl='auto' takes it")
+        fft_impl = "auto"
+    _check_fft_impl(fft_impl)
     u, fr = f.u[None, :], f.fr[None, :]
     s = torch.fft.fft(phist, dim=-2)
     du = u - f.w[:, None]
@@ -182,9 +214,12 @@ def csa_phases(p: CsaParams, device=None) -> CsaPhases:
     return CsaPhases(phi1, phi2, phi3)
 
 
-def apply_csa(phist: torch.Tensor, phases: CsaPhases) -> torch.Tensor:
+def apply_csa(phist: torch.Tensor, phases: CsaPhases,
+              fft_impl: str = "xla") -> torch.Tensor:
     """Complex64 CSA with precomputed phase grids: (..., n_az, n_rg) raw ->
-    SLC (torch.fft throughout)."""
+    SLC (torch.fft throughout). ``fft_impl`` is checked as the reference's
+    ``get_impl`` checks it: 'pallas' is no grid-phase route and raises."""
+    _check_fft_impl(fft_impl)
     s = torch.fft.fft(phist, dim=-2) * phases.phi1
     s = torch.fft.fft(s, dim=-1) * phases.phi2
     s = torch.fft.ifft(s, dim=-1) * phases.phi3

@@ -1,10 +1,21 @@
-"""CSA range pass for both GMTI channels: the K2 pair kernel.
+"""CSA focusing in three kernels: K1, K2 (one channel or the GMTI pair), K3.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/csa_kernel.py``
-(``supported``, ``k2_pair_call``). The CUDA source is
-``csrc/csa_kernel.cu``; :func:`k2_pair_plain` is its plain PyTorch version,
-which the wrapper runs for CPU tensors. The other kernels of that module
-(single-channel K1 / K2 / K3) are not ported yet.
+(``supported``, ``_k1_call``, ``_k2_call``, ``_k3_call``, ``k2_pair_call``,
+``apply_csa_pallas_planes``, ``apply_csa_pallas``):
+
+    K1   azimuth FFT x Phi1                      (csrc/gmti_kernel.cu, K1g's
+                                                  column pass for one channel)
+    K2   range FFT -> Phi2 -> range IFFT -> Phi3 (csrc/csa_kernel.cu)
+    K3   azimuth IFFT (1/N)                      (csrc/gmti_kernel.cu, K3g's
+                                                  column load and FFT)
+
+Beside each wrapper is its plain PyTorch version (``*_plain``, same
+signature and return tuple), which the wrapper runs for CPU tensors; for
+CUDA tensors it launches the kernel or raises. The kernels write new
+tensors and never the caller's inputs. The reference's TPU knobs (``mode``,
+``k2_variant``, ``lead_variant``, ``k2_rows``) are layout and precision
+twins of the same function and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -57,20 +68,42 @@ def twiddles_for(name: str, twiddles, n: int, device) -> torch.Tensor:
     return twiddles
 
 
-def k2_pair_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
-    """Plain version of :func:`k2_pair_call` (torch.fft; ``twiddles`` is
-    accepted for the same signature and unused)."""
+def _k2_phases(f: CsaFactors):
+    """(Phi2, Phi3) as complex64 (n_az, n_rg) grids: the plain versions'
+    form of the phases K2 evaluates inline."""
     ph2 = (f.alpha[:, None] * f.fr[None, :] + f.beta[:, None]) \
         * f.fr[None, :]
     ph3 = f.rphase[:, None] + f.cphase[None, :] \
         + f.g[:, None] * f.dr[None, :] - f.c3[:, None] * (f.u * f.u)[None, :]
-    phi2, phi3 = expj(ph2), expj(ph3)
-    out = []
-    for xr, xi in ((x1r, x1i), (x2r, x2i)):
-        s = torch.fft.fft(torch.complex(xr, xi), dim=-1) * phi2
-        s = torch.fft.ifft(s, dim=-1) * phi3
-        out += [s.real.contiguous(), s.imag.contiguous()]
-    return tuple(out)
+    return expj(ph2), expj(ph3)
+
+
+def _range_pass(xr, xi, phi2, phi3):
+    s = torch.fft.fft(torch.complex(xr, xi), dim=-1) * phi2
+    s = torch.fft.ifft(s, dim=-1) * phi3
+    return s.real.contiguous(), s.imag.contiguous()
+
+
+def k2_pair_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
+    """Plain version of :func:`k2_pair_call` (torch.fft; ``twiddles`` is
+    accepted for the same signature and unused)."""
+    phi2, phi3 = _k2_phases(f)
+    return (*_range_pass(x1r, x1i, phi2, phi3),
+            *_range_pass(x2r, x2i, phi2, phi3))
+
+
+def _k2_args(name, planes, f: CsaFactors, twiddles):
+    """Checks the planes and factors of a K2 launch; returns (n_az, n_rg,
+    the factor tensors in the launcher's order, the twiddle table)."""
+    n_az, n_rg = plane_shape(name, planes[0])
+    dev = planes[0].device
+    _build.check(name, planes, (n_az, n_rg), dev)
+    usq = f.u * f.u
+    _build.check(name, (f.fr, f.cphase, f.dr, usq), (n_rg,), dev)
+    _build.check(name, (f.alpha, f.beta, f.rphase, f.g, f.c3), (n_az,), dev)
+    tw = twiddles_for(name, twiddles, n_rg, dev)
+    return n_az, n_rg, (f.fr, f.alpha, f.beta, f.cphase, f.dr, usq, f.rphase,
+                        f.g, f.c3, tw)
 
 
 def k2_pair_call(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
@@ -82,20 +115,146 @@ def k2_pair_call(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
     run :func:`k2_pair_plain`; CUDA tensors launch the kernel."""
     if _build.on_cpu(x1r):
         return k2_pair_plain(x1r, x1i, x2r, x2i, f)
-    n_az, n_rg = plane_shape("k2_pair_call", x1r)
-    dev = x1r.device
-    _build.check("k2_pair_call", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
-    usq = f.u * f.u
-    _build.check("k2_pair_call", (f.fr, f.cphase, f.dr, usq), (n_rg,), dev)
-    _build.check("k2_pair_call", (f.alpha, f.beta, f.rphase, f.g, f.c3),
-                 (n_az,), dev)
-    tw = twiddles_for("k2_pair_call", twiddles, n_rg, dev)
+    planes = (x1r, x1i, x2r, x2i)
+    n_az, n_rg, fac = _k2_args("k2_pair_call", planes, f, twiddles)
     out = [torch.empty_like(x1r) for _ in range(4)]
-    _build.launch("k2_pair_launch",
-                  (x1r, x1i, x2r, x2i, f.fr, f.alpha, f.beta, f.cphase,
-                   f.dr, usq, f.rphase, f.g, f.c3, tw, *out), (n_az, n_rg))
+    _build.launch("k2_pair_launch", (*planes, *fac, *out), (n_az, n_rg))
     k2_pair_call.launches += 1
     return tuple(out)
 
 
 k2_pair_call.launches = 0
+
+
+def k2_plain(xr, xi, f: CsaFactors, *, twiddles=None):
+    """Plain version of :func:`k2_call`."""
+    return _range_pass(xr, xi, *_k2_phases(f))
+
+
+def k2_call(xr, xi, f: CsaFactors, *, twiddles=None):
+    """K2 for one channel: :func:`k2_pair_call`'s pass, the same code per
+    channel, so its result is the pair's for that channel bit for bit.
+
+    (n_az, n_rg) float32 planes in, two planes out. ``twiddles``: the
+    n_rg-point table (built when None)."""
+    if _build.on_cpu(xr):
+        return k2_plain(xr, xi, f)
+    n_az, n_rg, fac = _k2_args("k2_call", (xr, xi), f, twiddles)
+    out = [torch.empty_like(xr) for _ in range(2)]
+    _build.launch("k2_launch", (xr, xi, *fac, *out), (n_az, n_rg))
+    k2_call.launches += 1
+    return tuple(out)
+
+
+k2_call.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K1 and K3: the single-channel azimuth passes
+# --------------------------------------------------------------------------
+
+def k1_plain(xr, xi, f: CsaFactors, *, twiddles=None):
+    """Plain version of :func:`k1_call`."""
+    du = f.u[None, :] - f.w[:, None]
+    z = torch.fft.fft(torch.complex(xr, xi), dim=0) \
+        * expj(f.c1[:, None] * du * du)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def k1_call(xr, xi, f: CsaFactors, *, twiddles=None):
+    """Azimuth FFT of one channel times Phi1 = exp(j c1(a) (u(r) - w(a))^2),
+    Phi1 on natural azimuth frequencies: K1g's column pass for one channel
+    (the same code, so its result is K1g's for that channel bit for bit).
+
+    (n_az, n_rg) float32 planes in, two planes out. ``twiddles``: the
+    n_az-point table (built when None)."""
+    if _build.on_cpu(xr):
+        return k1_plain(xr, xi, f)
+    n_az, n_rg = plane_shape("k1_call", xr)
+    dev = xr.device
+    _build.check("k1_call", (xr, xi), (n_az, n_rg), dev)
+    _build.check("k1_call", (f.u,), (n_rg,), dev)
+    _build.check("k1_call", (f.c1, f.w), (n_az,), dev)
+    tw = twiddles_for("k1_call", twiddles, n_az, dev)
+    out = [torch.empty_like(xr) for _ in range(2)]
+    _build.launch("k1_launch", (xr, xi, f.u, f.c1, f.w, tw, *out),
+                  (n_az, n_rg))
+    k1_call.launches += 1
+    return tuple(out)
+
+
+k1_call.launches = 0
+
+
+def k3_plain(xr, xi, *, twiddles=None, out=None):
+    """Plain version of :func:`k3_call`."""
+    s = torch.fft.ifft(torch.complex(xr, xi), dim=0)
+    if out is None:
+        return s.real.contiguous(), s.imag.contiguous()
+    out[0].copy_(s.real)
+    out[1].copy_(s.imag)
+    return tuple(out)
+
+
+def k3_call(xr, xi, *, twiddles=None, out=None):
+    """Inverse azimuth FFT (1/N) of one channel: K3g's column load and
+    transform, so its result is K3g's SLC for that channel bit for bit.
+
+    (n_az, n_rg) float32 planes in, two planes out: new ones, or ``out``, a
+    pair of contiguous planes of that shape to write (and return).
+    ``twiddles``: the n_az-point table (built when None)."""
+    if _build.on_cpu(xr):
+        return k3_plain(xr, xi, out=out)
+    n_az, n_rg = plane_shape("k3_call", xr)
+    dev = xr.device
+    _build.check("k3_call", (xr, xi), (n_az, n_rg), dev)
+    tw = twiddles_for("k3_call", twiddles, n_az, dev)
+    if out is None:
+        out = [torch.empty_like(xr) for _ in range(2)]
+    else:
+        _build.check("k3_call", out, (n_az, n_rg), dev)
+    _build.launch("k3_launch", (xr, xi, tw, *out), (n_az, n_rg))
+    k3_call.launches += 1
+    return tuple(out)
+
+
+k3_call.launches = 0
+
+
+# --------------------------------------------------------------------------
+# public entries
+# --------------------------------------------------------------------------
+
+def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
+    """Planes-native CSA: re/im float32 (..., n_az, n_rg) raw -> re/im SLC,
+    K1 -> K2 -> K3 per plane, the twiddle tables built once per call. This
+    is the hot entry (the formation-only stream holds planes end to end).
+
+    Raises ValueError at shapes the kernels do not take (:func:`supported`)
+    on every device; ``ops/csa.py::apply_csa_fused`` routes those."""
+    n_az, n_rg = xr.shape[-2], xr.shape[-1]
+    if not supported(n_az, n_rg):
+        raise ValueError(f"apply_csa_pallas needs power-of-two sides in "
+                         f"[{MIN_N}, {MAX_N}], got {(n_az, n_rg)}")
+    lead = xr.shape[:-2]
+    xr = xr.reshape(-1, n_az, n_rg).contiguous()
+    xi = xi.reshape(-1, n_az, n_rg).contiguous()
+    dev = xr.device
+    tw_az, tw_rg = twiddle_table(n_az, dev), twiddle_table(n_rg, dev)
+    # K3 writes each SLC plane straight into its slot of the batch
+    out_r, out_i = torch.empty_like(xr), torch.empty_like(xi)
+    for zr, zi, sr, si in zip(xr, xi, out_r, out_i):
+        zr, zi = k1_call(zr, zi, f, twiddles=tw_az)
+        zr, zi = k2_call(zr, zi, f, twiddles=tw_rg)
+        k3_call(zr, zi, twiddles=tw_az, out=(sr, si))
+    return (out_r.reshape(lead + (n_az, n_rg)),
+            out_i.reshape(lead + (n_az, n_rg)))
+
+
+def apply_csa_pallas(phist, f: CsaFactors):
+    """(..., n_az, n_rg) complex64 raw -> SLC through the three kernels:
+    the same math as ``ops/csa.py::apply_csa_fused`` to f32 rounding.
+    Splits into contiguous planes and recombines; callers that hold planes
+    should use :func:`apply_csa_pallas_planes`."""
+    our, oui = apply_csa_pallas_planes(phist.real, phist.imag, f)
+    return torch.complex(our, oui)

@@ -1,16 +1,19 @@
-"""The GMTI CPI's azimuth passes and epilogue: K1g, K3g and K4.
+"""The GMTI CPI's azimuth passes and epilogue: K1g, K3g, K4 and the raw
+balance reduction.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/gmti_kernel.py``
-(``k1_gmti_planes``, ``k3_gmti_planes``, ``k4_epilogue_planes``). The CUDA
-source is ``csrc/gmti_kernel.cu``. Beside each wrapper is its plain PyTorch
-version (``*_plain``, same signature and return tuple), which the wrapper
-runs for CPU tensors; for CUDA tensors it launches the kernel or raises.
+(``k1_gmti_planes``, ``k3_gmti_planes``, ``k4_epilogue_planes``,
+``raw_balance_pallas``). The CUDA source is ``csrc/gmti_kernel.cu``.
+Beside each wrapper is its plain PyTorch version (``*_plain``, same
+signature and return tuple), which the wrapper runs for CPU tensors; for
+CUDA tensors it launches the kernel or raises.
 
 Why the balance phase can come from the raw pair: K1 = Phi1 . W_az and the
 range pass K2 are unitary up to a positive scale and K3 is W_az^H / N_az,
 so sum(s1 conj s2) over the image is a positive multiple of the same sum
 over the raw phase histories, and angle() ignores the scale. K1g therefore
-returns the raw sums and the caller takes atan2 before K3g.
+returns the raw sums and the caller takes atan2 before K3g; the split CPI
+(single-channel K1 and K2) takes them from :func:`raw_balance`.
 """
 
 from __future__ import annotations
@@ -38,8 +41,7 @@ def k1_gmti_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
         z = torch.fft.fft(torch.complex(xr, xi), dim=0) * phi1
         out += [z.real.contiguous(), z.imag.contiguous()]
     if balance:
-        xs_re = torch.sum(x1r * x2r + x1i * x2i)
-        xs_im = torch.sum(x1i * x2r - x1r * x2i)
+        xs_re, xs_im = raw_balance_plain(x1r, x1i, x2r, x2i)
     else:
         xs_re = xs_im = torch.zeros((), dtype=torch.float32,
                                     device=x1r.device)
@@ -73,6 +75,43 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
 
 
 k1_gmti_planes.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Raw balance: sum(x1 conj x2) over the raw pair in one pass
+# --------------------------------------------------------------------------
+
+def raw_balance_plain(x1r, x1i, x2r, x2i):
+    """Plain version of :func:`raw_balance`."""
+    return (torch.sum(x1r * x2r + x1i * x2i),
+            torch.sum(x1i * x2r - x1r * x2i))
+
+
+def raw_balance(x1r, x1i, x2r, x2i):
+    """(xs_re, xs_im): re and im of sum(x1 conj x2) over the raw pair, as
+    0-d float32 tensors; the caller takes atan2. One coalesced pass over the
+    four (n_az, n_rg) planes; per-block partials reduced in a fixed order
+    (no float atomics), so a launch gives the same bits every time."""
+    if _build.on_cpu(x1r):
+        return raw_balance_plain(x1r, x1i, x2r, x2i)
+    n_az, n_rg = plane_shape("raw_balance", x1r)
+    dev = x1r.device
+    _build.check("raw_balance", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
+    if any(t.data_ptr() % 16 for t in (x1r, x1i, x2r, x2i)):
+        raise ValueError("raw_balance: planes must start on 16-byte "
+                         "boundaries (the kernel reads float4)")
+    # one slab of n_az / blocks rows per block, enough slabs to fill the
+    # card; a power of two, so it divides n_az
+    blocks = min(n_az, 512)
+    part = torch.empty((2, blocks), dtype=torch.float32, device=dev)
+    _build.launch("balance_launch", (x1r, x1i, x2r, x2i, part),
+                  (n_az, n_rg, blocks))
+    raw_balance.launches += 1
+    xs = torch.sum(part, dim=1)
+    return xs[0], xs[1]
+
+
+raw_balance.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,10 @@ from nis_sar_amtigmti_video_tpu_torch.ops.czt import czt_eval  # noqa: E402
 from nis_sar_amtigmti_video_tpu_torch.ops.interp import (  # noqa: E402
     interp_uniform)
 
+# one intra-op thread: the suite runs in several processes at once,
+# and a torch OpenMP pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
 C = 299792458.0
 SCENES = {"static": {}, "mbp": dict(vel=(12.0, 5.0, 0.0)),
           "squint": dict(t_offset=0.08), "stride2": dict(fs=360e6, ns=2048),

@@ -32,6 +32,10 @@ from nis_sar_amtigmti_video_tpu_torch.video import scheduler  # noqa: E402
 from test_torch_bp import _check, _port_oracle, _rel, _scene  # noqa: E402
 from test_torch_videosar import MOVER, _reduced, _stream  # noqa: E402
 
+# one intra-op thread: the suite runs in several processes at once,
+# and a torch OpenMP pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _operands(n_p, ny, nx, w, seed, u0_mid, pb_s, pc_s, bt_s, ct_s,
               stride=1, nx_c=0, sub_raw=0):

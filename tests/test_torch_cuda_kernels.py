@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card: the GMTI kernels at 256^2 and at the slice's 4096^2, the
+on the card: the GMTI and CSA kernels (K1g, K2 pair, K3g, K4, the raw
+balance; K1, K2 single and K3, also bit for bit against their two-channel
+twins) at 256^2 and at the slice's 4096^2, the
 fast-BP recentre kernels at nfft 16,384 and at the VideoSAR reference shape
 (2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
 kernels on synthetic operands and at the VideoSAR full width. Marked ``cuda``: they skip
@@ -117,6 +119,97 @@ def test_k4_matches_plain(dev, n):
     torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
     torch.testing.assert_close(got[3], want[3], rtol=1e-4,
                                atol=1e-6 * float(want[3].abs().max()))
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_k1_matches_plain_and_k1g(dev, n):
+    """K1 vs its plain version, and bit for bit K1g's planes for the
+    channel (k1_kernel<1> and <2> run the same code per channel)."""
+    f, x = _factors(n, dev), _planes(n, dev, 4)
+    before = csa_kernel.k1_call.launches
+    got = csa_kernel.k1_call(x[0], x[1], f)
+    torch.cuda.synchronize()
+    assert csa_kernel.k1_call.launches == before + 1
+    for a, b in zip(got, csa_kernel.k1_plain(x[0], x[1], f)):
+        assert _rel(a, b) <= 1e-4
+    pair = gmti_kernel.k1_gmti_planes(*x, f)
+    for a, b in zip(got, pair[:2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_k2_matches_plain_and_pair(dev, n):
+    f, x = _factors(n, dev), _planes(n, dev, 5)
+    got = csa_kernel.k2_call(x[2], x[3], f)
+    for a, b in zip(got, csa_kernel.k2_plain(x[2], x[3], f)):
+        assert _rel(a, b) <= 1e-4
+    pair = csa_kernel.k2_pair_call(*x, f)
+    for a, b in zip(got, pair[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_k3_matches_plain_and_k3g(dev, n):
+    x = _planes(n, dev, 6)
+    got = csa_kernel.k3_call(x[0], x[1])
+    for a, b in zip(got, csa_kernel.k3_plain(x[0], x[1])):
+        assert _rel(a, b) <= 1e-4
+    cal_cs = torch.tensor([1.0, 0.0], device=dev)
+    g = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
+    for a, b in zip(got, g[:2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_raw_balance_matches_plain_and_repeats(dev, n):
+    x = _planes(n, dev, 7)
+    got = gmti_kernel.raw_balance(*x)
+    want = gmti_kernel.raw_balance_plain(*x)
+    assert _rel(torch.stack(got), torch.stack(want)) <= 1e-4
+    d = float(torch.atan2(got[1], got[0]) - torch.atan2(want[1], want[0]))
+    assert abs(d) <= 1e-5
+    again = gmti_kernel.raw_balance(*x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_csa_pallas_refuses_shapes_on_cuda(dev):
+    """On the card fft_impl='pallas' at a shape the kernels refuse raises,
+    naming the route that takes it, under path='composed' and 'auto'
+    alike; with fft_impl='auto' both paths run torch.fft there."""
+    f = csa.csa_factors(csa.CsaParams(
+        wavelength_m=0.03, chirp_rate=6e13, fs_hz=150e6, prf_hz=6000.0,
+        velocity_mps=7600.0, range_ref_m=6e5, t_start_fast=4e-3,
+        num_pulses=192, num_samples=256), dev)
+    x = torch.zeros((192, 256), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="fft_impl='auto'"):
+        csa.apply_csa_fused(x, f, "pallas")
+    sc = config.ati_dpca()
+    sc = sc.replace(processing=dataclasses.replace(sc.processing,
+                                                   fft_impl="pallas"))
+    raw = torch.ones((2, 193, 256), dtype=torch.complex64, device=dev)
+    before = csa_kernel.k1_call.launches
+    for path in ("composed", "auto"):
+        with pytest.raises(ValueError, match="fft_impl='auto'"):
+            gmti.focus_and_products(raw, sc, 1e-3, path=path)
+    sc = sc.replace(processing=dataclasses.replace(sc.processing,
+                                                   fft_impl="auto"))
+    for path in ("composed", "auto"):
+        prod = gmti.focus_and_products(raw, sc, 1e-3, path=path)
+        assert prod.slc1.shape == (192, 256)
+    assert csa_kernel.k1_call.launches == before
+
+
+def test_split_cpi_matches_fused2ch_on_card(dev):
+    n = 256
+    f = _factors(n, dev)
+    x = _planes(n, dev, 8)
+    before = gmti_kernel.raw_balance.launches
+    a = fused.gmti_cpi(*x, f, cfar_params=CP, k1_impl="split")
+    b = fused.gmti_cpi(*x, f, cfar_params=CP)
+    assert gmti_kernel.raw_balance.launches == before + 1
+    assert abs(float(a[4]) - float(b[4])) <= 1e-5
+    for i in (0, 1, 2, 3, 6):
+        assert _rel(a[i], b[i]) <= 1e-5, i
 
 
 def test_gmti_cpi_kernel_path_matches_plain_path(dev):

@@ -21,6 +21,10 @@ from nis_sar_amtigmti_video_tpu_torch.ops import bp, bp_fast  # noqa: E402
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (  # noqa: E402
     fft_kernel)
 
+# one intra-op thread: the suite runs in several processes at once,
+# and a torch OpenMP pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
 C = 299792458.0
 NS = 10000                     # nfft 16,384 (B1 = 128)
 BP_KW = dict(fc_hz=9.65e9, chirp_rate=150e6 / 2e-6, fs_hz=180e6,

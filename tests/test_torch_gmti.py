@@ -29,6 +29,10 @@ from nis_sar_amtigmti_video_tpu_torch.ops import csa as tcsa  # noqa: E402
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (  # noqa: E402
     _build, gmti_kernel as tgk)
 
+# one intra-op thread: the suite runs in several processes at once,
+# and a torch OpenMP pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
 SIZE = 256
 CP = cfar.CfarParams(guard=2, train=8)
 JCP = jcfar.CfarParams(guard=2, train=8)

@@ -30,6 +30,10 @@ from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (  # noqa: E402
     csa_kernel, gmti_kernel)
 from nis_sar_amtigmti_video_tpu_torch.scene import clutter, targets  # noqa
 
+# one intra-op thread: the suite runs in several processes at once,
+# and a torch OpenMP pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "nis_sar_amtigmti_video_tpu_torch"
 PRESETS = ["satellite_stripmap", "satellite_moving", "ati_dpca",

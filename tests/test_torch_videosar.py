@@ -32,6 +32,10 @@ from nis_sar_amtigmti_video_tpu_torch.parallel import pipeline  # noqa
 from nis_sar_amtigmti_video_tpu_torch.scene import targets as T  # noqa
 from nis_sar_amtigmti_video_tpu_torch.video import scheduler  # noqa: E402
 
+# one intra-op thread: the suite runs in several processes at once,
+# and a torch OpenMP pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "nis_sar_amtigmti_video_tpu_torch"
 MOVER = dict(heading_deg=90.0, speed_mps=30.0, frames_per_batch=2)
@@ -167,10 +171,13 @@ ERRORS = {
     "segments": (ValueError, "segment-aligned",
                  dict(sc=_stream(tcfg), bp_backend="fast_factor",
                       stream_spectra=True, num_frames=1)),
-    "csa_pallas": (NotImplementedError, "not ported yet",
+    # the grid-phase CSA has no kernel route: 'pallas' raises, as the
+    # reference's get_impl does (the fused form runs the CSA kernels)
+    "csa_pallas": (ValueError, "unknown fft impl 'pallas'",
                    dict(algorithm="csa", sc=_reduced(tcfg).replace(
                        processing=dataclasses.replace(
-                           _reduced(tcfg).processing, fft_impl="pallas")))),
+                           _reduced(tcfg).processing, fft_impl="pallas",
+                           csa_fused=False)))),
 }
 
 
@@ -295,7 +302,10 @@ def test_every_port_module_imports_without_jax():
     mods = sorted(
         ".".join(f.relative_to(REPO).with_suffix("").parts)
         for f in PORT.rglob("*.py") if f.name != "__init__.py")
-    assert "nis_sar_amtigmti_video_tpu_torch.models.videosar" in mods
+    assert {"nis_sar_amtigmti_video_tpu_torch.models.videosar",
+            "nis_sar_amtigmti_video_tpu_torch.ops.cuda.csa_kernel",
+            "nis_sar_amtigmti_video_tpu_torch.ops.cuda.gmti_kernel",
+            "nis_sar_amtigmti_video_tpu_torch.gmti.fused"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['nis_sar_amtigmti_video_tpu'] = None\n"
