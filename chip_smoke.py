@@ -82,6 +82,37 @@ tile, coarse-tile factorized):
               8x-upsampled range data (computed once): < 0.15 dB and
               < 0.02 rad at the peak, < 1.5 % field error
 
+Then the NUFFT echo and the full-scale two-channel chain of the reference
+bench's e2e_fullscale (config.ati_dpca() at 7,200 pulses x 13,200 samples a
+channel, 500 MHz, fs 600 MHz, Tp 20 us, the centred window; the destroyer
+turned by 90 degrees plus 5,000 clutter points), through the spread (roll
+and one-accumulator orders), FFT-conv and direct-echo kernels:
+
+  10. echo    the operands of the e2e pass's first 512-pulse chunk
+              (echo.scalar_fields, echo_freq.kernel_operands): the main
+              spread (win 4,096, one set of 8 taps) and the edge spread (win
+              2,048, two sets of 6) in both orders vs the plain version on
+              its first 16 pulses (<= 1e-5 of the peak; two launches
+              bit-identical), timed on the whole chunk; the conv (512 x
+              50,420, nfft 65,536, band rows 187-394) vs its plain version
+              (<= 3e-5) beside torch.fft's fft / multiply / ifft; the
+              direct-echo kernel on the two launches of phase 12's pallas
+              path (the ship's and the clutter's scalar fields, <= 2e-4);
+              times of each launch and its plain version
+  11. e2e     multi_channel_phase_history(backend='freq') then
+              focus_and_products: spread 2 x 29 and conv 29 launches a pass,
+              a finite (2, 7200, 13200) raw and finite products; warm sim
+              pass / 2 and end to end (medians of 3); one pass under
+              torch.profiler (device busy, idle share, device time by
+              kernel and operator); the same pass through the
+              one-accumulator spread (<= 1e-5 of the peak)
+  12. gold    the freq echo vs the port's direct engine at 7,200 x 13,200 for
+              the destroyer moving at (0, 4, 0) m/s: field RMS error < -55
+              dB; after focus_and_products(balance=False), < 0.1 dB and
+              < 1e-3 rad ATI phase above 5 % of the peak; then
+              simulate_two_channel(echo_backend='pallas') on phase 4's scene
+              vs phase 4's direct raw (<= 2e-4; the kernel launches)
+
 The line before the last is a JSON record of each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A "[time]" line gives each phase's seconds. Imports neither JAX nor the JAX
@@ -105,14 +136,18 @@ from nis_sar_amtigmti_video_tpu_torch.gmti import dpca, fused
 from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import CfarParams
 from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
 from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
-from nis_sar_amtigmti_video_tpu_torch.ops import bp, bp_fast, csa
+from nis_sar_amtigmti_video_tpu_torch.models.stripmap import echo_opts_for
+from nis_sar_amtigmti_video_tpu_torch.ops import (bp, bp_fast, csa, echo,
+                                                  echo_freq)
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (_build,
                                                        bp_factor_kernel,
                                                        bp_kernel, csa_kernel,
+                                                       echo_kernel,
                                                        fft_kernel,
-                                                       gmti_kernel)
-from nis_sar_amtigmti_video_tpu_torch.ops.echo import (phase_history,
-                                                       window_start_time)
+                                                       gmti_kernel,
+                                                       spread_kernel)
+from nis_sar_amtigmti_video_tpu_torch.ops.echo import (
+    multi_channel_phase_history, phase_history, window_start_time)
 from nis_sar_amtigmti_video_tpu_torch.scene import targets
 from nis_sar_amtigmti_video_tpu_torch.scene.clutter import ocean_clutter_field
 from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (cuda_times_ms,
@@ -173,14 +208,39 @@ ACC_WRAPPERS = {
         "nis_sar_amtigmti_video_tpu/ops/pallas/bp_factor_kernel.py:230"),
 }
 BP_ALL = {**BP_WRAPPERS, **ACC_WRAPPERS}
-ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL}
+ECHO_WRAPPERS = {
+    "spread": (spread_kernel.spread_windows_pallas,
+               "nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu",
+               "nis_sar_amtigmti_video_tpu/ops/pallas/spread_kernel.py:214"),
+    "spread_qr": (spread_kernel.spread_windows_pallas,
+                  "nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu",
+                  "nis_sar_amtigmti_video_tpu/ops/pallas/spread_kernel.py:"
+                  "214"),
+    "fft_conv": (fft_kernel.fft_conv_pallas,
+                 "nis_sar_amtigmti_video_tpu_torch/csrc/fft_kernel.cu",
+                 "nis_sar_amtigmti_video_tpu/ops/pallas/fft_kernel.py:767"),
+    "echo_accumulate": (
+        echo_kernel.echo_accumulate,
+        "nis_sar_amtigmti_video_tpu_torch/csrc/echo_kernel.cu",
+        "nis_sar_amtigmti_video_tpu/ops/pallas/echo_kernel.py:123"),
+}
+ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL, **ECHO_WRAPPERS}
+# the wrapper attribute counting an entry's launches, where not .launches
+COUNTER = {"spread_qr": "launches_qr"}
 # the card's peaks for the bounds (H100 SXM data sheet, full power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# sin and cos results a second: the special-function units return 16 a
+# clock per SM against 128 f32 FMAs (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), and an FMA is 2 of
+# F32_FLOPS
+SFU_PER_S = F32_FLOPS / 16
 # f32 planes of N^2 each kernel reads plus writes (PR 1's bytes column)
 GMTI_PLANES = {"K1g": 8, "K2 pair": 8, "K3g": 13, "K4": 9}
 SHIP_SPEED, SHIP_HEADING = 15.0, 45.0
 VS_FRAMES = 6
+E2E_CHUNKS = 29        # 512-pulse chunks of the 2 x 7,200-pulse NUFFT echo
+PLAIN_CUT = 16         # pulses of a chunk the plain spread is held on
 
 
 def slice_scenario(n_pulses: int, n_samples: int):
@@ -453,13 +513,14 @@ def quartiles(t) -> str:
 
 def reset_launches():
     """Every kernel's launch counter to 0."""
-    for wrapper, _, _ in ALL_WRAPPERS.values():
-        wrapper.launches = 0
+    for k, (wrapper, _, _) in ALL_WRAPPERS.items():
+        setattr(wrapper, COUNTER.get(k, "launches"), 0)
 
 
 def launch_counts(group: dict) -> dict:
-    """Launch counters of the wrappers in ``group``."""
-    return {k: w.launches for k, (w, _, _) in group.items()}
+    """Launch counters of the entries in ``group``."""
+    return {k: getattr(w, COUNTER.get(k, "launches"))
+            for k, (w, _, _) in group.items()}
 
 
 def phase_main(dev):
@@ -682,11 +743,13 @@ def phase_golden(raw, sc, t0):
     assert not bad, bad
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float, n_sfu: float = 0.0) -> dict:
     """The least time of the work on the card: the larger of its bytes over
-    the memory rate and its f32 operations over the f32 peak."""
+    the memory rate and its operations, f32 operations over the f32 peak or
+    sin / cos results over the special-function units' rate, whichever
+    takes longer (the two units issue side by side)."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = n_flops / F32_FLOPS * 1e3
+    t_f = max(n_flops / F32_FLOPS, n_sfu / SFU_PER_S) * 1e3
     return dict(bound_ms=max(t_b, t_f),
                 bound_by="bytes" if t_b >= t_f else "operations")
 
@@ -1119,6 +1182,354 @@ def phase_bp_golden(frames: dict, raw0, tr, vf, t0, p, u=8):
     assert not bad, bad
 
 
+# --------------------------------------------------------------------------
+# the NUFFT echo and the full-scale two-channel chain
+# --------------------------------------------------------------------------
+
+def e2e_setup():
+    """bench.py's e2e_fullscale: config.ati_dpca() at 7,200 x 13,200 per
+    channel; the freq echo on a uniform grid with the centred window; the
+    destroyer turned by 90 degrees plus 5,000 seeded clutter points."""
+    sc = config.ati_dpca()
+    r, g, c = sc.radar, sc.geometry, sc.collect
+    opts = dataclasses.replace(echo_opts_for(sc), backend="freq",
+                               endpoint_grid=False)
+    t0 = window_start_time(g.slant_range_m, opts, c.window_length_s,
+                           "centered")
+    scene = targets.PointTargets.concatenate(
+        [targets.destroyer().rotate_z(90.0),
+         ocean_clutter_field(np.random.default_rng(0))])
+    traj = orbit.make_trajectory(g, orbit.slow_time_grid(
+        c.integration_time_s, c.num_pulses(r.prf_hz)))
+    return sc, opts, t0, scene, traj, sc.channels.rx_offsets()
+
+
+def e2e_sim(dev, setup, **opts_kw):
+    """One channel-batched multi_channel_phase_history of the e2e scene."""
+    sc, opts, t0, scene, traj, offs = setup
+    return multi_channel_phase_history(
+        traj, scene, dataclasses.replace(opts, **opts_kw), t_start=t0,
+        rx_offsets=offs, device=dev)
+
+
+def slice_echo_operands(dev):
+    """The direct-echo kernel's operands on the main path, phase 12's
+    simulate_two_channel(echo_backend='pallas') on phase 4's scene: the
+    scalar fields (2 x 4,097 pulses) of the ship at its velocity (35
+    targets) and of the static clutter (500), one launch each, and the
+    kernel's fast-time grid and constants."""
+    sc = slice_scenario(N + 1, N)
+    sc = sc.replace(collect=dataclasses.replace(sc.collect,
+                                                echo_backend="pallas"))
+    r, g, c = sc.radar, sc.geometry, sc.collect
+    opts = echo_opts_for(sc)
+    traj = orbit.make_trajectory(g, orbit.slow_time_grid(
+        c.integration_time_s, c.num_pulses(r.prf_hz)))
+    kw = dict(t_start=window_start_time(g.slant_range_m, opts,
+                                        c.window_length_s,
+                                        c.window_start_mode),
+              rx_offsets=sc.channels.rx_offsets(), device=dev)
+    clutter = ocean_clutter_field(np.random.default_rng(0), num_points=500)
+    return ({"ship": echo.scalar_fields(traj, targets.destroyer(), opts,
+                                        target_velocity=SHIP_VELOCITY,
+                                        **kw),
+             "clutter": echo.scalar_fields(traj, clutter, opts, **kw)},
+            echo.echo_kernel_args(opts, dev))
+
+
+def spread_work(c, v, win):
+    """(bytes, operations) of one spread launch: cells and values read once,
+    the windows written once; two adds per live target, tap and set."""
+    out = c.shape[0] * c.shape[1] * 2 * v.shape[2] * win
+    return (4.0 * (c.numel() + v.numel() + out),
+            2.0 * int((c >= 0).sum()) * v.shape[2] * v.shape[3])
+
+
+def echo_work(tau, kw):
+    """(bytes, f32 operations, sin / cos results) of one direct-echo launch,
+    and the (pulse, target, sample) triples inside the gate. The scalars
+    and the grid read once, the (P, Ns) complex64 written once; per (pulse,
+    target) 2 operations for the ends of its gate (on the uniform grid a
+    gate is one run of samples); per triple in the gate 5 operations for
+    the phase, one sin, one cos and 4 operations to accumulate. Triples
+    outside the gate need no work."""
+    t_fast = kw["t_fast"]
+    lo = tau.reshape(-1) + (kw["shift"] - kw["half"])
+    hi = tau.reshape(-1) + (kw["shift"] + kw["half"])
+    n_gate = int((torch.searchsorted(t_fast, hi, right=True)
+                  - torch.searchsorted(t_fast, lo)).sum())
+    num_p, num_b = tau.shape
+    ns = t_fast.shape[0]
+    return (4.0 * (3 * num_p * num_b + ns) + 8.0 * num_p * ns,
+            2.0 * num_p * num_b + 9.0 * n_gate, 2.0 * n_gate), n_gate
+
+
+def phase_echo_kernels(dev, setup) -> dict:
+    """Each NUFFT kernel against its plain version on the operands of the
+    e2e pass's first chunk, and the direct-echo kernel on the two launches
+    of phase 12's pallas path; the times of each launch of a chunk or a
+    pass, summed."""
+    sc, opts, t0, scene, traj, offs = setup
+    fields = echo.scalar_fields(traj, scene, opts, t_start=t0,
+                                rx_offsets=offs, device=dev)
+    ops = echo_freq.kernel_operands(*fields, opts,
+                                    **echo.synth_options(opts))
+    del fields
+    assert len(ops["spread edge"]) == 1, len(ops["spread edge"])
+    torch.cuda.synchronize(dev)
+    rec = {}
+    for qr, name in ((False, "spread"), (True, "spread_qr")):
+        parts, n_bytes, flops = {}, 0.0, 0.0
+        for part, (c, v, win) in (("main", ops["spread main"]),
+                                  ("edge", ops["spread edge"][0])):
+            got = spread_kernel.spread_windows_pallas(c, v, win, qr=qr)
+            again = spread_kernel.spread_windows_pallas(c, v, win, qr=qr)
+            want = spread_kernel.spread_windows_plain(
+                c[:PLAIN_CUT], v[:PLAIN_CUT], win, qr=qr)
+            err = rel_err(got[:PLAIN_CUT], want)
+            assert err <= 1e-5 and torch.equal(got, again), (name, part, err)
+            b, f = spread_work(c, v, win)
+            n_bytes, flops = n_bytes + b, flops + f
+            parts[part] = dict(
+                max_abs_err=float((got[:PLAIN_CUT] - want).abs().max()),
+                ms=median_ms(lambda: spread_kernel.spread_windows_pallas(
+                    c, v, win, qr=qr)),
+                plain_ms=median_ms(lambda: spread_kernel.spread_windows_plain(
+                    c, v, win, qr=qr)), **bound(b, f))
+            r = parts[part]
+            print(f"[10 echo] {name} {part}: cells {tuple(c.shape)}, values "
+                  f"{tuple(v.shape)}, win {win}; vs plain on {PLAIN_CUT} "
+                  f"pulses {err:.2e} of the peak (<= 1e-5), two launches "
+                  f"bit-identical; {r['ms']:.3f} ms vs plain "
+                  f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']}, {b / 1e6:.0f} MB)")
+            del got, again, want
+        rec[name] = dict(
+            max_abs_err=max(q["max_abs_err"] for q in parts.values()),
+            ms=sum(q["ms"] for q in parts.values()),
+            plain_ms=sum(q["plain_ms"] for q in parts.values()),
+            library_ms=None, **bound(n_bytes, flops), per_chunk=parts)
+
+    fr, fi, filt, nfft, rows = ops["conv"]
+    got = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
+    want = fft_kernel.fft_conv_plain(fr, fi, filt, nfft, out_rows=rows)
+    err = rel_err(got, want)
+    assert err <= 3e-5, err
+    field = torch.complex(fr, fi)
+    num_p, pb = fr.shape[0], rows[1] - rows[0]
+    rec["fft_conv"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=median_ms(lambda: fft_kernel.fft_conv_pallas(fr, fi, filt, nfft,
+                                                        out_rows=rows)),
+        plain_ms=median_ms(lambda: fft_kernel.fft_conv_plain(
+            fr, fi, filt, nfft, out_rows=rows)),
+        library_ms=median_ms(lambda: torch.fft.ifft(
+            torch.fft.fft(field, n=nfft, dim=-1) * filt, dim=-1)),
+        **bound(8.0 * fr.numel() + 8.0 * nfft + 8.0 * num_p * pb * 128,
+                num_p * (10.0 * nfft * math.log2(nfft) + 6.0 * nfft)))
+    r = rec["fft_conv"]
+    print(f"[10 echo] fft_conv: field {tuple(fr.shape)}, nfft {nfft}, band "
+          f"rows {rows}; vs plain {err:.2e} of the peak (<= 3e-5); "
+          f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, torch.fft "
+          f"fft / multiply / ifft {r['library_ms']:.3f} ms; bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    del got, want, field, ops
+
+    fields, kw = slice_echo_operands(dev)
+    parts, work = {}, [0.0, 0.0, 0.0]
+    for part, (tau, car, amp) in fields.items():
+        got = echo_kernel.echo_accumulate(tau, car, amp, **kw)
+        want = echo_kernel.echo_accumulate_plain(tau, car, amp, **kw)
+        err = rel_err(got, want)
+        assert err <= 2e-4, (part, err)
+        w, n_gate = echo_work(tau, kw)
+        work = [a + b for a, b in zip(work, w)]
+        parts[part] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=median_ms(lambda: echo_kernel.echo_accumulate(tau, car, amp,
+                                                             **kw)),
+            plain_ms=median_ms(lambda: echo_kernel.echo_accumulate_plain(
+                tau, car, amp, **kw)), **bound(*w))
+        r = parts[part]
+        print(f"[10 echo] echo_accumulate {part}: fields {tuple(tau.shape)}"
+              f", {kw['t_fast'].shape[0]} samples, {n_gate:.3e} triples in "
+              f"the gate; vs plain {err:.2e} of the peak (<= 2e-4); "
+              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        del got, want
+    rec["echo_accumulate"] = dict(
+        max_abs_err=max(q["max_abs_err"] for q in parts.values()),
+        ms=sum(q["ms"] for q in parts.values()),
+        plain_ms=sum(q["plain_ms"] for q in parts.values()),
+        library_ms=None, **bound(*work), per_launch=parts)
+    return rec
+
+
+def host_median_s(fn, reps: int = 3) -> float:
+    """Median host seconds of ``fn`` closed by a synchronise (warm)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times))
+
+
+def device_breakdown(fn, ours=("spread_windows", "fft_conv"),
+                     top: int = 8):
+    """One call of ``fn`` under torch.profiler: its wall seconds there, the
+    device-busy seconds (the kernels' self times summed; one stream, so
+    they do not overlap), the ``top`` PyTorch operators by the device time
+    of the kernels they launch and the kernels named in ``ours`` (launched
+    through ctypes, so under no operator), as (name, ms, calls); None where
+    the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    if busy <= 0:
+        return None
+    ops = sorted((e for e in events if e not in kernels and dev_us(e) > 0),
+                 key=dev_us, reverse=True)[:top]
+    mine = [e for e in kernels if any(n in e.key for n in ours)]
+
+    def name(key):             # a kernel's signature -> its bare name
+        key = key.replace("(anonymous namespace)::", "")
+        return key.split("(")[0].removeprefix("void ")[:60]
+
+    return wall, busy, [(name(e.key), dev_us(e) / 1e3, e.count)
+                        for e in mine + ops]
+
+
+def phase_e2e(dev, setup) -> dict:
+    """The full-scale chain: the channel-batched freq echo, then
+    focus_and_products (the composed torch.fft route at 7,200 x 13,200);
+    the launches of one pass, finite products, warm seconds; then the same
+    pass through the one-accumulator spread."""
+    sc, opts, t0 = setup[:3]
+    reset_launches()
+    raw = e2e_sim(dev, setup)
+    torch.cuda.synchronize(dev)
+    counts = launch_counts(ECHO_WRAPPERS)
+    want = {"spread": 2 * E2E_CHUNKS, "spread_qr": 0,
+            "fft_conv": E2E_CHUNKS, "echo_accumulate": 0}
+    assert counts == want, counts
+    n_p, ns = setup[4].times.shape[0], opts.num_samples
+    assert raw.shape == (2, n_p, ns), raw.shape
+    assert bool(torch.isfinite(raw).all())
+    prod = gmti.focus_and_products(raw, sc, t0)
+    planes = dict(slc1=prod.slc1, slc2=prod.slc2, ati_phase=prod.ati_phase,
+                  dpca_mag=prod.dpca_mag, velocity_map=prod.velocity_map,
+                  snr=prod.detections.snr, noise=prod.detections.noise)
+    bad = [k for k, v in planes.items() if not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite planes: {bad}"
+    shape = tuple(prod.slc1.shape)
+    n_det = int(prod.detections.detections.sum())
+    del prod, planes
+    sim_s = host_median_s(lambda: e2e_sim(dev, setup)) / 2.0
+    e2e_s = host_median_s(lambda: gmti.focus_and_products(
+        e2e_sim(dev, setup), sc, t0))
+    prof = device_breakdown(lambda: e2e_sim(dev, setup))
+    if prof is None:
+        print("[11 e2e] torch.profiler saw no device time")
+    else:
+        wall, busy, top = prof
+        print(f"[11 e2e] one two-channel pass under torch.profiler: wall "
+              f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
+              f"{1 - busy / (2 * sim_s):.3f} of the unprofiled pass "
+              f"({2 * sim_s:.4f} s); device time by kernel and operator: "
+              + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+    reset_launches()
+    raw_qr = e2e_sim(dev, setup, freq_spreader="dense_kernel_qr")
+    torch.cuda.synchronize(dev)
+    counts_qr = launch_counts(ECHO_WRAPPERS)
+    assert counts_qr["spread_qr"] == 2 * E2E_CHUNKS \
+        and counts_qr["spread"] == 0, counts_qr
+    qr_err = rel_err(raw_qr, raw)
+    assert qr_err <= 1e-5, qr_err
+    raw_shape = raw.shape
+    del raw, raw_qr
+    print(f"[11 e2e] multi_channel_phase_history(backend='freq') of "
+          f"{setup[3].num} points -> {tuple(raw_shape)} raw, launches "
+          f"{counts}; focus_and_products -> {shape} products, all finite, "
+          f"{n_det} CFAR detections; warm (medians of 3) sim pass "
+          f"{sim_s:.4f} s a channel (two-channel pass / 2), end to end "
+          f"{e2e_s:.4f} s; one-accumulator spread: launches "
+          f"{ {k: v for k, v in counts_qr.items() if v} }, raw "
+          f"{qr_err:.2e} of the peak from the roll order (<= 1e-5)")
+    return {"spread": counts["spread"], "fft_conv": counts["fft_conv"],
+            "spread_qr": counts_qr["spread_qr"]}
+
+
+def phase_echo_gold(dev, sc, raw4, sc4):
+    """The freq echo against the port's direct engine on ``sc``'s collect
+    (config.ati_dpca(): 7,200 x 13,200; the destroyer alone, moving), raw
+    and focused; then echo_backend='pallas' on phase 4's scene against
+    phase 4's raw."""
+    ship, vel = targets.destroyer().rotate_z(90.0), (0.0, 4.0, 0.0)
+    raws, prods = {}, {}
+    for backend in ("freq", "jnp"):
+        sc_b = sc.replace(collect=dataclasses.replace(
+            sc.collect, echo_backend=backend, window_start_mode="centered"))
+        raws[backend], _, t0 = gmti.simulate_two_channel(sc_b, ship, vel,
+                                                         device=dev)
+        prod = gmti.focus_and_products(raws[backend], sc_b, t0,
+                                       balance=False)
+        prods[backend] = (prod.slc1, prod.slc2)
+        del prod
+    a, b = raws["jnp"], raws["freq"]
+    shape = tuple(a.shape)
+    assert b.shape == a.shape and a.shape[1:] == (
+        sc.collect.num_pulses(sc.radar.prf_hz),
+        sc.collect.num_samples(sc.radar.fs_hz)), (a.shape, b.shape)
+    err_db = 10 * math.log10(float(((b - a).abs() ** 2).mean())
+                             / float((a.abs() ** 2).mean()))
+    del raws, a, b
+    (s1d, s2d), (s1f, s2f) = prods["jnp"], prods["freq"]
+    strong = s1d.abs() > 0.05 * s1d.abs().max()
+    db = float((20 * torch.log10(s1f.abs()[strong] / s1d.abs()[strong])
+                ).abs().max())
+    dphi = float(torch.angle((s1f * s2f.conj())[strong]
+                             * (s1d * s2d.conj())[strong].conj()).abs().max())
+    n_strong = int(strong.sum())
+    del prods, s1d, s2d, s1f, s2f, strong
+    print(f"[12 gold] freq vs direct echo at {shape}, destroyer at "
+          f"(0, 4, 0) m/s: field RMS error {err_db:.2f} dB (< -55); after "
+          f"focus_and_products(balance=False), on {n_strong} px above 5 % of"
+          f" the peak: intensity {db:.2e} dB (< 0.1), ATI phase {dphi:.2e} "
+          f"rad (< 1e-3)")
+    assert err_db < -55 and db < 0.1 and dphi < 1e-3, (err_db, db, dphi)
+
+    sc_p = sc4.replace(collect=dataclasses.replace(sc4.collect,
+                                                   echo_backend="pallas"))
+    clut = ocean_clutter_field(np.random.default_rng(0), num_points=500)
+    reset_launches()
+    raw_p = gmti.simulate_two_channel(sc_p, targets.destroyer(),
+                                      SHIP_VELOCITY, clut, device=dev)[0]
+    torch.cuda.synchronize(dev)
+    n = echo_kernel.echo_accumulate.launches
+    assert n == 2, n                       # the ship and the clutter
+    err = rel_err(raw_p, raw4)
+    assert err <= 2e-4, err
+    print(f"[12 gold] simulate_two_channel(echo_backend='pallas') on phase "
+          f"4's scene: {n} kernel launches (ship, clutter); raw {err:.2e} of"
+          f" the peak from phase 4's direct raw (<= 2e-4)")
+    return n
+
+
 def timed_phase(name, fn, *args):
     t = time.perf_counter()
     out = fn(*args)
@@ -1153,7 +1564,6 @@ def main():
     launches.update({k: form[k] for k in ("K1", "K2 single", "K3")},
                     balance=split["balance"])
     timed_phase("golden", phase_golden, raw, sc, t0)
-    del raw
     torch.cuda.empty_cache()
     rec.update(timed_phase("bp", phase_bp, dev))
     torch.cuda.empty_cache()
@@ -1164,6 +1574,16 @@ def main():
     launches.update(bp_launches)
     torch.cuda.empty_cache()
     timed_phase("bp golden", phase_bp_golden, frames0, raw0, tr, vf, t0v, p)
+    del frames0, raw0, tr
+    torch.cuda.empty_cache()
+    setup = e2e_setup()
+    rec.update(timed_phase("echo kernels", phase_echo_kernels, dev, setup))
+    torch.cuda.empty_cache()
+    launches.update(timed_phase("e2e", phase_e2e, dev, setup))
+    torch.cuda.empty_cache()
+    launches["echo_accumulate"] = timed_phase(
+        "echo gold", phase_echo_gold, dev, config.ati_dpca(), raw, sc)
+    del raw
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **rec[k])
                for k, (_, src, rep) in ALL_WRAPPERS.items()]

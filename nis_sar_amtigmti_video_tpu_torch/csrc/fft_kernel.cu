@@ -1,14 +1,20 @@
 // The fast-BP recentre kernels: forward spectra, recentre from spectra, and
-// the fused recentre + presum.
+// the fused recentre + presum; and the NUFFT echo's FFT convolution.
 //
 // Replaces the TPU kernels of nis_sar_amtigmti_video_tpu/ops/pallas/
 // fft_kernel.py: forward_spectra_pallas (_kernel_fwd),
-// recentre_from_spectra_pallas (_kernel_inv) and recenter_presum_pallas
-// (_kernel, and its lane-batched twin _kernel_wide). Per pulse, an
+// recentre_from_spectra_pallas (_kernel_inv), recenter_presum_pallas
+// (_kernel, and its lane-batched twin _kernel_wide) and fft_conv_pallas
+// (the same _kernel with zero ramp and carrier and no presum). Per pulse, an
 // nfft-point transform of the zero-padded pulse times the conjugate
 // reference-chirp spectrum; per presum group of d pulses, the sum of the
 // spectra times each pulse's recentre ramp and carrier, divided by d, and
-// one band-limited inverse transform.
+// one band-limited inverse transform. The conv (fft_conv_kernel, one
+// cluster per row of the echo's impulse field, read as float32 real and
+// imaginary planes): ifft(fft(row, nfft) x filter) cut to the band rows
+// [p0, p1); at the NUFFT echo's full-scale chunk (512 rows of 50,420
+// samples, nfft 65,536, 207 band rows) it moves ~315 MB, 0.094 ms at
+// 3.35 TB/s.
 //
 // What bounds it on the H100. By bytes it would be the fused kernel's
 // ~0.45 GB (each raw pulse read once, one band row per group written) at
@@ -307,16 +313,35 @@ __device__ void block_fft_dit(float2* x, int log2n, int pitch,
   __syncthreads();
 }
 
+// Sample n of a zero-padded complex64 pulse of ns samples.
+struct PulseLoad {
+  const float2* __restrict__ x;
+  int ns;
+  __device__ __forceinline__ float2 operator()(int n) const {
+    return n < ns ? __ldg(x + n) : make_float2(0.f, 0.f);
+  }
+};
+
+// Sample n of a zero-padded row held as float32 real and imaginary planes.
+struct PlanesLoad {
+  const float* __restrict__ re;
+  const float* __restrict__ im;
+  int ns;
+  __device__ __forceinline__ float2 operator()(int n) const {
+    return n < ns ? make_float2(__ldg(re + n), __ldg(im + n))
+                  : make_float2(0.f, 0.f);
+  }
+};
+
 // Step 1, local half: this block's columns n1 in [c0, c0 + cols) of one
-// zero-padded pulse x (ns samples), B1-point forward DFT in `col` (column
-// c at c * (B1 + 1), bit-reversed k2 order).
-__device__ void columns_forward(const float2* __restrict__ x, int ns, int c0,
-                                float2* col, const Tables& t,
-                                const Shape& s) {
+// zero-padded pulse (`load(n)` its sample n), B1-point forward DFT in `col`
+// (column c at c * (B1 + 1), bit-reversed k2 order).
+template <typename Load>
+__device__ void columns_forward(Load load, int c0, float2* col,
+                                const Tables& t, const Shape& s) {
   each_point(
       [&](int l) {
-        const int n = c0 + (l & (s.cols - 1)) + 128 * (l >> s.log2cols);
-        return n < ns ? __ldg(x + n) : make_float2(0.f, 0.f);
+        return load(c0 + (l & (s.cols - 1)) + 128 * (l >> s.log2cols));
       },
       [&](int l, float2 v) {
         col[(l & (s.cols - 1)) * (s.b1 + 1) + (l >> s.log2cols)] = v;
@@ -344,14 +369,15 @@ __device__ void scatter_columns(cg::cluster_group& cluster, const float2* col,
       });
 }
 
-// The forward transform of one pulse into this block's rows of `y`: after
-// it, y[r * 128 + q] = X[k2 + B1 bitrev(q)], k2 = 64 rank + r.
-__device__ void pulse_forward(cg::cluster_group& cluster,
-                              const float2* __restrict__ x, int ns,
+// The forward transform of one pulse (`load(n)` its sample n) into this
+// block's rows of `y`: after it, y[r * 128 + q] = X[k2 + B1 bitrev(q)],
+// k2 = 64 rank + r.
+template <typename Load>
+__device__ void pulse_forward(cg::cluster_group& cluster, Load load,
                               float2* y, float2* col, const Tables& t,
                               const Shape& s) {
   const int c0 = (int)cluster.block_rank() * s.cols;
-  columns_forward(x, ns, c0, col, t, s);
+  columns_forward(load, c0, col, t, s);
   cluster.sync();
   scatter_columns(cluster, col, y, c0, t, s);
   cluster.sync();
@@ -428,7 +454,8 @@ __global__ void __launch_bounds__(kThreads, 1) forward_spectra_kernel(
   float2* col = y + kPoints;
   const int pulse = blockIdx.x / (int)cluster.num_blocks();
   const int k2_0 = (int)cluster.block_rank() * kRowsPerBlock;
-  pulse_forward(cluster, x + (size_t)pulse * ns, ns, y, col, t, s);
+  pulse_forward(cluster, PulseLoad{x + (size_t)pulse * ns, ns}, y, col, t,
+                s);
   float2* o = out + (size_t)pulse * s.nfft + (size_t)k2_0 * 128;
   const float2* f = filt + (size_t)k2_0 * 128;
   each_point([&](int l) { return nis::cmul(y[l], __ldg(f + l)); },
@@ -477,12 +504,33 @@ __global__ void __launch_bounds__(kThreads, 1) recenter_presum_kernel(
   for (int j = 0; j < nj; ++j) {
     // the barrier inside pulse_forward orders this pulse's DSMEM stores
     // after every block's reads of `y` for the pulse before
-    pulse_forward(cluster, x + (size_t)(first + j) * ns, ns, y, col, t, s);
+    pulse_forward(cluster, PulseLoad{x + (size_t)(first + j) * ns, ns}, y,
+                  col, t, s);
     accumulate_pulse([&](int l) { return nis::cmul(y[l], __ldg(f + l)); },
                      acc, j == 0, k2_0, si[first + j], sf[first + j],
                      car[first + j], inv_d, s);
   }
   group_inverse(cluster, acc, col, out + (size_t)g * (p1 - p0) * 128, p0, p1,
+                t, s);
+}
+
+// One cluster per row: the row's forward transform, the filter and the
+// band-limited inverse, the spectrum never leaving the cluster.
+__global__ void __launch_bounds__(kThreads, 1) fft_conv_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    const float2* __restrict__ filt, Tables t, float2* __restrict__ out,
+    int ns, int p0, int p1, Shape s) {
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* y = reinterpret_cast<float2*>(nis_smem);
+  float2* col = y + kPoints;
+  const int row = blockIdx.x / (int)cluster.num_blocks();
+  const int k2_0 = (int)cluster.block_rank() * kRowsPerBlock;
+  const size_t at = (size_t)row * ns;
+  pulse_forward(cluster, PlanesLoad{xr + at, xi + at, ns}, y, col, t, s);
+  const float2* f = filt + (size_t)k2_0 * 128;
+  each_point([&](int l) { return nis::cmul(y[l], __ldg(f + l)); },
+             [&](int l, float2 v) { y[l] = v; });
+  group_inverse(cluster, y, col, out + (size_t)row * (p1 - p0) * 128, p0, p1,
                 t, s);
 }
 
@@ -552,5 +600,15 @@ extern "C" int recenter_presum_launch(
   return launch_clusters(recenter_presum_kernel, (num_p + d - 1) / d, nfft,
                          kSmemTwo, stream, x, filt, si, sf, car,
                          Tables{tw_n, tw_b1, tw_128}, out, num_p, ns, d, p0,
+                         p1, shape_of(nfft));
+}
+
+extern "C" int fft_conv_launch(const float* xr, const float* xi,
+                               const float2* filt, const float2* tw_n,
+                               const float2* tw_b1, const float2* tw_128,
+                               float2* out, int num_p, int ns, int nfft,
+                               int p0, int p1, void* stream) {
+  return launch_clusters(fft_conv_kernel, num_p, nfft, kSmemOne, stream, xr,
+                         xi, filt, Tables{tw_n, tw_b1, tw_128}, out, ns, p0,
                          p1, shape_of(nfft));
 }

@@ -18,4 +18,4 @@ def echo_opts_for(sc: ScenarioConfig) -> EchoOpts:
         fs_hz=r.fs_hz, num_samples=c.num_samples(r.fs_hz),
         endpoint_grid=(c.window_start_mode == "reference"),
         chirp_centering="leading", amplitude="sqrt_rcs",
-        backend=c.echo_backend)
+        backend=c.echo_backend, freq_oversample=c.echo_oversample)

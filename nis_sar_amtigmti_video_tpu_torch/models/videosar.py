@@ -63,7 +63,8 @@ def spotlight_echo_opts(sc: ScenarioConfig, l_ant_m: float) -> EchoOpts:
         fc_hz=r.fc_hz, chirp_rate=r.chirp_rate, pulse_width_s=r.pulse_width_s,
         fs_hz=r.fs_hz, num_samples=c.num_samples(r.fs_hz, even=True),
         endpoint_grid=False, chirp_centering="centered", amplitude="rcs",
-        stop_and_go=True, antenna_length_m=l_ant_m, backend=c.echo_backend)
+        stop_and_go=True, antenna_length_m=l_ant_m,
+        backend=c.echo_backend, freq_oversample=c.echo_oversample)
 
 
 def antenna_length_for_swath(sc: ScenarioConfig, swath_m: float) -> float:

@@ -16,11 +16,11 @@ checkout; the file name carries a hash of the sources and flags, so a second
 run reuses the library and an edited source rebuilds it. No fast math: the
 kernels rely on the accurate ``sincosf``/``atan2f`` and IEEE division.
 
-Each C launcher takes its tensor pointers, then its int arguments, then the
-CUDA stream, and returns ``cudaGetLastError()`` after the launch;
-:func:`launch` raises on a non-zero code. Nothing here allocates or
-synchronises: the wrappers allocate outputs with ``torch.empty`` and the
-launch goes on PyTorch's current stream.
+Each C launcher takes its tensor pointers, then its int arguments, then its
+float arguments (if any), then the CUDA stream, and returns
+``cudaGetLastError()`` after the launch; :func:`launch` raises on a non-zero
+code. Nothing here allocates or synchronises: the wrappers allocate outputs
+with ``torch.empty`` and the launch goes on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -119,19 +119,21 @@ def library() -> ctypes.CDLL:
 
 
 def launch(name: str, tensors: Sequence[torch.Tensor],
-           ints: Sequence[int]) -> None:
-    """Call C launcher ``name`` with the tensors' data pointers, the ints
-    and the current stream of the tensors' device; raise on a CUDA error."""
+           ints: Sequence[int], floats: Sequence[float] = ()) -> None:
+    """Call C launcher ``name`` with the tensors' data pointers, the ints,
+    the floats (C ``float``) and the current stream of the tensors' device;
+    raise on a CUDA error."""
     lib = library()
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+                   + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), *(int(i) for i in ints),
-                 stream)
+                 *(float(f) for f in floats), stream)
     if err != 0:
         msg = lib.nis_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -1,14 +1,14 @@
-"""The fast-BP recentre kernels: forward spectra, recentre from spectra and
-the fused recentre + presum.
+"""The fast-BP recentre kernels (forward spectra, recentre from spectra and
+the fused recentre + presum) and the NUFFT echo's FFT convolution.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/fft_kernel.py``
 (``supported``, ``forward_spectra_pallas``, ``recentre_from_spectra_pallas``,
-``recenter_presum_pallas``); in this package the ``*_pallas`` option names
-of ``ops/bp_fast.py`` reach these hand-written CUDA kernels
-(``csrc/fft_kernel.cu``). Each wrapper runs its plain PyTorch version
-(``*_plain``: torch.fft, and ``bp_fast``'s own ``presum_spectra`` /
-``recenter_presum``) for CPU tensors, and launches its kernel or raises
-for CUDA tensors. The kernels run one thread-block cluster per pulse or
+``recenter_presum_pallas``, ``fft_conv_pallas``); in this package the
+``*_pallas`` option names of ``ops/bp_fast.py`` and ``ops/echo_freq.py``
+reach these hand-written CUDA kernels (``csrc/fft_kernel.cu``). Each
+wrapper runs its plain PyTorch version (``*_plain``: torch.fft, and
+``bp_fast``'s own ``presum_spectra`` / ``recenter_presum``) for CPU
+tensors, and launches its kernel or raises for CUDA tensors. The kernels run one thread-block cluster per pulse or
 presum group, holding its spectrum in the cluster's shared memory. The
 TPU knobs ``mode``, ``groups``, ``impl``, ``unroll`` and ``interpret``
 are not ported; ``filter_compress`` is.
@@ -303,3 +303,50 @@ def recenter_presum(rc, sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
 
 
 recenter_presum.launches = 0
+
+
+# --------------------------------------------------------------------------
+# FFT convolution (the NUFFT echo)
+# --------------------------------------------------------------------------
+
+def fft_conv_plain(fr: torch.Tensor, fi: torch.Tensor, filt: torch.Tensor,
+                   nfft: int, out_rows=None) -> torch.Tensor:
+    """Plain version of :func:`fft_conv_pallas`: torch.fft's transform, the
+    filter, the inverse, cut to the band rows."""
+    p0, p1 = _band(out_rows, nfft // _LANE)
+    spec = torch.fft.fft(torch.complex(fr, fi), n=nfft, dim=-1) * filt
+    return torch.fft.ifft(spec, dim=-1)[:, p0 * _LANE:p1 * _LANE]
+
+
+def fft_conv_pallas(fr: torch.Tensor, fi: torch.Tensor, filt, nfft: int,
+                    out_rows=None) -> torch.Tensor:
+    """Row-wise linear FFT convolution ifft(fft(field, nfft) * filt)[:,
+    p0*128 : p1*128] of the field rows fr + j fi ((P, L) float32, L <=
+    nfft) with the spectrum ``filt`` ((nfft,) complex, natural order): one
+    thread-block cluster per row holds its spectrum, so device memory sees
+    the field rows in and the band rows out. Returns (P, (p1 - p0) * 128)
+    complex64 (the reference returns its real and imaginary planes)."""
+    if not supported(nfft):
+        raise ValueError(f"fft_conv_pallas: nfft={nfft} unsupported")
+    num_p, l_in = fr.shape
+    if l_in > nfft:
+        raise ValueError(f"field length {l_in} exceeds nfft={nfft}")
+    p0, p1 = _band(out_rows, nfft // _LANE)
+    filt = torch.as_tensor(filt).to(device=fr.device, dtype=C64)
+    if _build.on_cpu(fr):
+        return fft_conv_plain(fr, fi, filt, nfft, out_rows)
+    dev = fr.device
+    _build.check("fft_conv_pallas", (fr, fi), (num_p, l_in), dev)
+    _build.check("fft_conv_pallas", (filt,), (nfft,), dev, C64)
+    # the kernel's order: the digit layout, k1 bit-reversed within each row
+    lay = _to_layout(filt[None])[0][:, _BITREV_LANE.to(dev)].contiguous()
+    out = torch.empty((num_p, (p1 - p0) * _LANE), dtype=C64, device=dev)
+    if num_p == 0:
+        return out
+    _build.launch("fft_conv_launch", (fr, fi, lay, *_tables(nfft, dev), out),
+                  (num_p, l_in, nfft, p0, p1))
+    fft_conv_pallas.launches += 1
+    return out
+
+
+fft_conv_pallas.launches = 0

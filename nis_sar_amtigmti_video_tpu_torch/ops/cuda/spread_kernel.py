@@ -1,0 +1,127 @@
+"""The NUFFT echo's group-window spread.
+
+Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/spread_kernel.py``
+(``spread_windows_pallas`` with its bodies ``_kernel`` and ``_kernel_qr``):
+the windows that ``ops/echo_freq.py::_spread_dense`` places into the
+oversampled impulse field. Per (pulse, group) of delay-ordered targets, with
+c_b the window-relative cell of target b's tap 0 and v[k, b] its tap values,
+
+    roll order (``qr=False``):  out[j] = sum_k part_k[(j - k) mod win],
+                                part_k[i] = sum_{b: c_b = i} v[k, b]
+    one accumulator (``qr=True``): out[j] = sum_{k, b: c_b + k = j} v[k, b]
+
+for every value set sharing the one cell list. A target with c outside
+[0, win) drops at every tap. :func:`spread_windows_pallas` runs its plain
+version (one-hot contractions, bounded in memory by pulse blocks) for CPU
+tensors, and launches the hand-written CUDA kernel of
+``csrc/spread_kernel.cu`` or raises for CUDA tensors. The reference's bf16
+hi/lo split (a Mosaic workaround) is not ported: values are float32.
+
+Layout: cells (pc, grp, bg) int32; values (pc, grp, S, 2K, bg) float32,
+[re | im] on the tap axis, S value sets; windows (pc, grp, 2S, win) float32,
+row 2s the real and 2s + 1 the imaginary part of set s. The reference takes
+a list of per-set (pc, grp, 2K, bg) tensors and returns per-set pairs; the
+stacked layout lets one launch read every set.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
+
+SMEM_MAX = 232_448             # bytes of shared memory a block may use
+_PLAIN_ELEMENTS = 1 << 26      # one-hot elements per pulse block (plain)
+
+
+def smem_bytes(bg: int, win: int, n_sets: int, k_taps: int) -> int:
+    """The kernel's shared memory: cells and the sorted target list (bg
+    each), cell starts (win + 1) and the group's values."""
+    return 4 * (2 * bg + win + 1 + n_sets * 2 * k_taps * bg)
+
+
+def _check_shapes(name, c_ok, vals, win):
+    pc, grp, bg = c_ok.shape
+    if vals.dim() != 5 or vals.shape[:2] != (pc, grp) \
+            or vals.shape[4] != bg or vals.shape[3] % 2:
+        raise ValueError(
+            f"{name}: values must be (pc, grp, S, 2K, bg) = ({pc}, {grp}, S,"
+            f" 2K, {bg}), got {tuple(vals.shape)}")
+    if win < 1:
+        raise ValueError(f"{name}: win must be positive, got {win}")
+    return pc, grp, bg, vals.shape[2], vals.shape[3] // 2
+
+
+def spread_windows_plain(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
+                         qr: bool = False) -> torch.Tensor:
+    """Plain version of :func:`spread_windows_pallas`: a float32 one-hot
+    of the cells (per tap with ``qr``) contracted with the values, then
+    (without ``qr``) the roll chain over the taps, k = 0 first."""
+    pc, grp, bg, n_sets, k_taps = _check_shapes("spread_windows_plain",
+                                                c_ok, vals, win)
+    out = torch.empty((pc, grp, 2 * n_sets, win), dtype=torch.float32,
+                      device=vals.device)
+    iota = torch.arange(win, device=vals.device, dtype=torch.int32)
+    step = max(1, _PLAIN_ELEMENTS // max(1, grp * bg * win))
+    for p0 in range(0, pc, step):
+        c = c_ok[p0:p0 + step]
+        v = vals[p0:p0 + step].reshape(c.shape[0], grp, n_sets * 2 * k_taps,
+                                       bg)
+        if not qr:
+            oh = (c[..., None] == iota).to(torch.float32)   # (., g, bg, win)
+            part = torch.matmul(v, oh).reshape(c.shape[0], grp, n_sets,
+                                               2 * k_taps, win)
+            acc = part[:, :, :, 0::k_taps]                   # re, im of k=0
+            for k in range(1, k_taps):
+                acc = acc + torch.roll(part[:, :, :, k::k_taps], k, dims=-1)
+        else:
+            v = v.reshape(c.shape[0], grp, n_sets, 2 * k_taps, bg)
+            acc = None
+            for k in range(k_taps):
+                ck = torch.where(c < 0, torch.full_like(c, -win), c + k)
+                oh = (ck[..., None] == iota).to(torch.float32)
+                term = torch.matmul(v[:, :, :, k::k_taps], oh[:, :, None])
+                acc = term if acc is None else acc + term
+        out[p0:p0 + step] = acc.reshape(c.shape[0], grp, 2 * n_sets, win)
+    return out
+
+
+def spread_windows_pallas(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
+                          qr: bool = False) -> torch.Tensor:
+    """The group windows (pc, grp, 2S, win) float32 of ``vals`` (pc, grp,
+    S, 2K, bg) float32 at the window-relative tap-0 cells ``c_ok`` (pc, grp,
+    bg) int32 (-1 drops a target). ``qr`` sums each window cell's taps and
+    targets in one accumulator (the reference's digit-factorized
+    ``_kernel_qr``); otherwise taps add in the roll-chain order. Each
+    launch adds one to ``spread_windows_pallas.launches_qr`` with ``qr``,
+    else to ``spread_windows_pallas.launches``."""
+    pc, grp, bg, n_sets, k_taps = _check_shapes("spread_windows_pallas",
+                                                c_ok, vals, win)
+    if _build.on_cpu(c_ok):
+        return spread_windows_plain(c_ok, vals, win, qr)
+    smem = smem_bytes(bg, win, n_sets, k_taps)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"spread_windows_pallas: {smem} bytes of shared memory for bg "
+            f"{bg}, win {win}, {n_sets} value sets of {k_taps} taps exceed "
+            f"{SMEM_MAX}: use more groups (freq_spread_grp) or a smaller "
+            "window")
+    dev = c_ok.device
+    _build.check("spread_windows_pallas", (c_ok,), (pc, grp, bg), dev,
+                 torch.int32)
+    _build.check("spread_windows_pallas", (vals,),
+                 (pc, grp, n_sets, 2 * k_taps, bg), dev)
+    out = torch.empty((pc, grp, 2 * n_sets, win), dtype=torch.float32,
+                      device=dev)
+    _build.launch("spread_windows_launch", (c_ok, vals, out),
+                  (pc * grp, bg, win, n_sets, k_taps, int(qr)))
+    if qr:
+        spread_windows_pallas.launches_qr += 1
+    else:
+        spread_windows_pallas.launches += 1
+    return out
+
+
+# launches in the roll order and in the one-accumulator order
+spread_windows_pallas.launches = 0
+spread_windows_pallas.launches_qr = 0

@@ -1,0 +1,570 @@
+"""Frequency-domain (NUFFT) echo synthesis: the fast backend for large
+scenes.
+
+Counterpart of ``nis_sar_amtigmti_video_tpu/ops/echo_freq.py``. The echo is
+a convolution,
+
+    raw(t) = sum_b A_b g(t - tau_b),   g(x) = gate(x) e^{j pi K (x - shift)^2},
+
+with A_b = amp_b e^{j carrier_b}. Each impulse A_b delta(t - tau_b) is
+spread over W = 8 taps of an os-times oversampled grid with an
+exponential-of-semicircle kernel, the field is FFT-convolved with the
+sampled chirp over the spreading kernel's transform, and the result is
+decimated at the window's samples. With the exact-edge split (``edge_taper``
+> 0, the default) the NUFFT path carries the chirp with raised-cosine
+flanks, and the two gate-edge flanks are synthesised exactly per (pulse,
+target) at the native rate and spread into a correction field.
+
+Spreaders: ``'scatter'`` (index_add), ``'dense'`` (the reference's one-hot
+spreader in plain PyTorch: :func:`_spread_dense` with ``impl='xla'``),
+``'dense_kernel'`` / ``'dense_kernel_qr'`` (the same windows from the
+hand-written spread kernel of ``ops/cuda/spread_kernel.py``, in the roll or
+the one-accumulator order; its plain version for CPU tensors), or
+``'auto'`` (``'dense_kernel'`` on the card, ``'scatter'`` on the CPU).
+``conv``: ``'xla'`` (torch.fft), ``'pallas'`` (the FFT-conv kernel of
+``ops/cuda/fft_kernel.py``; on a CPU tensor its plain version, or torch.fft
+where the kernel does not take the FFT length) or ``'auto'`` (the kernel on
+the card where it takes the length, torch.fft otherwise). On the card an
+explicit kernel route that refuses the shape raises ``ValueError``; the
+``*_interpret`` names raise: the port has no kernel interpreter. The
+accuracy class is the reference's: field RMS error < -55 dB against the
+direct engine with edge_taper 4 and os 2 on a physical waveform (chirp
+bandwidth < fs).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import spread_kernel
+
+_W = 8                      # spreading taps
+_BETA = 2.30 * _W           # ES-kernel beta (FINUFFT's rule of thumb)
+_LANE_C = 128               # conv output rows are 128 samples wide
+_TWO_PI = 2.0 * math.pi
+# the dense spreaders and the _spread_dense route each takes
+_D_IMPL = {"dense": "xla", "dense_kernel": "pallas",
+           "dense_kernel_qr": "pallas_qr"}
+
+
+def _next_fast_len(n: int) -> int:
+    """Next power of two >= n (the reference's rule: the conv kernel and
+    its plain version take power-of-two lengths)."""
+    return 1 << (n - 1).bit_length()
+
+
+def _es_kernel(u):
+    """exp(beta*(sqrt(1-(2u/W)^2)-1)) on |u|<=W/2, else 0."""
+    z = 2.0 * np.asarray(u, np.float64) / _W
+    inside = np.abs(z) < 1.0
+    val = np.exp(_BETA * (np.sqrt(np.maximum(1.0 - z * z, 0.0)) - 1.0))
+    return np.where(inside, val, 0.0)
+
+
+@lru_cache(maxsize=None)
+def _kernel_ft(l_fft: int) -> np.ndarray:
+    """phi_hat(nu_k) for all DFT bins (numerical quadrature, host, cached)."""
+    nu = np.fft.fftfreq(l_fft)                      # cycles/sample
+    uq = np.linspace(-_W / 2, _W / 2, 8 * _W + 1)
+    wq = _es_kernel(uq)
+    # trapezoid weights
+    tw = np.full(uq.shape, uq[1] - uq[0])
+    tw[0] *= 0.5
+    tw[-1] *= 0.5
+    ft = (wq * tw) @ np.exp(-2j * np.pi * np.outer(uq, nu))
+    # clamp far out-of-band values so deconvolution cannot blow up where the
+    # chirp spectrum is ~0 anyway
+    mag = np.abs(ft)
+    floor = mag.max() * 1e-6
+    ft = np.where(mag < floor, floor, ft)
+    return ft.astype(np.complex128)
+
+
+def chirp_kernel(opts, oversample: int, edge_taper_samples: float = 0.0):
+    """(g taps complex64, x0) — g sampled at os*fs over its gate support.
+
+    ``edge_taper_samples`` > 0 applies raised-cosine flanks of that width
+    (in *native* samples) inside the gate: the smooth part for the
+    exact-edge split (see :func:`synthesize`)."""
+    dt = 1.0 / (opts.fs_hz * oversample)
+    n = int(round(opts.pulse_width_s / dt)) + 1
+    x0 = opts.chirp_shift - opts.half_width
+    arg = x0 + np.arange(n) * dt - opts.chirp_shift
+    gate = np.abs(arg) <= opts.half_width + 1e-15
+    g = np.exp(1j * math.pi * opts.chirp_rate * arg ** 2) * gate
+    if edge_taper_samples > 0.0:
+        # gate-local coordinate: arg is chirp-centred, the gate starts at
+        # arg = -half_width
+        g = g * _edge_taper(arg + opts.half_width, opts.pulse_width_s,
+                            edge_taper_samples / opts.fs_hz)
+    return g.astype(np.complex64), x0
+
+
+def _edge_taper(u, width_s: float, t_edge_s: float):
+    """Raised-cosine flanks inside [0, width]: 0 at the gate edges, 1 in the
+    interior beyond t_edge (host numpy)."""
+    d = np.minimum(u, width_s - u)                 # distance to nearest edge
+    z = np.clip(d / t_edge_s, 0.0, 1.0)
+    return np.where(d < 0, 0.0, 0.5 - 0.5 * np.cos(np.pi * z))
+
+
+def _floor_div(x: torch.Tensor, m: int) -> torch.Tensor:
+    return torch.div(x, m, rounding_mode="floor")
+
+
+def _pack_vals(val_sets, b_pad: int, grp: int) -> torch.Tensor:
+    """Every set's [re | im] taps (pc, B, 2K), padded to b_pad targets, as
+    the kernel's (pc, grp, S, 2K, bg) float32."""
+    v = torch.stack([torch.cat([vr, vi], dim=-1) for vr, vi, _ in val_sets],
+                    dim=1)                                   # (pc, S, B, 2K)
+    pc, n_sets, num_b, k2 = v.shape
+    v = torch.nn.functional.pad(v, (0, 0, 0, b_pad - num_b))
+    return v.reshape(pc, n_sets, grp, b_pad // grp, k2).permute(
+        0, 2, 1, 4, 3).to(torch.float32).contiguous()
+
+
+def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
+    """The group-window operands of :func:`_spread_dense`: (c_ok (pc, grp,
+    bg) int32 window-relative tap-0 cells, -1 for a dropped target; vals
+    (pc, grp, S, 2K, bg) float32; base (pc, grp) each window's field cell;
+    rows_tot, the padded field's 128-sample rows; lo rounded up to 128)."""
+    pc, num_b = i0.shape
+    max_off = max(off for _, _, off in val_sets)
+    bg = -(-num_b // grp)
+    b_pad = bg * grp
+    far = -(10 ** 6)
+    i0p = torch.nn.functional.pad(i0.to(torch.int32), (0, b_pad - num_b),
+                                  value=far)
+
+    # ``lo`` + one window of margin below, margin + tap offsets above: every
+    # set's group window then sits inside the padded field, and out-of-grid
+    # taps land in the margins (cropped at the end: the scatter ok-mask
+    # equivalent). ``lo`` > 0 admits i0 down to -lo (offset sets can still
+    # land such targets' taps in-grid).
+    lo = -(-lo // 128) * 128
+    rows_tot = -(-(l_out + 2 * win + lo + max_off + 256) // 128)
+    i0g = i0p.reshape(pc, grp, bg) + win + lo
+    live = i0g > far // 2
+    base = torch.amin(torch.where(live, i0g, 10 ** 6), dim=2) - 8
+    base = torch.clamp(_floor_div(base, 128) * 128, 0, l_out + win + lo)
+    c_rel = i0g - base[:, :, None]
+
+    # one cell list serves every value set (built with the widest tap margin)
+    k_max = max(v[0].shape[-1] for v in val_sets)
+    ok = live & (c_rel >= 0) & (c_rel <= win - k_max)
+    c_ok = torch.where(ok, c_rel, -1).to(torch.int32).contiguous()
+    return c_ok, _pack_vals(val_sets, b_pad, grp), base, rows_tot, lo
+
+
+def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
+                  lo: int = 0, impl: str = "xla"):
+    """Spreading by group windows of delay-ordered targets: values at
+    integer cells, each group of B/grp consecutive targets spread into a
+    window of ``win`` cells of its own, the windows then added into the
+    field at their 128-aligned bases.
+
+    i0: (pc, B) int32 cell of tap 0 (may be out of grid: such taps carry
+    zero weight, matching the scatter path's clip).
+    val_sets: sequence of (vr (pc, B, K), vi, offset): each set's taps land
+    at cells i0 + offset + k, all sets sharing one cell list (the exact-edge
+    pass: the trailing gate flank sits an integer number of cells after the
+    leading one). Targets whose group window cannot hold them (group cell
+    spread > win - K) drop; callers size win/grp so sane scenes never hit
+    that.
+    impl: 'xla' (the plain one-hot windows,
+    ``spread_kernel.spread_windows_plain``), 'pallas' or 'pallas_qr'
+    (``spread_kernel.spread_windows_pallas``: the kernel on the card, its
+    plain version on the CPU; 'pallas_qr' in the one-accumulator order).
+    The row placement is plain PyTorch, as in the reference.
+    Returns (pc, l_out) float32 re/im fields.
+    """
+    if impl not in ("xla", "pallas", "pallas_qr"):
+        raise ValueError(f"unknown spread impl {impl!r}")
+    pc, dev = i0.shape[0], i0.device
+    c_ok, vals, base, rows_tot, lo = _group_cells(i0, val_sets, l_out, win,
+                                                  grp, lo)
+    if impl == "xla":
+        wins = spread_kernel.spread_windows_plain(c_ok, vals, win)
+    else:
+        wins = spread_kernel.spread_windows_pallas(c_ok, vals, win,
+                                                   qr=impl == "pallas_qr")
+
+    fr = torch.zeros((pc * rows_tot, 128), dtype=torch.float32, device=dev)
+    fi = torch.zeros_like(fr)
+    row0 = (torch.arange(pc, device=dev) * rows_tot)[:, None]
+    for si, (_, _, offset) in enumerate(val_sets):
+        out_r, out_i = wins[:, :, 2 * si], wins[:, :, 2 * si + 1]
+        # sub-row part of the offset: pad one row and roll the windows
+        off_mod = offset % 128
+        if off_mod:
+            out_r, out_i = (torch.roll(torch.nn.functional.pad(o, (0, 128)),
+                                       off_mod, dims=-1)
+                            for o in (out_r, out_i))
+        nwr = out_r.shape[-1] // 128
+        base_eff = base + (offset - off_mod)
+        rowpos = (_floor_div(base_eff, 128)[:, :, None]
+                  + torch.arange(nwr, device=dev))            # (pc, grp, nwr)
+        # group by group: one group's rows are distinct, so each update is
+        # a plain gather, add and store (a fixed order of the sums)
+        for g in range(grp):
+            idx = (row0 + rowpos[:, g]).reshape(-1)
+            fr[idx] = fr[idx] + out_r[:, g].reshape(-1, 128)
+            fi[idx] = fi[idx] + out_i[:, g].reshape(-1, 128)
+    fr = fr.reshape(pc, rows_tot * 128)
+    fi = fi.reshape(pc, rows_tot * 128)
+    return (fr[:, win + lo:win + lo + l_out],
+            fi[:, win + lo:win + lo + l_out])
+
+
+def _wrap32(x64: torch.Tensor) -> torch.Tensor:
+    return (x64 - _TWO_PI * torch.round(x64 / _TWO_PI)).to(torch.float32)
+
+
+def _resolve_routes(spreader: str, conv: str, l_fft: int, on_card: bool):
+    """The spreader and conv routes the reference's rules pick."""
+    if spreader == "auto":
+        spreader = "dense_kernel" if on_card else "scatter"
+    if conv == "auto":
+        conv = "pallas" if on_card and fft_kernel.supported(l_fft) else "xla"
+    for name, val in (("spreader", spreader), ("conv", conv)):
+        if val.endswith("_interpret"):
+            raise NotImplementedError(
+                f"{name}={val!r}: interpret mode is not ported (the port has "
+                "no kernel interpreter); pass CPU tensors with "
+                f"{val[:-len('_interpret')]!r} to run the kernel's plain "
+                "version")
+    if spreader != "scatter" and spreader not in _D_IMPL:
+        raise ValueError(f"unknown spreader {spreader!r}")
+    if conv not in ("xla", "pallas"):
+        raise ValueError(f"unknown conv {conv!r}")
+    if conv == "pallas" and not fft_kernel.supported(l_fft):
+        if on_card:
+            raise ValueError(
+                f"conv='pallas': the FFT-conv kernel does not take l_fft="
+                f"{l_fft}; use conv='auto' or 'xla'")
+        conv = "xla"          # the reference's fallback, for CPU tensors
+    return spreader, conv
+
+
+@dataclass
+class _Plan:
+    """What :func:`synthesize` fixes once per call: the grids, the filter,
+    the routes, the group windows and the pulse chunk."""
+
+    opts: object
+    os: int                   # oversampling of the spreading grid
+    x0: float                 # chirp support start [s]
+    lead: int                 # field cells before the window's first sample
+    l_imp: int                # field length
+    l_fft: int
+    filt: torch.Tensor        # (l_fft,) complex64 chirp / spreader response
+    rows: tuple               # the conv kernel's band rows [p0c, p1c)
+    off_c: int                # first window cell inside the band rows
+    pulse_chunk: int
+    spreader: str
+    conv: str
+    win: int                  # main pass group window and group count
+    grp: int
+    win_e: int                # exact-edge pass, at the native rate
+    grp_e: int
+    n_edge: int               # taps a flank (0: no exact-edge pass)
+    t_edge_s: float           # flank width [s]
+    delta: int                # trailing flank's offset from the leading one
+    share: bool               # both flanks in one cell list
+
+    @property
+    def d_impl(self):
+        return _D_IMPL.get(self.spreader)
+
+
+def _plan(tau_rel, opts, oversample: int = 2,
+          pulse_chunk: int | None = None, edge_taper: float = 4.0,
+          spreader: str = "auto", spread_win: int | None = None,
+          spread_grp: int | None = None, conv: str = "auto",
+          spread_win_edge: int | None = None,
+          spread_grp_edge: int | None = None) -> _Plan:
+    """The plan of :func:`synthesize` (its options, its defaults)."""
+    num_p, num_b = tau_rel.shape
+    dev = tau_rel.device
+    ns = opts.num_samples
+    os_ = oversample
+    fs_os = opts.fs_hz * os_
+    d_win, d_grp = spread_win or 4096, spread_grp or 16
+    # the edge pass works at the native rate (half the oversampled grid's
+    # span), so its window scales as spread_win / 2
+    d_win_e, d_grp_e = (spread_win_edge
+                        or (spread_win // 2 if spread_win else 2048),
+                        spread_grp_edge or spread_grp or 16)
+    # the windows place as whole 128-sample rows at both rates
+    if d_win % 128:
+        raise ValueError(f"spread_win must be a 128-multiple (got "
+                         f"{spread_win})")
+    if d_win_e % 128 or d_win_e < 256:
+        if spread_win_edge:
+            raise ValueError(f"spread_win_edge must be a 128-multiple of at "
+                             f"least 256 (got {spread_win_edge})")
+        raise ValueError(
+            f"spread_win must be a 256-multiple of at least 512 (got "
+            f"{spread_win}): the exact-edge pass's window is spread_win // 2"
+            " unless spread_win_edge is given")
+
+    g, x0 = chirp_kernel(opts, os_, edge_taper)
+    lead = int(round(opts.pulse_width_s * fs_os)) + os_ + _W     # L0
+    l_imp = lead + ns * os_ + os_ + _W
+    # circular-wrap sizing: the wrapped tail of the linear convolution stays
+    # inside the lead margin, never the cropped window [lead, ...)
+    l_fft = _next_fast_len(l_imp)
+    assert l_imp + g.shape[0] - 1 - l_fft <= lead
+    spreader, conv = _resolve_routes(spreader, conv, l_fft,
+                                     dev.type == "cuda")
+    # combined spectral filter: chirp response deconvolved by the spreader
+    filt = torch.from_numpy((np.fft.fft(g.astype(np.complex128), n=l_fft)
+                             / _kernel_ft(l_fft)).astype(np.complex64)).to(dev)
+    # inverse-band rows for the fused conv: only the window's rows
+    p0c = lead // _LANE_C
+    p1c = -(-(lead + ns * os_) // _LANE_C)
+
+    if pulse_chunk is None:
+        per_pulse = max(num_b * _W, l_fft)
+        pulse_chunk = max(1, opts.max_elements // per_pulse)
+    t_edge_s = edge_taper / opts.fs_hz
+    # with an integer flank separation (Tp fs an integer: every reference
+    # waveform) both flanks share one cell list, the trailing set offset by
+    # delta cells
+    delta_f = (opts.pulse_width_s - t_edge_s) * opts.fs_hz
+    delta = int(round(delta_f))
+    return _Plan(
+        opts=opts, os=os_, x0=x0, lead=lead, l_imp=l_imp, l_fft=l_fft,
+        filt=filt, rows=(p0c, p1c), off_c=lead - p0c * _LANE_C,
+        pulse_chunk=max(1, min(pulse_chunk, max(num_p, 1))),
+        spreader=spreader, conv=conv, win=d_win, grp=d_grp, win_e=d_win_e,
+        grp_e=d_grp_e,
+        n_edge=int(math.ceil(edge_taper)) + 2 if edge_taper > 0 else 0,
+        t_edge_s=t_edge_s, delta=delta, share=abs(delta_f - delta) < 1e-6)
+
+
+def _es_weights(pl: _Plan, tau):
+    """The chunk's impulses on the oversampled grid: tap-0 cells i0 (pc, B)
+    int32 and the ES weights (pc, B, W) float32 of their taps."""
+    dev = tau.device
+    s = (tau.to(torch.float64) + pl.x0) * (pl.opts.fs_hz * pl.os) + pl.lead
+    s_fl = torch.floor(s)
+    i0 = s_fl.to(torch.int32) - (_W // 2 - 1)
+    frac = (s - s_fl).to(torch.float32)
+    # ES weights at u = pos - s = offs - (W/2-1) - frac
+    offs_w = torch.arange(_W, dtype=torch.int32, device=dev)
+    u = (offs_w.to(torch.float32) - (_W // 2 - 1)) - frac[:, :, None]
+    z2 = torch.clamp(1.0 - (2.0 * u / _W) ** 2, 0.0, 1.0)
+    beta = torch.tensor(_BETA, dtype=torch.float32, device=dev)
+    w = torch.where(torch.abs(u) < _W / 2.0,
+                    torch.exp(beta * (torch.sqrt(z2) - 1.0)), 0.0)
+    return i0, w
+
+
+def _main_spread_call(pl: _Plan, i0, w, a_re, a_im):
+    """The main pass's :func:`_spread_dense` arguments (i0, val_sets, l_out,
+    win, grp, lo)."""
+    # clamp far-out cells near the grid edges: their taps land in the
+    # margins (dropped, as the scatter path's ok-mask drops them) without
+    # dragging their group's window away
+    i0_d = torch.clamp(i0, -256, pl.l_imp + 256)
+    return (i0_d, [(w * a_re[:, :, None], w * a_im[:, :, None], 0)],
+            pl.l_imp, pl.win, pl.grp, 0)
+
+
+def _main_field(pl: _Plan, tau, a_re, a_im):
+    """The chunk's impulses spread onto the oversampled grid: (pc, l_imp)
+    float32 re/im fields."""
+    i0, w = _es_weights(pl, tau)
+    if pl.spreader != "scatter":
+        return _spread_dense(*_main_spread_call(pl, i0, w, a_re, a_im),
+                             impl=pl.d_impl)
+    pc, l_imp, dev = tau.shape[0], pl.l_imp, tau.device
+    pos = i0[:, :, None] + torch.arange(_W, dtype=torch.int32, device=dev)
+    ok = (pos >= 0) & (pos < l_imp)
+    wv = torch.where(ok, w, 0.0)
+    flat = (torch.arange(pc, device=dev)[:, None, None] * l_imp
+            + torch.clamp(pos, 0, l_imp - 1)).reshape(-1)
+    fr, fi = (torch.zeros(pc * l_imp, dtype=torch.float32,
+                          device=dev).index_add_(
+        0, flat, (wv * a[:, :, None]).reshape(-1)).reshape(pc, l_imp)
+        for a in (a_re, a_im))
+    return fr, fi
+
+
+def _conv(pl: _Plan, fr, fi):
+    """The fields convolved with the filter, decimated to the window's
+    samples: (pc, Ns) complex64."""
+    ns, os_ = pl.opts.num_samples, pl.os
+    if pl.conv == "pallas":
+        conv_c = fft_kernel.fft_conv_pallas(fr.contiguous(), fi.contiguous(),
+                                            pl.filt, pl.l_fft,
+                                            out_rows=pl.rows)
+        return conv_c[:, pl.off_c:pl.off_c + ns * os_:os_]
+    conv_c = fft_kernel.fft_conv_plain(fr, fi, pl.filt, pl.l_fft)
+    return conv_c[:, pl.lead:pl.lead + ns * os_:os_]
+
+
+def _edge_flanks(pl: _Plan, tau, a_re, a_im):
+    """Exact native-rate samples of chirp x (rect - taper) at both gate
+    flanks: per flank (cell0 (pc, B) float64, the first native sample at or
+    after the flank's start; gate (pc, B, n_edge) bool; tap, the flank
+    weights; rot_r, rot_i, the rotated amplitude of each tap). The flank
+    phase is quadratic in the tap k, c0 + c1 k + c2 k^2, with c0 and c1
+    computed and wrapped per (pulse, target) in float64."""
+    opts, dev, f32 = pl.opts, tau.device, torch.float32
+    tau64 = tau.to(torch.float64)
+    offs_f = torch.arange(pl.n_edge, device=dev)[None, None, :].to(f32)
+    c2 = torch.tensor(math.pi * opts.chirp_rate / (opts.fs_hz ** 2),
+                      dtype=f32, device=dev)
+    fs32 = torch.tensor(opts.fs_hz, dtype=f32, device=dev)
+    t_edge_s, x0 = pl.t_edge_s, pl.x0
+    ar, ai = a_re[:, :, None], a_im[:, :, None]
+    flanks = []
+    for edge_off, leading in ((0.0, True),
+                              (opts.pulse_width_s - t_edge_s, False)):
+        # first native sample index at/after the flank start
+        start = (tau64 + x0 + edge_off) * opts.fs_hz             # (pc, B)
+        cell0 = torch.ceil(start - 1e-9)
+        # flank-local coordinate of tap 0 (small f64 -> exact f32)
+        e0 = cell0 / opts.fs_hz - tau64 - x0 - edge_off
+        arg0 = e0 + edge_off + x0 - opts.chirp_shift
+        c0 = _wrap32(math.pi * opts.chirp_rate * arg0 * arg0)
+        c1 = _wrap32((_TWO_PI * opts.chirp_rate / opts.fs_hz) * arg0)
+        ph = (c0[:, :, None] + c1[:, :, None] * offs_f
+              + c2 * offs_f * offs_f)
+        e = e0.to(f32)[:, :, None] + offs_f / fs32
+        if leading:
+            gate = e >= -1e-12
+            d = e
+        else:
+            gate = e <= t_edge_s + 1e-12
+            d = t_edge_s - e
+        z = torch.clamp(d / t_edge_s, 0.0, 1.0)
+        tap = 0.5 + 0.5 * torch.cos(math.pi * z)       # 1 - raised cosine
+        cs, sn = torch.cos(ph), torch.sin(ph)
+        flanks.append((cell0, gate, tap, cs * ar - sn * ai, cs * ai + sn * ar))
+    return flanks
+
+
+def _edge_spread_calls(pl: _Plan, flanks):
+    """The dense spreaders' :func:`_spread_dense` arguments (i0, val_sets,
+    l_out, win, grp, lo) of the exact-edge pass: one call of both flanks on
+    a shared cell list where the flanks sit a whole number of samples apart,
+    else one call a flank."""
+    ns = pl.opts.num_samples
+    vals = [(torch.where(gate, tap, 0.0) * rr, torch.where(gate, tap, 0.0)
+             * ri) for _, gate, tap, rr, ri in flanks]
+    if pl.share:
+        i0 = torch.clamp(flanks[0][0], -pl.delta - 256.0, ns + 256.0)
+        return [(i0.to(torch.int32), [(*vals[0], 0), (*vals[1], pl.delta)],
+                 ns, pl.win_e, pl.grp_e, pl.delta + 256)]
+    return [(torch.clamp(f[0], -256.0, ns + 256.0).to(torch.int32),
+             [(*v, 0)], ns, pl.win_e, pl.grp_e, 0)
+            for f, v in zip(flanks, vals)]
+
+
+def _edge_exact(pl: _Plan, tau, a_re, a_im):
+    """The exact-edge correction field of the chunk: (pc, Ns) complex64."""
+    pc, ns, dev = tau.shape[0], pl.opts.num_samples, tau.device
+    flanks = _edge_flanks(pl, tau, a_re, a_im)
+    if pl.spreader != "scatter":
+        corr_r = torch.zeros((pc, ns), dtype=torch.float32, device=dev)
+        corr_i = torch.zeros_like(corr_r)
+        for call in _edge_spread_calls(pl, flanks):
+            er, ei = _spread_dense(*call, impl=pl.d_impl)
+            corr_r = corr_r + er
+            corr_i = corr_i + ei
+        return torch.complex(corr_r, corr_i)
+    corr_r = torch.zeros((pc * ns,), dtype=torch.float32, device=dev)
+    corr_i = torch.zeros_like(corr_r)
+    offs = torch.arange(pl.n_edge, device=dev)[None, None, :]
+    for cell0, gate, tap, rot_r, rot_i in flanks:
+        nidx = cell0.to(torch.int64)[:, :, None] + offs
+        ok = (nidx >= 0) & (nidx < ns)
+        t_ok = torch.where(gate & ok, tap, 0.0)
+        pos = torch.clamp(nidx, 0, ns - 1)
+        flat = (torch.arange(pc, device=dev)[:, None, None] * ns
+                + pos).reshape(-1)
+        corr_r.index_add_(0, flat, (t_ok * rot_r).reshape(-1))
+        corr_i.index_add_(0, flat, (t_ok * rot_i).reshape(-1))
+    return torch.complex(corr_r, corr_i).reshape(pc, ns)
+
+
+def _rotated(car, am):
+    return am * torch.cos(car), am * torch.sin(car)
+
+
+def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
+               pulse_chunk: int | None = None, edge_taper: float = 4.0,
+               spreader: str = "auto", spread_win: int | None = None,
+               spread_grp: int | None = None, conv: str = "auto",
+               spread_win_edge: int | None = None,
+               spread_grp_edge: int | None = None) -> torch.Tensor:
+    """(P, B) per-(pulse, target) float32 scalars on one device -> (P, Ns)
+    complex64 raw data there.
+
+    tau_rel: delay of each echo relative to the window start [s]; carrier:
+    wrapped carrier phase [rad]; amp: real amplitude. The target axis must
+    be sorted by delay for the dense spreaders (the echo engine's freq
+    branch sorts it). Pulses go in chunks sized from ``opts.max_elements``
+    (the reference's rule), bounding the (pc, B, W) spreading temporaries
+    and the (pc, l_fft) field. ``edge_taper`` > 0 enables the exact-edge
+    split; 0 restores the approximate mode (~-25 dB field floor).
+    ``spread_win`` / ``spread_grp`` (and ``*_edge`` for the exact-edge
+    pass, whose window defaults to half the main one) size the dense
+    spreaders' group windows.
+    """
+    pl = _plan(tau_rel, opts, oversample, pulse_chunk, edge_taper, spreader,
+               spread_win, spread_grp, conv, spread_win_edge,
+               spread_grp_edge)
+    num_p, ns = tau_rel.shape[0], opts.num_samples
+    out = torch.empty((num_p, ns), dtype=torch.complex64,
+                      device=tau_rel.device)
+    for p0 in range(0, num_p, pl.pulse_chunk):
+        tau = tau_rel[p0:p0 + pl.pulse_chunk]
+        a_re, a_im = _rotated(carrier[p0:p0 + pl.pulse_chunk],
+                              amp[p0:p0 + pl.pulse_chunk])
+        out_c = _conv(pl, *_main_field(pl, tau, a_re, a_im))
+        if pl.n_edge:
+            out_c = out_c + _edge_exact(pl, tau, a_re, a_im)
+        out[p0:p0 + tau.shape[0]] = out_c
+    return out
+
+
+def kernel_operands(tau_rel, carrier, amp, opts, **synth_kw) -> dict:
+    """The operands that :func:`synthesize` (the same arguments) hands its
+    kernel wrappers for its first pulse chunk, to time the kernels at the
+    path's shapes: ``"spread main"`` (c_ok, vals, win) and ``"spread
+    edge"``, a list of the same, one a :func:`_spread_dense` call of the
+    exact-edge pass, for ``spread_kernel.spread_windows_pallas``;
+    ``"conv"`` (fr, fi, filt, l_fft, rows) for
+    ``fft_kernel.fft_conv_pallas``. The routes must be a dense spreader, the
+    conv kernel and the exact-edge pass (ValueError otherwise)."""
+    pl = _plan(tau_rel, opts, **synth_kw)
+    if pl.spreader == "scatter" or pl.conv != "pallas" or not pl.n_edge:
+        raise ValueError(
+            f"kernel_operands needs a dense spreader, the conv kernel and the"
+            f" exact-edge pass (got spreader {pl.spreader!r}, conv "
+            f"{pl.conv!r}, {pl.n_edge} edge taps)")
+    n = pl.pulse_chunk
+    tau = tau_rel[:n]
+    a_re, a_im = _rotated(carrier[:n], amp[:n])
+    i0, w = _es_weights(pl, tau)
+    main = _main_spread_call(pl, i0, w, a_re, a_im)
+    edge = _edge_spread_calls(pl, _edge_flanks(pl, tau, a_re, a_im))
+    fr, fi = _spread_dense(*main, impl=pl.d_impl)
+
+    def spread_ops(i0_, sets, l_out, win, grp, lo):
+        return _group_cells(i0_, sets, l_out, win, grp, lo)[:2] + (win,)
+
+    return {"spread main": spread_ops(*main),
+            "spread edge": [spread_ops(*c) for c in edge],
+            "conv": (fr.contiguous(), fi.contiguous(), pl.filt, pl.l_fft,
+                     pl.rows)}

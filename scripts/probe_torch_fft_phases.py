@@ -73,8 +73,8 @@ __device__ __forceinline__ void ts_end() {
 MARKS = [
     ("namespace {\n", HEADER, 1),
     ("  cg::cluster_group cluster = cg::this_cluster();\n",
-     "  ts_reset();\n", 3),
-    ("  columns_forward(x, ns, c0, col, t, s);\n", "  ts_mark();\n", 1),
+     "  ts_reset();\n", 4),
+    ("  columns_forward(load, c0, col, t, s);\n", "  ts_mark();\n", 1),
     ("  cluster.sync();\n", "  ts_mark();\n", 4),
     ("  scatter_columns(cluster, col, y, c0, t, s);\n", "  ts_mark();\n", 1),
     ("  block_fft_dif(y, 7, 128, t.tw_128, false);\n", "  ts_mark();\n", 1),

@@ -4,7 +4,11 @@ balance; K1, K2 single and K3, also bit for bit against their two-channel
 twins) at 256^2 and at the slice's 4096^2, the
 fast-BP recentre kernels at nfft 16,384 and at the VideoSAR reference shape
 (2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
-kernels on synthetic operands and at the VideoSAR full width. Marked ``cuda``: they skip
+kernels on synthetic operands and at the VideoSAR full width, and the
+NUFFT echo's spread (both orders) and FFT-conv kernels and the direct-echo
+kernel at small shapes and at the full-scale GMTI chain's (512-pulse
+chunks, nfft 65,536), with the freq and pallas echo backends end to end on
+the card. Marked ``cuda``: they skip
 where no CUDA device is present (the kernels have no CPU mode). On a GPU
 machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q``."""
 
@@ -21,10 +25,13 @@ from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
 from nis_sar_amtigmti_video_tpu_torch.ops import csa
 from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
 from nis_sar_amtigmti_video_tpu_torch.ops import bp, bp_fast
+from nis_sar_amtigmti_video_tpu_torch.ops import echo, echo_freq
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (bp_factor_kernel,
                                                        bp_kernel, csa_kernel,
+                                                       echo_kernel,
                                                        fft_kernel,
-                                                       gmti_kernel)
+                                                       gmti_kernel,
+                                                       spread_kernel)
 from nis_sar_amtigmti_video_tpu_torch.ops.echo import window_start_time
 from nis_sar_amtigmti_video_tpu_torch.scene import targets
 
@@ -501,3 +508,177 @@ def test_accumulate_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError, match="shape"):
         bp_factor_kernel.accumulate_factor_pallas(fops[0], fops[1][:, :64],
                                                   *fops[2:], fplan, 4)
+
+
+# --------------------------------------------------------------------------
+# the NUFFT echo's spread and FFT-conv kernels, the direct-echo kernel
+# --------------------------------------------------------------------------
+
+def _spread_operands(dev, pc, grp, bg, win, n_sets, k, seed=0):
+    """Sorted cells inside [0, win - k] with duplicates and dropped (-1)
+    targets, and seeded values."""
+    rng = np.random.default_rng(seed)
+    c = np.sort(rng.integers(0, win - k + 1, (pc, grp, bg)), axis=-1)
+    c[:, :, 1::7] = c[:, :, 0::7][:, :, :c[:, :, 1::7].shape[-1]]
+    c[:, :, 3::11] = -1
+    v = rng.normal(size=(pc, grp, n_sets, 2 * k, bg)).astype(np.float32)
+    return (torch.from_numpy(c.astype(np.int32)).to(dev),
+            torch.from_numpy(v).to(dev))
+
+
+# (pc, grp, bg, win, n_sets, K): a small case; the full-scale chain's main
+# and edge passes (512-pulse chunks of 5,036 targets in 16 groups)
+SPREAD_CASES = {"small": (4, 3, 50, 256, 2, 6),
+                "main": (512, 16, 315, 4096, 1, 8),
+                "edge": (512, 16, 315, 2048, 2, 6)}
+
+
+@pytest.mark.parametrize("qr", [False, True])
+@pytest.mark.parametrize("case", sorted(SPREAD_CASES))
+def test_spread_windows_match_plain(dev, case, qr):
+    """The kernel at the case's shape against its plain version on up to
+    16 pulses (the plain one-hot of a full chunk would be 51 GB); two
+    launches bit-identical (no float atomics)."""
+    pc, grp, bg, win, n_sets, k = SPREAD_CASES[case]
+    c, v = _spread_operands(dev, pc, grp, bg, win, n_sets, k)
+    def counts():
+        return (spread_kernel.spread_windows_pallas.launches,
+                spread_kernel.spread_windows_pallas.launches_qr)
+
+    before = counts()
+    got = spread_kernel.spread_windows_pallas(c, v, win, qr=qr)
+    again = spread_kernel.spread_windows_pallas(c, v, win, qr=qr)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 2 * (not qr), before[1] + 2 * qr)
+    assert torch.equal(got, again)
+    cut = min(pc, 16)
+    want = spread_kernel.spread_windows_plain(c[:cut], v[:cut], win, qr=qr)
+    assert _rel(got[:cut], want) <= 1e-5
+
+
+@pytest.mark.parametrize("qr", [False, True])
+def test_spread_windows_one_cell_groups(dev, qr):
+    """Whole groups on one cell (targets outside the grid clamp onto its
+    edges), at the full-scale main pass's group size."""
+    c, v = _spread_operands(dev, 24, 16, 315, 4096, 1, 8, seed=2)
+    c[:, ::2] = 7
+    c[:, 1::4] = 4088
+    got = spread_kernel.spread_windows_pallas(c, v, 4096, qr=qr)
+    want = spread_kernel.spread_windows_plain(c, v, 4096, qr=qr)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_spread_windows_refuses_on_cuda(dev):
+    c, v = _spread_operands(dev, 2, 2, 4000, 4096, 2, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        spread_kernel.spread_windows_pallas(c, v, 4096)
+    c, v = _spread_operands(dev, 2, 2, 40, 256, 1, 4)
+    with pytest.raises(TypeError, match="int32"):
+        spread_kernel.spread_windows_pallas(c.long(), v, 256)
+
+
+@pytest.mark.parametrize("nfft,l_in,rows", [(16384, 15000, (40, 100)),
+                                            (65536, 50420, (187, 394))])
+def test_fft_conv_matches_plain(dev, nfft, l_in, rows):
+    """The conv kernel (clusters of 2 and 8 blocks) against torch.fft."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fr, fi = (torch.randn((64, l_in), generator=gen, device=dev)
+              for _ in range(2))
+    filt = torch.complex(torch.randn(nfft, generator=gen, device=dev),
+                         torch.randn(nfft, generator=gen, device=dev))
+    before = fft_kernel.fft_conv_pallas.launches
+    got = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
+    torch.cuda.synchronize()
+    assert fft_kernel.fft_conv_pallas.launches == before + 1
+    want = fft_kernel.fft_conv_plain(fr, fi, filt, nfft, out_rows=rows)
+    assert got.shape == want.shape == (64, (rows[1] - rows[0]) * 128)
+    assert _rel(got, want) <= 3e-5
+    with pytest.raises(ValueError, match="unsupported"):
+        fft_kernel.fft_conv_pallas(fr, fi, filt, 8192)
+
+
+@pytest.mark.parametrize("waveform", ["slice", "full"])
+def test_echo_accumulate_matches_plain(dev, waveform):
+    """The direct-echo kernel against its plain version; 'full' is the
+    500 MHz / 20 us waveform, whose phase reaches ~7.9e3 rad."""
+    bw, tp, fs, ns = ((120e6, 2e-6, 150e6, 1024) if waveform == "slice"
+                      else (500e6, 20e-6, 600e6, 13200))
+    rng = np.random.default_rng(9)
+    p, b = 24, 300
+    t_fast = torch.from_numpy((np.arange(ns) / fs).astype(np.float32))
+    tau = rng.uniform(-0.3 * tp, ns / fs, (p, b)).astype(np.float32)
+    car = rng.uniform(-np.pi, np.pi, (p, b)).astype(np.float32)
+    amp = rng.uniform(0.2, 1.5, (p, b)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (tau, car, amp)]
+    kw = dict(k_pi=float(np.pi * bw / tp), shift=tp / 2, half=tp / 2)
+    before = echo_kernel.echo_accumulate.launches
+    got = echo_kernel.echo_accumulate(*args, t_fast.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert echo_kernel.echo_accumulate.launches == before + 1
+    want = echo_kernel.echo_accumulate_plain(*args, t_fast.to(dev), **kw)
+    assert _rel(got, want) <= 2e-4
+
+
+def _freq_kw(**kw):
+    base = dict(fc_hz=9.65e9, chirp_rate=50e6 / 2e-6, pulse_width_s=2e-6,
+                fs_hz=60e6, num_samples=4000, endpoint_grid=False,
+                backend="freq")
+    base.update(kw)
+    return echo.EchoOpts(**base)
+
+
+@pytest.mark.parametrize("spreader", ["auto", "dense_kernel_qr", "dense"])
+def test_freq_synthesize_on_card_matches_cpu(dev, spreader):
+    """synthesize on the card ('auto': the spread and conv kernels) against
+    the CPU's scatter route on the same scalar fields (l_fft 16,384)."""
+    rng = np.random.default_rng(11)
+    p, b = 40, 200
+    tau = np.sort(rng.uniform(5e-6, 5.5e-5, (p, b)), axis=1).astype(
+        np.float32)
+    car = rng.uniform(-np.pi, np.pi, (p, b)).astype(np.float32)
+    amp = rng.uniform(0.5, 2.0, (p, b)).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (tau, car, amp)]
+    want = echo_freq.synthesize(*cpu, _freq_kw(), spreader="scatter")
+    def counts():
+        return (spread_kernel.spread_windows_pallas.launches,
+                spread_kernel.spread_windows_pallas.launches_qr,
+                fft_kernel.fft_conv_pallas.launches)
+
+    before = counts()
+    got = echo_freq.synthesize(*(a.to(dev) for a in cpu), _freq_kw(),
+                               spreader=spreader)
+    torch.cuda.synchronize()
+    rises = tuple(a - b for a, b in zip(counts(), before))
+    # one chunk: the main spread, the shared two-set edge spread, the conv
+    assert rises == {"auto": (2, 0, 1), "dense_kernel_qr": (0, 2, 1),
+                     "dense": (0, 0, 1)}[spreader]
+    assert _rel(got.cpu(), want) <= 2e-5
+
+
+def test_freq_kernel_routes_refuse_on_card(dev):
+    tau = torch.zeros((2, 3), device=dev)
+    with pytest.raises(ValueError, match="l_fft"):
+        echo_freq.synthesize(tau, tau, tau, _freq_kw(num_samples=360),
+                             conv="pallas")
+
+
+def test_pallas_echo_backend_on_card(dev):
+    """backend='pallas' through simulate_two_channel on the card: the
+    kernel launches and the raw equals the direct engine's."""
+    sc = config.ati_dpca()
+    sc = sc.replace(
+        radar=dataclasses.replace(sc.radar, bandwidth_hz=120e6,
+                                  pulse_width_s=2e-6, fs_hz=150e6),
+        collect=dataclasses.replace(sc.collect, integration_time_s=64 / 6000,
+                                    window_length_s=512 / 150e6))
+    sc_p = sc.replace(collect=dataclasses.replace(sc.collect,
+                                                  echo_backend="pallas"))
+    ship = targets.destroyer()
+    before = echo_kernel.echo_accumulate.launches
+    got = gmti.simulate_two_channel(sc_p, ship, (4.0, 0.0, 0.0),
+                                    device=dev)[0]
+    torch.cuda.synchronize()
+    assert echo_kernel.echo_accumulate.launches == before + 1
+    want = gmti.simulate_two_channel(sc, ship, (4.0, 0.0, 0.0),
+                                     device=dev)[0]
+    assert _rel(got, want) <= 2e-4

@@ -167,7 +167,8 @@ def test_echo_options_match_reference(opt):
                 rx_offset=1.7)
     want = np.asarray(jecho.phase_history(traj, ship, jecho.EchoOpts(**kw),
                                           **args))
-    got = _np(echo.phase_history(traj, ship, echo.EchoOpts(**kw), **args))
+    got = _np(echo.phase_history(traj, ship, echo.EchoOpts(**kw), **args,
+                                 device="cpu"))
     assert np.abs(want).max() > 0
     assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
 
@@ -184,9 +185,10 @@ def test_echo_chunk_plan_invariance():
     t0 = echo.window_start_time(sc.geometry.slant_range_m,
                                 echo.EchoOpts(**base), 0.0, "reference")
     a = _np(echo.phase_history(traj, scene, echo.EchoOpts(**base),
-                               t_start=t0))
+                               t_start=t0, device="cpu"))
     b = _np(echo.phase_history(traj, scene, echo.EchoOpts(
-        **base, max_elements=256 * 8, target_chunk=7), t_start=t0))
+        **base, max_elements=256 * 8, target_chunk=7), t_start=t0,
+        device="cpu"))
     np.testing.assert_allclose(a, b, rtol=0, atol=2e-4 * np.abs(a).max())
 
 
@@ -198,7 +200,7 @@ def test_echo_empty_scene_and_grids():
     traj = orbit.make_trajectory(tcfg.ati_dpca().geometry,
                                  orbit.slow_time_grid(0.001, 4))
     empty = targets.PointTargets(np.zeros((0, 3)), np.zeros(0), ())
-    out = echo.phase_history(traj, empty, opts, t_start=0.0)
+    out = echo.phase_history(traj, empty, opts, t_start=0.0, device="cpu")
     assert out.shape == (4, 64) and not out.abs().any()
     for endpoint in (True, False):
         np.testing.assert_array_equal(
@@ -215,12 +217,28 @@ def test_echo_empty_scene_and_grids():
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "freq"])
 def test_unported_echo_backends_raise(backend):
-    sc = _small(tcfg, 8, 64)
-    sc = sc.replace(collect=dataclasses.replace(sc.collect,
-                                                echo_backend=backend))
+    """The scalar-field echo backends through simulate_two_channel on the
+    CPU: 'pallas' runs the direct-echo kernel's plain version and matches
+    the direct engine; 'pallas_interpret' raises (no kernel interpreter);
+    'freq' refuses the slice's endpoint fast-time grid, as the reference
+    does."""
+    sc = _small(tcfg, 8, 256)
+    sc_b = sc.replace(collect=dataclasses.replace(sc.collect,
+                                                  echo_backend=backend))
     ship, _ = _scene()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        gmti.simulate_two_channel(sc, ship, (0.0, 0.0, 0.0), device="cpu")
+    if backend == "pallas":
+        got = gmti.simulate_two_channel(sc_b, ship, (3.0, 0.0, 0.0),
+                                        device="cpu")[0]
+        want = gmti.simulate_two_channel(sc, ship, (3.0, 0.0, 0.0),
+                                         device="cpu")[0]
+        assert got.shape == want.shape == (2, 8, 256)
+        assert float(want.abs().max()) > 0
+        assert float((got - want).abs().max()) \
+            < 2e-4 * float(want.abs().max())
+        return
+    err = NotImplementedError if backend == "pallas_interpret" else ValueError
+    with pytest.raises(err, match="interpret|uniform fast-time"):
+        gmti.simulate_two_channel(sc_b, ship, (0.0, 0.0, 0.0), device="cpu")
 
 
 # --------------------------------------------------------------------------
