@@ -16,13 +16,15 @@ raises and the exit code is non-zero:
   2. build    nvcc builds csrc/*.cu (timed)
   3. kernels  each GMTI kernel vs its plain PyTorch version on the card, on
               seeded 4096^2 planes with the slice scenario's factors: error
-              and time (CUDA events, median of 5 after a warm-up) of both
+              and time (CUDA events, median of 5 after a warm-up) of both;
+              K3g's share of its byte bound and its column_plan
   3b. csa     K1, K2 single, K3 and the raw balance on the same inputs vs
               their plain versions (<= 1e-4 of the peak, balance angle
               <= 1e-5 rad); K1, K2 single and K3 bit for bit against K1g, K2
               pair and K3g on channel 1; two balance launches bit for bit;
               times of each, its plain version and (K3, balance) the one
-              PyTorch call computing the same function
+              PyTorch call computing the same function; K3's time as a
+              multiple of torch.fft.ifft's and its share of its byte bound
   4. main     models.gmti.run(path='kernel_fused') on the card: every launch
               counter must rise, every product plane be finite, and the
               products agree with path='composed' on the same raw; the CPI
@@ -376,10 +378,13 @@ def phase_kernels(dev) -> dict:
         *z, cal_cs, h_out=h_out, h_in=h_in, twiddles=tw),
         lambda: gmti_kernel.k3_gmti_plain(*z, cal_cs, h_out=h_out,
                                           h_in=h_in))
+    share = bound(GMTI_PLANES["K3g"] * 4.0 * N * N, 0.0)["bound_ms"] \
+        / rec["K3g"]["ms"]
     print(f"[3 kernels] K3g  rel err {max(errs.values()):.2e}; median ATI "
           f"phase err {med:.2e} rad over {int(clear.sum())} px; "
           f"{rec['K3g']['ms']:.3f} ms vs plain {rec['K3g']['plain_ms']:.3f}"
-          " ms")
+          f" ms; {share:.1%} of its byte bound; plan "
+          f"{csa_kernel.column_plan(N, N, 2)}")
     p3 = ref
     del got, z
 
@@ -470,6 +475,10 @@ def phase_csa_kernels(dev) -> dict:
            lambda: csa_kernel.k3_plain(y[0], y[1]),
            4 * plane_bytes, fft_ops + 2.0 * N * N,
            lib=lambda: torch.fft.ifft(yc, dim=0))
+    r = rec["K3"]
+    print(f"[3b csa] K3 {r['ms'] / r['library_ms']:.2f}x torch.fft.ifft's "
+          f"time, {r['bound_ms'] / r['ms']:.1%} of its byte bound; plan "
+          f"{csa_kernel.column_plan(N, N, 1)}")
     del g3, y, yc
 
     # raw balance: 0-d sums, angle, bit-identical repeat; torch.vdot beside

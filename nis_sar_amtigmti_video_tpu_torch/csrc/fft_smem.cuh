@@ -1,12 +1,14 @@
 // Shared-memory building blocks of the port's CSA and GMTI kernels:
-// complex helpers, radix-2 FFTs over whole sequences held in shared memory,
-// deterministic block reductions and windowed sums.
+// complex helpers, radix-2 FFTs over whole sequences held in shared memory
+// or in registers, a deterministic block sum and windowed sums.
 //
 // The TPU kernels ran their FFTs as four-step DFT contractions on the MXU,
 // with every f32 operand split into bf16 hi/lo halves by hand. Hopper runs
-// f32 FMAs at full precision, so here each block transforms whole columns or
-// rows in shared memory with plain radix-2 butterflies in f32. Twiddles come
-// from a table computed in float64 on the host and rounded once to f32.
+// f32 FMAs at full precision, so here the kernels transform whole columns or
+// rows with plain radix-2 butterflies in f32: in shared memory, a barrier a
+// stage (fft_dif, fft_dit), or a few stages at a time in registers
+// (ifft_reg). Twiddles come from a table computed in float64 on the host and
+// rounded once to f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,27 +87,72 @@ static __device__ void fft_dit(float2* x, int nseq, int n, int log2n,
   }
 }
 
-// Sum / max of one value per thread over the block (blockDim.x a power of
-// two), as a fixed tree in shared memory `red` (blockDim.x floats): the same
+// k with its low `bits` bits reversed, at compile time (the register FFTs'
+// output permutation is a renaming of registers).
+__host__ __device__ constexpr int bitrev_const(int k, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r = (r << 1) | ((k >> i) & 1);
+  return r;
+}
+
+__host__ __device__ constexpr int log2_const(int n) {
+  return n <= 1 ? 0 : 1 + log2_const(n / 2);
+}
+
+// exp(+2 pi i m / n) for 0 <= m < n, from the n-point table `tw` (k < n/2):
+// the inverse transform's twiddle at any power.
+static __device__ __forceinline__ float2 itwiddle(
+    const float2* __restrict__ tw, int m, int n) {
+  const int h = n >> 1;
+  float2 w = __ldg(tw + (m < h ? m : m - h));
+  if (m >= h) w = make_float2(-w.x, -w.y);
+  return make_float2(w.x, -w.y);
+}
+
+// One radix-2 decimation-in-frequency stage of ifft_reg (butterflies HALF
+// apart), then the stages below it. Every index is a compile-time constant,
+// so v stays in registers.
+template <int R, int HALF>
+static __device__ __forceinline__ void ifft_reg_stage(
+    float2 (&v)[R], const float2* __restrict__ tw, int stride) {
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) {
+    const int p = i % HALF, lo = (i / HALF) * 2 * HALF + p, hi = lo + HALF;
+    const float2 u = v[lo], w = v[hi];
+    v[lo] = make_float2(u.x + w.x, u.y + w.y);
+    const float2 d = make_float2(u.x - w.x, u.y - w.y);
+    v[hi] = p == 0 ? d
+                   : cmul(d, twiddle(tw, p * (R / (2 * HALF)) * stride, true));
+  }
+  if constexpr (HALF > 1) ifft_reg_stage<R, HALF / 2>(v, tw, stride);
+}
+
+// Unnormalised inverse DFT of the R points in v (R a power of two, up to
+// 32), natural order in and out, wholly in registers: radix-2 decimation in
+// frequency, then the bit-reversal as a compile-time renaming. `stride` is
+// n / R for the n-point table `tw`, so W_R^k is tw[k * stride]. No barrier.
+template <int R>
+static __device__ __forceinline__ void ifft_reg(
+    float2 (&v)[R], const float2* __restrict__ tw, int stride) {
+  if constexpr (R > 1) {
+    ifft_reg_stage<R, R / 2>(v, tw, stride);
+    constexpr int kLog = log2_const(R);
+    float2 t[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) t[k] = v[bitrev_const(k, kLog)];
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = t[k];
+  }
+}
+
+// Sum of one value per thread over the block (blockDim.x a power of two),
+// as a fixed tree in shared memory `red` (blockDim.x floats): the same
 // association on every run, no atomics. Synchronises on entry and exit.
 static __device__ float block_sum(float* red, float v) {
   red[threadIdx.x] = v;
   __syncthreads();
   for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
     if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-static __device__ float block_max(float* red, float v) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s)
-      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
     __syncthreads();
   }
   const float r = red[0];

@@ -1,8 +1,11 @@
 """Single-channel stripmap pipeline.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/models/stripmap.py``. Only the
-scenario -> echo-options rule is ported so far (the GMTI pipeline needs it);
-``simulate_raw`` and ``run`` wait for the noise and RDA ports.
+scenario -> echo-options rule is ported so far (the GMTI pipeline needs it).
+Still to come: ``StripmapProducts``, ``simulate_raw`` and the CSA branch of
+``run``, whose parts are ported (``ops/echo.py``, ``ops/noise.py``,
+``ops/csa.py::focus_csa``); then the RDA branch, which waits for
+``ops/rda.py``, ``ops/windows.py`` and the non-uniform interpolation.
 """
 
 from __future__ import annotations

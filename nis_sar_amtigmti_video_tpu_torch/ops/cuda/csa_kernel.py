@@ -8,7 +8,7 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/csa_kernel.py``
                                                   column pass for one channel)
     K2   range FFT -> Phi2 -> range IFFT -> Phi3 (csrc/csa_kernel.cu)
     K3   azimuth IFFT (1/N)                      (csrc/gmti_kernel.cu, K3g's
-                                                  column load and FFT)
+                                                  column pass)
 
 Beside each wrapper is its plain PyTorch version (``*_plain``, same
 signature and return tuple), which the wrapper runs for CPU tensors; for
@@ -20,6 +20,8 @@ twins of the same function and have no counterpart here.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -27,7 +29,8 @@ from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 
 # CPI sides the kernels take: powers of two (radix-2 FFTs) in the range they
-# were checked at; a 4096 side holds 64-80 KB of shared memory per block
+# were checked at; a K1 / K2 block holds a whole line, 64-80 KB of shared
+# memory at 4096
 MIN_N, MAX_N = 64, 4096
 
 
@@ -35,6 +38,60 @@ def supported(n_az: int, n_rg: int) -> bool:
     """Shapes the kernels take: both axes powers of two in [64, 4096]."""
     return all(MIN_N <= n <= MAX_N and n & (n - 1) == 0
                for n in (n_az, n_rg))
+
+
+# Threads a block of the K3 / K3g column pass, and halo rows K3g keeps on
+# either side of a chunk of its power (csrc/gmti_kernel.cu, kColThreads and
+# kHalo)
+COLUMN_THREADS, COLUMN_HALO = 256, 16
+
+
+class ColumnPlan(NamedTuple):
+    """Launch plan of the K3 / K3g column pass: ``cols`` adjacent range
+    columns a tile, one tile a cluster of ``cluster`` blocks, ``smem`` bytes
+    of dynamic shared memory a block."""
+    cols: int
+    cluster: int
+    smem: int
+
+
+def column_split(n_az: int, cluster: int):
+    """(QA, QB) of the split n_az = cluster * QA * QB: QA = 2^ceil(l / 2),
+    QB = 2^floor(l / 2) for l = log2(n_az / cluster)."""
+    q = n_az // cluster
+    qb = 1 << ((q.bit_length() - 1) // 2)
+    return q // qb, qb
+
+
+def column_smem(n_az: int, cols: int, cluster: int, nch: int) -> int:
+    """Shared-memory bytes a block of the plan takes (the launchers compute
+    the same and refuse a plan that disagrees): per channel (Q + QB) x cols
+    complex64 slots; K3g adds its Q x cols power slots, 2 COLUMN_HALO x cols
+    halo slots for each of its ``cluster`` chunks and one float32 a
+    thread."""
+    q = n_az // cluster
+    n = nch * (q + column_split(n_az, cluster)[1]) * cols * 8
+    if nch == 2:
+        n += ((q + 2 * COLUMN_HALO * cluster) * cols + COLUMN_THREADS) * 4
+    return n
+
+
+def column_plan(n_az: int, n_rg: int, nch: int) -> ColumnPlan:
+    """The plan of the column pass over (n_az, n_rg) planes of ``nch``
+    channels (1: K3, 2: K3g). The cluster size depends on n_az alone, so K3
+    and K3g split the transform alike and K3 gives K3g's s1 bits: one block
+    holds up to 512 rows of a column. The tile is as wide as gives pass A
+    one task a thread over the channels (nch x QB x cols = 256), never under
+    8 columns (one 32-byte sector of each plane's row segment). At 4096 x
+    4096 that is K3 16 columns, K3g 8, in clusters of 8 blocks of 68 and
+    93 KB (two blocks an SM): the fastest of the plans timed on the H100
+    (scripts/probe_torch_column_plan.py)."""
+    if not supported(n_az, n_rg):
+        raise ValueError(f"column_plan: shape {(n_az, n_rg)} not supported")
+    cluster = max(1, n_az // 512)
+    qb = column_split(n_az, cluster)[1]
+    cols = min(n_rg, max(8, COLUMN_THREADS // (nch * qb)))
+    return ColumnPlan(cols, cluster, column_smem(n_az, cols, cluster, nch))
 
 
 def plane_shape(name: str, x: torch.Tensor):
@@ -197,8 +254,9 @@ def k3_plain(xr, xi, *, twiddles=None, out=None):
 
 
 def k3_call(xr, xi, *, twiddles=None, out=None):
-    """Inverse azimuth FFT (1/N) of one channel: K3g's column load and
-    transform, so its result is K3g's SLC for that channel bit for bit.
+    """Inverse azimuth FFT (1/N) of one channel: K3g's column pass (the same
+    transform on the same :func:`column_plan` split), so its result is K3g's
+    SLC for that channel bit for bit.
 
     (n_az, n_rg) float32 planes in, two planes out: new ones, or ``out``, a
     pair of contiguous planes of that shape to write (and return).
@@ -213,7 +271,8 @@ def k3_call(xr, xi, *, twiddles=None, out=None):
         out = [torch.empty_like(xr) for _ in range(2)]
     else:
         _build.check("k3_call", out, (n_az, n_rg), dev)
-    _build.launch("k3_launch", (xr, xi, tw, *out), (n_az, n_rg))
+    _build.launch("k3_launch", (xr, xi, tw, *out),
+                  (n_az, n_rg, *column_plan(n_az, n_rg, 1)))
     k3_call.launches += 1
     return tuple(out)
 

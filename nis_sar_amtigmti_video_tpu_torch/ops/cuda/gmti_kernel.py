@@ -24,7 +24,7 @@ from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import _count_1d, _window_sum
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda.csa_kernel import (
-    plane_shape, twiddles_for)
+    column_plan, plane_shape, twiddles_for)
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +159,8 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     out = [torch.empty_like(x1r) for _ in range(9)]
     peaks = torch.empty((n_rg,), dtype=torch.float32, device=dev)
     _build.launch("k3g_launch", (x1r, x1i, x2r, x2i, cal_cos_sin, tw, *out,
-                                 peaks), (n_az, n_rg, h_out, h_in))
+                                 peaks),
+                  (n_az, n_rg, h_out, h_in, *column_plan(n_az, n_rg, 2)))
     k3_gmti_planes.launches += 1
     return (*out, peaks)
 

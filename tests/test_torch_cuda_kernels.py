@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card: the GMTI and CSA kernels (K1g, K2 pair, K3g, K4, the raw
 balance; K1, K2 single and K3, also bit for bit against their two-channel
-twins) at 256^2 and at the slice's 4096^2, the
-fast-BP recentre kernels at nfft 16,384 and at the VideoSAR reference shape
+twins) at 256^2 and at the slice's 4096^2, K3 and K3g also on rectangular
+planes, twice for the same bits and at their columns' edges, the fast-BP
+recentre kernels at nfft 16,384 and at the VideoSAR reference shape
 (2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
 kernels on synthetic operands and at the VideoSAR full width, and the
 NUFFT echo's spread (both orders) and FFT-conv kernels and the direct-echo
@@ -61,8 +62,10 @@ def _factors(n, dev):
 
 
 def _planes(n, dev, seed=0):
+    """Four seeded planes, (n, n) or of shape n."""
     rng = np.random.default_rng(seed)
-    x1r, x1i, n2r, n2i = (rng.standard_normal((n, n), dtype=np.float32)
+    shape = (n, n) if isinstance(n, int) else n
+    x1r, x1i, n2r, n2i = (rng.standard_normal(shape, dtype=np.float32)
                           for _ in range(4))
     c, s = np.float32(np.cos(0.31)), np.float32(np.sin(0.31))
     return [torch.from_numpy(v).to(dev) for v in
@@ -98,18 +101,65 @@ def test_k2_pair_matches_plain(dev, n):
         assert _rel(a, b) <= 1e-4
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+# the column pass's shapes: square, one tile wide, one tile of rows per
+# block, and a cluster of 4 over rectangular planes
+COLUMN_SHAPES = [256, 4096, (4096, 64), (64, 4096), (1024, 4096)]
+
+
+def _cal_cs(dev):
+    return torch.tensor([np.cos(0.4), np.sin(0.4)], dtype=torch.float32,
+                        device=dev)
+
+
+@pytest.mark.parametrize("n", COLUMN_SHAPES)
 def test_k3g_matches_plain(dev, n):
     x = _planes(n, dev, 2)
-    cal_cs = torch.tensor([np.cos(0.4), np.sin(0.4)], dtype=torch.float32,
-                          device=dev)
+    cal_cs = _cal_cs(dev)
     got = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
     want = gmti_kernel.k3_gmti_plain(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
     for i in (0, 1, 2, 3, 5, 6, 7, 8, 9):
+        assert got[i].shape == want[i].shape, i
         assert _rel(got[i], want[i]) <= 1e-4, i
     strong = want[5] > 1e-2 * want[5].max()
     d = torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi) - np.pi
     assert float(d[strong].abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("n", [(4096, 256), (256, 64)])
+def test_k3g_repeats_bit_for_bit(dev, n):
+    """Two launches give the same bits in every plane, peaks included (no
+    float atomics; the peaks are a max in a fixed order)."""
+    x = _planes(n, dev, 9)
+    cal_cs = _cal_cs(dev)
+    a = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
+    b = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
+    for i, (u, v) in enumerate(zip(a, b)):
+        assert torch.equal(u, v), i
+
+
+@pytest.mark.parametrize("n,h_out,h_in", [((4096, 64), H_OUT, H_IN),
+                                          ((256, 64), H_OUT, H_IN),
+                                          ((4096, 64), 40, 20)])
+def test_k3g_box_sums_at_column_edges(dev, n, h_out, h_in):
+    """The azimuth box sums at the first and last h_out rows of each column
+    (windows clipped by the column's ends) and on both sides of every
+    block's chunk of rows (windows closed over the rows other blocks hold:
+    the halo copied beside the chunk, or, for half-widths beyond it, row by
+    row) match the plain _window_sum."""
+    x = _planes(n, dev, 10)
+    cal_cs = _cal_cs(dev)
+    got = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=h_out, h_in=h_in)
+    want = gmti_kernel.k3_gmti_plain(*x, cal_cs, h_out=h_out, h_in=h_in)
+    n_az = got[0].shape[0]
+    edges = [torch.arange(h_out), torch.arange(n_az - h_out, n_az)]
+    plan = csa_kernel.column_plan(*got[0].shape, 2)
+    chunk = n_az // plan.cluster // plan.cluster
+    for b in range(chunk, n_az, chunk):
+        edges.append(torch.arange(b - h_out, b + h_out))
+    rows = torch.cat(edges).to(dev)
+    for i in (7, 8):
+        assert _rel(got[i][rows], want[i][rows]) <= 1e-4, i
+        assert _rel(got[i], want[i]) <= 1e-4, i
 
 
 @pytest.mark.parametrize("n", [256, 4096])
@@ -155,7 +205,7 @@ def test_k2_matches_plain_and_pair(dev, n):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("n", COLUMN_SHAPES)
 def test_k3_matches_plain_and_k3g(dev, n):
     x = _planes(n, dev, 6)
     got = csa_kernel.k3_call(x[0], x[1])

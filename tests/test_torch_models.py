@@ -216,7 +216,7 @@ def test_echo_empty_scene_and_grids():
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "freq"])
-def test_unported_echo_backends_raise(backend):
+def test_scalar_field_echo_backends(backend):
     """The scalar-field echo backends through simulate_two_channel on the
     CPU: 'pallas' runs the direct-echo kernel's plain version and matches
     the direct engine; 'pallas_interpret' raises (no kernel interpreter);
