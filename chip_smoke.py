@@ -17,14 +17,17 @@ raises and the exit code is non-zero:
   3. kernels  each GMTI kernel vs its plain PyTorch version on the card, on
               seeded 4096^2 planes with the slice scenario's factors: error
               and time (CUDA events, median of 5 after a warm-up) of both;
-              K3g's share of its byte bound and its column_plan
+              K1g's time as a multiple of torch.fft.fft's over both
+              channels' azimuth axis; K1g's and K3g's shares of their byte
+              bounds and their column_plans
   3b. csa     K1, K2 single, K3 and the raw balance on the same inputs vs
               their plain versions (<= 1e-4 of the peak, balance angle
               <= 1e-5 rad); K1, K2 single and K3 bit for bit against K1g, K2
               pair and K3g on channel 1; two balance launches bit for bit;
-              times of each, its plain version and (K3, balance) the one
-              PyTorch call computing the same function; K3's time as a
-              multiple of torch.fft.ifft's and its share of its byte bound
+              times of each, its plain version and (K1, K3, balance) the
+              one PyTorch call computing the same function; K1's and K3's
+              times as multiples of torch.fft.fft's / torch.fft.ifft's and
+              their shares of their byte bounds and their column_plans
   4. main     models.gmti.run(path='kernel_fused') on the card: every launch
               counter must rise, every product plane be finite, and the
               products agree with path='composed' on the same raw; the CPI
@@ -60,7 +63,8 @@ tile, coarse-tile factorized):
               kernel; ring offsets 500 / 1000 / 2000 bit-identical to the
               chronological order; times (CUDA events, median of 5 after a
               warm-up) of each kernel, its plain version and cuFFT's
-              transform beside the forward spectra
+              transform beside the forward spectra; the forward spectra
+              again at the ring path's launch shape (one 500-pulse step)
   7. acc      the two fast-BP accumulate kernels (pixel tile, coarse-tile
               factorized) vs their plain versions (<= 1e-4 of the peak) on
               operands made as backproject_fast makes them: the fused
@@ -337,9 +341,17 @@ def phase_kernels(dev) -> dict:
                                       for a, b in zip(got[:4], ref[:4])))
     timed("K1g", lambda: gmti_kernel.k1_gmti_planes(*x, f, twiddles=tw),
           lambda: gmti_kernel.k1_gmti_plain(*x, f))
+    # cuFFT's azimuth transform of both channels, built outside the timing
+    xc = torch.stack([torch.complex(x[0], x[1]), torch.complex(x[2], x[3])])
+    rec["K1g"]["library_ms"] = median_ms(lambda: torch.fft.fft(xc, dim=1))
+    del xc
+    r = rec["K1g"]
+    share = bound(GMTI_PLANES["K1g"] * 4.0 * N * N, 0.0)["bound_ms"] / r["ms"]
     print(f"[3 kernels] K1g  rel err {err:.2e} (balance sums {bal:.2e}); "
-          f"{rec['K1g']['ms']:.3f} ms vs plain {rec['K1g']['plain_ms']:.3f}"
-          " ms")
+          f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, one PyTorch "
+          f"call {r['library_ms']:.3f} ms; {r['ms'] / r['library_ms']:.2f}x "
+          f"torch.fft.fft's time (2 channels, dim 1), {share:.1%} of its byte"
+          f" bound; plan {csa_kernel.column_plan(N, N, 2, forward=True)}")
     z, xs = ref[:4], ref[4:]
     del got, ref
 
@@ -443,15 +455,21 @@ def phase_csa_kernels(dev) -> dict:
               f"vs plain {r['plain_ms']:.3f} ms{lib_s}; bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
 
-    # K1 (channel 1) against K1g's channel 1
+    # K1 (channel 1) against K1g's channel 1; cuFFT's azimuth fft beside it
     pair = gmti_kernel.k1_gmti_planes(*x, f, twiddles=tw)
+    xc = torch.complex(x[0], x[1])
     record("K1", csa_kernel.k1_call(x[0], x[1], f, twiddles=tw),
            csa_kernel.k1_plain(x[0], x[1], f), pair[:2],
            lambda: csa_kernel.k1_call(x[0], x[1], f, twiddles=tw),
            lambda: csa_kernel.k1_plain(x[0], x[1], f),
-           4 * plane_bytes, fft_ops + 10.0 * N * N)
+           4 * plane_bytes, fft_ops + 10.0 * N * N,
+           lib=lambda: torch.fft.fft(xc, dim=0))
+    r = rec["K1"]
+    print(f"[3b csa] K1 {r['ms'] / r['library_ms']:.2f}x torch.fft.fft's "
+          f"time, {r['bound_ms'] / r['ms']:.1%} of its byte bound; plan "
+          f"{csa_kernel.column_plan(N, N, 1, forward=True)}")
     z = gmti_kernel.k1_gmti_plain(*x, f)[:4]
-    del pair
+    del pair, xc
 
     # K2 single (channel 1) against the K2 pair's channel 1
     pair = csa_kernel.k2_pair_call(*z, f, twiddles=tw)
@@ -827,6 +845,20 @@ def phase_bp(dev) -> dict:
            lambda: fft_kernel.forward_spectra_plain(rc, p),
            8.0 * cpi * (ns + nfft), cpi * (fft_flops + 6.0 * nfft),
            lib=lambda: torch.fft.fft(rc, n=nfft, dim=-1))
+    # the ring path's launches take one step of pulses each
+    step = sc.video.step_pulses(sc.radar.prf_hz)
+    seg = rc[:step].contiguous()
+    seg_err = rel_err(fft_kernel.forward_spectra(seg, p),
+                      fft_kernel.forward_spectra_plain(seg, p))
+    assert seg_err <= 1e-4, seg_err
+    seg_ms = median_ms(lambda: fft_kernel.forward_spectra(seg, p))
+    seg_lib = median_ms(lambda: torch.fft.fft(seg, n=nfft, dim=-1))
+    seg_bound = bound(8.0 * step * (ns + nfft),
+                      step * (fft_flops + 6.0 * nfft))["bound_ms"]
+    print(f"[6 bp] forward_spectra at the ring path's {step}-pulse segment: "
+          f"rel err {seg_err:.2e}; {seg_ms:.3f} ms vs torch.fft.fft "
+          f"{seg_lib:.3f} ms; bound {seg_bound:.3f} ms")
+    del seg
     split = fft_kernel.recentre_from_spectra(spec, *args, out_rows=rows)[0]
     record("recentre_from_spectra", split,
            fft_kernel.recentre_from_spectra_plain(spec, *args,
@@ -1559,7 +1591,8 @@ def main():
     timed_phase("build", phase_build)
     rec = timed_phase("kernels", phase_kernels, dev)
     for k, planes in GMTI_PLANES.items():
-        rec[k].update(library_ms=None, **bound(planes * 4.0 * N * N, 0.0))
+        rec[k].setdefault("library_ms", None)
+        rec[k].update(**bound(planes * 4.0 * N * N, 0.0))
     torch.cuda.empty_cache()
     rec.update(timed_phase("csa kernels", phase_csa_kernels, dev))
     torch.cuda.empty_cache()

@@ -7,8 +7,8 @@
 // f32 FMAs at full precision, so here the kernels transform whole columns or
 // rows with plain radix-2 butterflies in f32: in shared memory, a barrier a
 // stage (fft_dif, fft_dit), or a few stages at a time in registers
-// (ifft_reg). Twiddles come from a table computed in float64 on the host and
-// rounded once to f32.
+// (dft_reg, forward or inverse). Twiddles come from a table computed in
+// float64 on the host and rounded once to f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,21 +99,23 @@ __host__ __device__ constexpr int log2_const(int n) {
   return n <= 1 ? 0 : 1 + log2_const(n / 2);
 }
 
-// exp(+2 pi i m / n) for 0 <= m < n, from the n-point table `tw` (k < n/2):
-// the inverse transform's twiddle at any power.
-static __device__ __forceinline__ float2 itwiddle(
+// exp(-2 pi i m / n) for 0 <= m < n (the forward transform's twiddle at any
+// power), or its conjugate for the inverse transform (INV), from the n-point
+// table `tw` (k < n/2).
+template <bool INV>
+static __device__ __forceinline__ float2 twiddle_pow(
     const float2* __restrict__ tw, int m, int n) {
   const int h = n >> 1;
   float2 w = __ldg(tw + (m < h ? m : m - h));
   if (m >= h) w = make_float2(-w.x, -w.y);
-  return make_float2(w.x, -w.y);
+  return INV ? make_float2(w.x, -w.y) : w;
 }
 
-// One radix-2 decimation-in-frequency stage of ifft_reg (butterflies HALF
+// One radix-2 decimation-in-frequency stage of dft_reg (butterflies HALF
 // apart), then the stages below it. Every index is a compile-time constant,
 // so v stays in registers.
-template <int R, int HALF>
-static __device__ __forceinline__ void ifft_reg_stage(
+template <bool INV, int R, int HALF>
+static __device__ __forceinline__ void dft_reg_stage(
     float2 (&v)[R], const float2* __restrict__ tw, int stride) {
 #pragma unroll
   for (int i = 0; i < R / 2; ++i) {
@@ -122,20 +124,21 @@ static __device__ __forceinline__ void ifft_reg_stage(
     v[lo] = make_float2(u.x + w.x, u.y + w.y);
     const float2 d = make_float2(u.x - w.x, u.y - w.y);
     v[hi] = p == 0 ? d
-                   : cmul(d, twiddle(tw, p * (R / (2 * HALF)) * stride, true));
+                   : cmul(d, twiddle(tw, p * (R / (2 * HALF)) * stride, INV));
   }
-  if constexpr (HALF > 1) ifft_reg_stage<R, HALF / 2>(v, tw, stride);
+  if constexpr (HALF > 1) dft_reg_stage<INV, R, HALF / 2>(v, tw, stride);
 }
 
-// Unnormalised inverse DFT of the R points in v (R a power of two, up to
-// 32), natural order in and out, wholly in registers: radix-2 decimation in
-// frequency, then the bit-reversal as a compile-time renaming. `stride` is
-// n / R for the n-point table `tw`, so W_R^k is tw[k * stride]. No barrier.
-template <int R>
-static __device__ __forceinline__ void ifft_reg(
+// Unnormalised DFT of the R points in v (R a power of two, up to 32),
+// forward or inverse (INV), natural order in and out, wholly in registers:
+// radix-2 decimation in frequency, then the bit-reversal as a compile-time
+// renaming. `stride` is n / R for the n-point table `tw`, so W_R^k is
+// tw[k * stride]. No barrier.
+template <bool INV, int R>
+static __device__ __forceinline__ void dft_reg(
     float2 (&v)[R], const float2* __restrict__ tw, int stride) {
   if constexpr (R > 1) {
-    ifft_reg_stage<R, R / 2>(v, tw, stride);
+    dft_reg_stage<INV, R, R / 2>(v, tw, stride);
     constexpr int kLog = log2_const(R);
     float2 t[R];
 #pragma unroll

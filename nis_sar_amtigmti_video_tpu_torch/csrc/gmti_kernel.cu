@@ -3,12 +3,12 @@
 //
 // K1g replaces nis_sar_amtigmti_video_tpu/ops/pallas/gmti_kernel.py
 //     :: k1_gmti_planes / _k1g_body. Azimuth (column) FFT of both channels,
-//     x Phi1 = exp(j c1(a) (u(r) - w(a))^2), plus the raw balance partial
-//     sums of x1 conj(x2) (the balance phase needs only their angle, and the
+//     x Phi1 = exp(j c1(a) (u(r) - w(a))^2), plus each column's raw balance
+//     sum of x1 conj(x2) (the balance phase needs only their angle, and the
 //     CSA chain is unitary up to a positive scale).
 // K1  replaces ops/pallas/csa_kernel.py :: _k1_call / _k1_body: the same
-//     pass for one channel (k1_kernel<1>; K1g is k1_kernel<2>, so K1 on a
-//     channel gives K1g's bits for it).
+//     pass for one channel (k1_kernel<1, ...>; K1g is k1_kernel<2, ...> on
+//     the same split of n_az, so K1 on a channel gives K1g's bits for it).
 // K3g replaces ops/pallas/gmti_kernel.py :: k3_gmti_planes / _k3g_call /
 //     _k3g_body. Inverse azimuth FFT (1/N) of both channels, then every
 //     product plane from the column still in shared memory: s1, s2, the
@@ -27,29 +27,29 @@
 // What bounds them on the H100: bytes. K1g moves 4 + 4 planes, K1 and K3
 // 2 + 2, K3g 4 + 9, K4 5 + 4, balance 4 read (64 MB per plane at 4096^2); the
 // FFT flops and the sincosf / atan2f per element are small beside that.
-// Design of K1 / K1g: one block owns one whole azimuth column of each channel
-// (32 KB of shared memory per channel at 4096), loaded and stored with
-// strided 4-byte accesses (each its own 32-byte sector), radix-2 stages with
-// a block barrier each (nis::fft_dif).
-// Design of K3 / K3g: a cluster of blocks owns a tile of adjacent columns,
-// at least 8 wide, so every row segment it reads or writes is whole 32-byte
-// sectors of each plane. The tile's columns do not fit one block at 4096
-// (8 columns of K3g: 512 KB of spectra and 128 KB of power), so the
-// transform is a four-step split of n_az across the cluster: each block
-// transforms a strided row set in two register passes (QA- and QB-point
-// DFTs, one block barrier between them), and after one cluster barrier each
-// block gathers its output rows' partial spectra from the others through
-// distributed shared memory and finishes them with a CS-point DFT in
-// registers (see "The column IFFT" below). K3g's products come from the
-// gathered values; its box sums close over the power each block keeps,
-// with the 16 rows beyond each end of a block's chunks of rows copied once
-// from the blocks holding them.
-// ops/cuda/csa_kernel.py::column_plan picks the tile width and cluster size
-// and the launchers check them. K4 owns whole range rows, so its box sums
-// close in the block. Balance reads contiguous slabs of rows as float4.
-// Cross-block reductions (balance sums) go to per-block scratch that the
-// host reduces, and a cluster's column peaks are a max in a fixed order: no
-// float atomics, so results do not change from run to run.
+// Design of K1 / K1g and K3 / K3g: a cluster of blocks owns a tile of
+// adjacent columns, at least 8 wide, so every row segment it reads or
+// writes is whole 32-byte sectors of each plane. The tile's columns do not
+// fit one block at 4096 (8 columns of K3g: 512 KB of spectra and 128 KB of
+// power), so the transform is a four-step split of n_az across the
+// cluster: each block transforms a strided row set in two register passes
+// (QA- and QB-point DFTs, one block barrier between them), and after one
+// cluster barrier each block gathers its output rows' partial spectra from
+// the others through distributed shared memory and finishes them with a
+// CS-point DFT in registers (see "The column DFT" below). K1 / K1g run it
+// forward and multiply each gathered value by Phi1 as they store it; K1g's
+// balance sums come from the gathered spectra of both channels (Parseval).
+// K3 / K3g run it inverse; K3g's products come from the gathered values;
+// its box sums close over the power each block keeps, with the 16 rows
+// beyond each end of a block's chunks of rows copied once from the blocks
+// holding them. ops/cuda/csa_kernel.py::column_plan picks the tile width
+// and cluster size and the launchers check them. K4 owns whole range rows,
+// so its box sums close in the block. Balance reads contiguous slabs of
+// rows as float4.
+// No float atomics anywhere: the balance kernel's per-block partials and
+// K1g's per-column sums are summed by the wrappers (torch.sum), and K1g's
+// column sums and K3g's column peaks are reduced over a cluster's blocks in
+// rank order, so results do not change from run to run.
 #include <cooperative_groups.h>
 
 #include "fft_smem.cuh"
@@ -58,84 +58,25 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Azimuth FFT x Phi1 of NCH channels (x2*, z2* unused when NCH == 1); for
-// NCH == 2 also the raw balance partial sums of the column (zeros unless
-// `balance`).
-template <int NCH>
-__global__ void k1_kernel(
-    const float* __restrict__ x1r, const float* __restrict__ x1i,
-    const float* __restrict__ x2r, const float* __restrict__ x2i,
-    const float* __restrict__ u, const float* __restrict__ c1,
-    const float* __restrict__ w, const float2* __restrict__ tw,
-    float* __restrict__ z1r, float* __restrict__ z1i,
-    float* __restrict__ z2r, float* __restrict__ z2i,
-    float* __restrict__ bal, int n_az, int n_rg, int log2n, int balance) {
-  float2* a = reinterpret_cast<float2*>(nis_smem);
-  float2* b = a + n_az;
-  float* red = reinterpret_cast<float*>(a + NCH * n_az);
-  const int col = blockIdx.x;
-  float pr = 0.0f;
-  float pi = 0.0f;
-  for (int r = threadIdx.x; r < n_az; r += blockDim.x) {
-    const size_t idx = (size_t)r * n_rg + col;
-    const float ar = x1r[idx], ai = x1i[idx];
-    a[r] = make_float2(ar, ai);
-    if constexpr (NCH == 2) {
-      const float br = x2r[idx], bi = x2i[idx];
-      b[r] = make_float2(br, bi);
-      pr += ar * br + ai * bi;
-      pi += ai * br - ar * bi;
-    }
-  }
-  if constexpr (NCH == 2) {
-    pr = nis::block_sum(red, pr);   // also orders the column loads
-    pi = nis::block_sum(red, pi);
-    if (threadIdx.x == 0) {
-      bal[col] = balance ? pr : 0.0f;
-      bal[n_rg + col] = balance ? pi : 0.0f;
-    }
-  } else {
-    __syncthreads();
-  }
-  nis::fft_dif(a, NCH, n_az, log2n, tw, false);
-
-  const float uc = u[col];
-  for (int p = threadIdx.x; p < n_az; p += blockDim.x) {
-    const int k = nis::bitrev(p, log2n);   // natural azimuth frequency
-    const float du = uc - w[k];
-    float sn, cs;
-    sincosf(c1[k] * du * du, &sn, &cs);
-    const float2 phi = make_float2(cs, sn);
-    const size_t o = (size_t)k * n_rg + col;
-    const float2 y1 = nis::cmul(a[p], phi);
-    z1r[o] = y1.x;
-    z1i[o] = y1.y;
-    if constexpr (NCH == 2) {
-      const float2 y2 = nis::cmul(b[p], phi);
-      z2r[o] = y2.x;
-      z2i[o] = y2.y;
-    }
-  }
-}
-
-// ---- The column IFFT of K3 and K3g ------------------------------------
+// ---- The column DFT of K1 / K1g (forward) and K3 / K3g (inverse) -------
 //
 // A cluster of CS blocks owns a tile of `cols` adjacent range columns (at
 // least 8, so each row segment of a plane is whole 32-byte sectors) and
 // transforms all n = CS * Q azimuth points of each, Q = QA * QB:
 //   input  n = n1 + CS q,  q = qb + QB qa   (block n1 holds rows n1 + CS q)
 //   output k = j + Q k1,   j = ja + QA jb   (block r emits j in its J = Q/CS)
-//   Y_n1[j] = sum_q x[n1 + CS q] W_Q^-(q j)                 (in block n1)
-//   X[j + Q k1] = sum_n1 W_CS^-(n1 k1) W_N^-(n1 j) Y_n1[j]   (across blocks)
-// Pass A: per (channel, column, qb), the QA points qa of a strided row set
-// from device memory, a QA-point inverse DFT in registers, x W_Q^-(qb ja), to
+//   Y_n1[j] = sum_q x[n1 + CS q] W_Q^(q j)                  (in block n1)
+//   X[j + Q k1] = sum_n1 W_CS^(n1 k1) W_N^(n1 j) Y_n1[j]     (across blocks)
+// with W_m = exp(-2 pi i / m) forward (INV false) and its conjugate inverse
+// (INV). Pass A: per (channel, column, qb), the QA points qa of a strided
+// row set from device memory, a QA-point DFT in registers, x W_Q^(qb ja), to
 // shared memory. Block barrier. Pass B: per (column, ja), the QB points qb
-// from shared memory, a QB-point DFT in registers, x W_N^-(n1 j), back in
+// from shared memory, a QB-point DFT in registers, x W_N^(n1 j), back in
 // place (a thread reads and writes the same QB slots). Cluster barrier.
 // Gather: per (column, j), Y_n1[j] from each block of the cluster (DSMEM),
-// a CS-point DFT in registers, X / N for rows j + Q k1. Three barriers in
-// all (K3g adds two around its halo copy), where the radix-2 form had one
-// per stage. Shared memory holds a
+// a CS-point DFT in registers, X (forward) or X / N (inverse) for rows
+// j + Q k1. Three barriers in all (K3g adds two around its halo copy),
+// where the radix-2 form had one per stage. Shared memory holds a
 // channel as (Q + QB) x cols float2: slot l of column c at
 // (l + l / QA) * cols + c, the pad keeping pass A's stores conflict-free.
 // The kernels are built for two blocks an SM (one block's loads overlap
@@ -175,7 +116,7 @@ __device__ __forceinline__ int slot(int l, int c, const Tile& t) {
 
 // Pass A of NCH channels at once: task (ch, qb, c) for channel ch's planes
 // into y + ch * ysz, so every thread of the block has a load to issue.
-template <int NCH, int CS, int QA, int QB>
+template <bool INV, int NCH, int CS, int QA, int QB>
 __device__ void pass_a(const float* __restrict__ z1r,
                        const float* __restrict__ z1i,
                        const float* __restrict__ z2r,
@@ -194,18 +135,18 @@ __device__ void pass_a(const float* __restrict__ z1r,
 #pragma unroll
     for (int a = 0; a < QA; ++a)
       v[a] = make_float2(__ldg(zr + at + a * step), __ldg(zi + at + a * step));
-    nis::ifft_reg<QA>(v, tw, n / QA);
+    nis::dft_reg<INV, QA>(v, tw, n / QA);
 #pragma unroll
     for (int a = 0; a < QA; ++a) {
-      const float2 w = a == 0 ? v[a]
-                              : nis::cmul(v[a],
-                                          nis::itwiddle(tw, CS * qb * a, n));
+      const float2 w =
+          a == 0 ? v[a]
+                 : nis::cmul(v[a], nis::twiddle_pow<INV>(tw, CS * qb * a, n));
       y[ch * ysz + slot<QA>(a + QA * qb, c, t)] = w;
     }
   }
 }
 
-template <int CS, int QA, int QB>
+template <bool INV, int CS, int QA, int QB>
 __device__ void pass_b(float2* y, const float2* __restrict__ tw,
                        const Tile& t) {
   constexpr int n = CS * QA * QB;
@@ -215,11 +156,12 @@ __device__ void pass_b(float2* y, const float2* __restrict__ tw,
     float2 v[QB];
 #pragma unroll
     for (int b = 0; b < QB; ++b) v[b] = y[slot<QA>(ja + QA * b, c, t)];
-    nis::ifft_reg<QB>(v, tw, n / QB);
+    nis::dft_reg<INV, QB>(v, tw, n / QB);
 #pragma unroll
     for (int b = 0; b < QB; ++b) {
       if constexpr (CS > 1)
-        v[b] = nis::cmul(v[b], nis::itwiddle(tw, t.rank * (ja + QA * b), n));
+        v[b] = nis::cmul(v[b],
+                         nis::twiddle_pow<INV>(tw, t.rank * (ja + QA * b), n));
       y[slot<QA>(ja + QA * b, c, t)] = v[b];
     }
   }
@@ -227,24 +169,24 @@ __device__ void pass_b(float2* y, const float2* __restrict__ tw,
 
 // Passes A and B of NCH channels (channel ch's planes into y + ch * ysz),
 // then the cluster barrier: every block's Y is complete.
-template <int NCH, int CS, int QA, int QB>
+template <bool INV, int NCH, int CS, int QA, int QB>
 __device__ void column_passes(const float* z1r, const float* z1i,
                               const float* z2r, const float* z2i, float2* y,
                               int ysz, const float2* __restrict__ tw,
                               const Tile& t) {
-  pass_a<NCH, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
+  pass_a<INV, NCH, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
   __syncthreads();
-  pass_b<CS, QA, QB>(y, tw, t);
-  if constexpr (NCH == 2) pass_b<CS, QA, QB>(y + ysz, tw, t);
+  pass_b<INV, CS, QA, QB>(y, tw, t);
+  if constexpr (NCH == 2) pass_b<INV, CS, QA, QB>(y + ysz, tw, t);
   cluster_barrier<CS>();
 }
 
 // The gather: emit(c, lr, row, v1, v2) for each column c of the tile and
 // each of this block's output rows `row` = j + Q k1 (lr = k1 J + j - rank J
-// its slot among the block's Q rows), v1 and v2 the two channels' X / N
-// (v2 = v1 when NCH == 1). The caller ends with a cluster barrier: other
-// blocks read this block's Y until they are done.
-template <int NCH, int CS, int QA, int QB, typename Emit>
+// its slot among the block's Q rows), v1 and v2 the two channels' X
+// (forward) or X / N (inverse) (v2 = v1 when NCH == 1). The caller ends with
+// a cluster barrier: other blocks read this block's Y until they are done.
+template <bool INV, int NCH, int CS, int QA, int QB, typename Emit>
 __device__ void column_gather(float2* y, int ysz,
                               const float2* __restrict__ tw, const Tile& t,
                               Emit emit) {
@@ -262,12 +204,13 @@ __device__ void column_gather(float2* y, int ysz,
       v1[n1] = src[slot<QA>(j, c, t)];
       if constexpr (NCH == 2) v2[n1] = src[ysz + slot<QA>(j, c, t)];
     }
-    nis::ifft_reg<CS>(v1, tw, n / CS);
-    if constexpr (NCH == 2) nis::ifft_reg<CS>(v2, tw, n / CS);
+    nis::dft_reg<INV, CS>(v1, tw, n / CS);
+    if constexpr (NCH == 2) nis::dft_reg<INV, CS>(v2, tw, n / CS);
 #pragma unroll
     for (int k1 = 0; k1 < CS; ++k1) {
-      const float2 a = nis::cscale(v1[k1], inv_n);
-      const float2 b = NCH == 2 ? nis::cscale(v2[k1], inv_n) : a;
+      const float2 a = INV ? nis::cscale(v1[k1], inv_n) : v1[k1];
+      const float2 b =
+          NCH == 2 ? (INV ? nis::cscale(v2[k1], inv_n) : v2[k1]) : a;
       emit(c, k1 * J + jj, j + Q * k1, a, b);
     }
   }
@@ -284,6 +227,81 @@ __device__ __forceinline__ Tile tile_of(int n_rg, int log2cols) {
   return t;
 }
 
+// K1 / K1g: the forward column DFT of NCH channels (x2*, z2* and bal unused
+// when NCH == 1), x Phi1 = exp(j c1(k) (u(col) - w(k))^2) on the natural
+// frequency k as each value is stored (the accurate sincosf of the same f32
+// expression as the plain version). For NCH == 2 also each column's raw
+// balance sum of x1 conj(x2) into bal[col] (re) and bal[n_rg + col] (im),
+// zeros unless `balance`: by Parseval, sum_k X1 conj(X2) / n over the
+// gathered spectra before Phi1 (which cancels), each thread's rows in task
+// order, then the threads that served the column (c, c + cols, ...) in
+// thread order, then the cluster's blocks in rank order in rank 0's shared
+// memory, and 1 / n (a power of two) at the end.
+template <int NCH, int CS, int QA, int QB>
+__global__ void __launch_bounds__(kColThreads, 2) k1_kernel(
+    const float* __restrict__ x1r, const float* __restrict__ x1i,
+    const float* __restrict__ x2r, const float* __restrict__ x2i,
+    const float* __restrict__ u, const float* __restrict__ c1,
+    const float* __restrict__ w, const float2* __restrict__ tw,
+    float* __restrict__ z1r, float* __restrict__ z1i,
+    float* __restrict__ z2r, float* __restrict__ z2i,
+    float* __restrict__ bal, int n_rg, int balance, int log2cols) {
+  constexpr int Q = QA * QB, n = CS * Q;
+  const Tile t = tile_of<CS>(n_rg, log2cols);
+  const int ysz = (Q + QB) << log2cols;
+  float2* y = reinterpret_cast<float2*>(nis_smem);
+  // K1g's sums after the channels' slots: one a thread, then rank 0's
+  // cols a block of the cluster
+  float2* red = y + 2 * ysz;
+  float2* part = red + kColThreads;
+  column_passes<false, NCH, CS, QA, QB>(x1r, x1i, x2r, x2i, y, ysz, tw, t);
+  float2 s = make_float2(0.0f, 0.0f);   // X1 conj(X2) over this thread's rows
+  column_gather<false, NCH, CS, QA, QB>(
+      y, ysz, tw, t, [&](int c, int, int row, float2 v1, float2 v2) {
+        const int col = t.col0 + c;
+        const float du = __ldg(u + col) - __ldg(w + row);
+        float sn, cs;
+        sincosf(__ldg(c1 + row) * du * du, &sn, &cs);
+        const float2 phi = make_float2(cs, sn);
+        const size_t idx = (size_t)row * n_rg + col;
+        const float2 a = nis::cmul(v1, phi);
+        z1r[idx] = a.x;
+        z1i[idx] = a.y;
+        if constexpr (NCH == 2) {
+          const float2 b = nis::cmul(v2, phi);
+          z2r[idx] = b.x;
+          z2i[idx] = b.y;
+          s.x += v1.x * v2.x + v1.y * v2.y;
+          s.y += v1.y * v2.x - v1.x * v2.y;
+        }
+      });
+  if constexpr (NCH == 2) {
+    red[threadIdx.x] = s;
+    __syncthreads();
+    if ((int)threadIdx.x < t.cols) {
+      for (int i = threadIdx.x + t.cols; i < (int)blockDim.x; i += t.cols) {
+        s.x += red[i].x;
+        s.y += red[i].y;
+      }
+      block_smem<CS>(part, 0)[(t.rank << log2cols) + threadIdx.x] = s;
+    }
+  }
+  cluster_barrier<CS>();   // every gather and every block's sums are done
+  if constexpr (NCH == 2) {
+    if (t.rank == 0 && (int)threadIdx.x < t.cols) {
+      float sr = 0.0f, si = 0.0f;
+#pragma unroll
+      for (int r = 0; r < CS; ++r) {
+        sr += part[(r << log2cols) + threadIdx.x].x;
+        si += part[(r << log2cols) + threadIdx.x].y;
+      }
+      const float inv_n = 1.0f / (float)n;
+      bal[t.col0 + threadIdx.x] = balance ? sr * inv_n : 0.0f;
+      bal[n_rg + t.col0 + threadIdx.x] = balance ? si * inv_n : 0.0f;
+    }
+  }
+}
+
 template <int CS, int QA, int QB>
 __global__ void __launch_bounds__(kColThreads, 2) k3_kernel(
     const float* __restrict__ zr, const float* __restrict__ zi,
@@ -291,8 +309,8 @@ __global__ void __launch_bounds__(kColThreads, 2) k3_kernel(
     float* __restrict__ si, int n_rg, int log2cols) {
   float2* y = reinterpret_cast<float2*>(nis_smem);
   const Tile t = tile_of<CS>(n_rg, log2cols);
-  column_passes<1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw, t);
-  column_gather<1, CS, QA, QB>(
+  column_passes<true, 1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw, t);
+  column_gather<true, 1, CS, QA, QB>(
       y, 0, tw, t, [&](int c, int, int row, float2 v, float2) {
         const size_t idx = (size_t)row * n_rg + t.col0 + c;
         sr[idx] = v.x;
@@ -366,12 +384,12 @@ __global__ void __launch_bounds__(kColThreads, 2) k3g_kernel(
   float2* y = reinterpret_cast<float2*>(nis_smem);
   float* pcol = reinterpret_cast<float*>(y + 2 * ysz);
   float* red = pcol + ((Q + 2 * kHalo * CS) << log2cols);
-  column_passes<2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
+  column_passes<true, 2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
 
   const float cr = cal_cs[0];
   const float ci = cal_cs[1];
   float m = 0.0f;     // max |s1|^2 over this thread's rows of column c
-  column_gather<2, CS, QA, QB>(
+  column_gather<true, 2, CS, QA, QB>(
       y, ysz, tw, t, [&](int c, int lr, int row, float2 v1, float2 v2) {
         const size_t idx = (size_t)row * n_rg + t.col0 + c;
         s1r[idx] = v1.x;
@@ -517,55 +535,24 @@ __global__ void balance_kernel(
 // Each launcher runs its kernel over (n_az, n_rg) f32 planes on `stream`
 // (n_az, n_rg powers of two) and returns cudaGetLastError() after the launch.
 
-template <int NCH>
-static int k1_run(const float* x1r, const float* x1i, const float* x2r,
-                  const float* x2i, const float* u, const float* c1,
-                  const float* w, const float2* tw, float* z1r, float* z1i,
-                  float* z2r, float* z2i, float* bal, int n_az, int n_rg,
-                  int balance, void* stream) {
-  const int threads = nis::threads_for(n_az);
-  const int smem = NCH * n_az * (int)sizeof(float2)
-                   + (NCH == 2 ? threads * (int)sizeof(float) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      k1_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  k1_kernel<NCH><<<n_rg, threads, smem, (cudaStream_t)stream>>>(
-      x1r, x1i, x2r, x2i, u, c1, w, tw, z1r, z1i, z2r, z2i, bal, n_az, n_rg,
-      nis::log2_of(n_az), balance);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int k1g_launch(
-    const float* x1r, const float* x1i, const float* x2r, const float* x2i,
-    const float* u, const float* c1, const float* w, const float2* tw,
-    float* z1r, float* z1i, float* z2r, float* z2i, float* bal, int n_az,
-    int n_rg, int balance, void* stream) {
-  return k1_run<2>(x1r, x1i, x2r, x2i, u, c1, w, tw, z1r, z1i, z2r, z2i, bal,
-                   n_az, n_rg, balance, stream);
-}
-
-extern "C" int k1_launch(const float* xr, const float* xi, const float* u,
-                         const float* c1, const float* w, const float2* tw,
-                         float* zr, float* zi, int n_az, int n_rg,
-                         void* stream) {
-  return k1_run<1>(xr, xi, nullptr, nullptr, u, c1, w, tw, zr, zi, nullptr,
-                   nullptr, nullptr, n_az, n_rg, 0, stream);
-}
-
 // The column pass's launch plan (ops/cuda/csa_kernel.py::column_plan):
 // `cols` columns a tile (a power of two, 8 to kColThreads, dividing n_rg),
 // a cluster of `cluster` blocks a tile, `smem` bytes of dynamic shared
 // memory a block. The split of n_az into CS x QA x QB is fixed by (n_az,
 // cluster): QA = 2^ceil(log2(Q) / 2), QB = Q / QA, Q = n_az / cluster.
 // The shared memory a block of the plan needs: per channel (Q + QB) x cols
-// float2; K3g adds its Q x cols power slots, 2 kHalo x cols halo slots a
-// chunk and one float a thread.
-static int column_smem(int nch, int n_az, int cluster, int cols) {
+// float2; K1g (`forward`) adds one float2 a thread and cluster x cols
+// float2 of block sums; K3g its Q x cols power slots, 2 kHalo x cols halo
+// slots a chunk and one float a thread.
+static int column_smem(int nch, bool forward, int n_az, int cluster,
+                       int cols) {
   const int q = n_az / cluster;
   int qb = 1;
   while (4 * qb * qb <= q) qb *= 2;      // QB = 2^floor(log2(Q) / 2)
   int bytes = nch * (q + qb) * cols * (int)sizeof(float2);
-  if (nch == 2)
+  if (nch == 2 && forward)
+    bytes += (kColThreads + cluster * cols) * (int)sizeof(float2);
+  else if (nch == 2)
     bytes += ((q + 2 * kHalo * cluster) * cols + kColThreads)
              * (int)sizeof(float);
   return bytes;
@@ -574,11 +561,12 @@ static int column_smem(int nch, int n_az, int cluster, int cols) {
 // Launches `kernel` as n_rg / cols tiles of clusters of CS blocks, after
 // checking the plan; returns the CUDA error code.
 template <int CS, typename... KArgs, typename... Args>
-static int column_launch(void (*kernel)(KArgs...), int nch, int n_az,
-                         int n_rg, int cols, int smem, void* stream,
-                         Args... args) {
+static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
+                         int n_az, int n_rg, int cols, int smem,
+                         void* stream, Args... args) {
   if (cols < 8 || cols > kColThreads || (cols & (cols - 1)) != 0
-      || n_rg % cols != 0 || smem != column_smem(nch, n_az, CS, cols)
+      || n_rg % cols != 0
+      || smem != column_smem(nch, forward, n_az, CS, cols)
       || smem > 232448)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
@@ -618,6 +606,22 @@ static int column_dispatch(int n_az, int cluster, F f) {
   }
 }
 
+template <int NCH>
+struct K1Launch {
+  const float *x1r, *x1i, *x2r, *x2i, *u, *c1, *w;
+  const float2* tw;
+  float *z1r, *z1i, *z2r, *z2i, *bal;
+  int n_az, n_rg, balance, cols, smem;
+  void* stream;
+  template <int CS, int QA, int QB>
+  int run() const {
+    return column_launch<CS>(k1_kernel<NCH, CS, QA, QB>, NCH, true, n_az,
+                             n_rg, cols, smem, stream, x1r, x1i, x2r, x2i, u,
+                             c1, w, tw, z1r, z1i, z2r, z2i, bal, n_rg,
+                             balance);
+  }
+};
+
 struct K3Launch {
   const float *zr, *zi;
   const float2* tw;
@@ -626,8 +630,8 @@ struct K3Launch {
   void* stream;
   template <int CS, int QA, int QB>
   int run() const {
-    return column_launch<CS>(k3_kernel<CS, QA, QB>, 1, n_az, n_rg, cols,
-                             smem, stream, zr, zi, tw, sr, si, n_rg);
+    return column_launch<CS>(k3_kernel<CS, QA, QB>, 1, false, n_az, n_rg,
+                             cols, smem, stream, zr, zi, tw, sr, si, n_rg);
   }
 };
 
@@ -640,11 +644,32 @@ struct K3gLaunch {
   template <int CS, int QA, int QB>
   int run() const {
     return column_launch<CS>(
-        k3g_kernel<CS, QA, QB>, 2, n_az, n_rg, cols, smem, stream, z1r, z1i,
-        z2r, z2i, cal_cs, tw, s1r, s1i, s2r, s2i, ph, mag, pw, cso, csi,
-        peaks, n_rg, h_out, h_in);
+        k3g_kernel<CS, QA, QB>, 2, false, n_az, n_rg, cols, smem, stream,
+        z1r, z1i, z2r, z2i, cal_cs, tw, s1r, s1i, s2r, s2i, ph, mag, pw, cso,
+        csi, peaks, n_rg, h_out, h_in);
   }
 };
+
+extern "C" int k1g_launch(
+    const float* x1r, const float* x1i, const float* x2r, const float* x2i,
+    const float* u, const float* c1, const float* w, const float2* tw,
+    float* z1r, float* z1i, float* z2r, float* z2i, float* bal, int n_az,
+    int n_rg, int balance, int cols, int cluster, int smem, void* stream) {
+  return column_dispatch(
+      n_az, cluster,
+      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, z1r, z1i, z2r, z2i, bal,
+                  n_az, n_rg, balance, cols, smem, stream});
+}
+
+extern "C" int k1_launch(const float* xr, const float* xi, const float* u,
+                         const float* c1, const float* w, const float2* tw,
+                         float* zr, float* zi, int n_az, int n_rg, int cols,
+                         int cluster, int smem, void* stream) {
+  return column_dispatch(
+      n_az, cluster,
+      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, zr, zi, nullptr,
+                  nullptr, nullptr, n_az, n_rg, 0, cols, smem, stream});
+}
 
 extern "C" int k3_launch(const float* zr, const float* zi, const float2* tw,
                          float* sr, float* si, int n_az, int n_rg, int cols,

@@ -4,11 +4,13 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/csa_kernel.py``
 (``supported``, ``_k1_call``, ``_k2_call``, ``_k3_call``, ``k2_pair_call``,
 ``apply_csa_pallas_planes``, ``apply_csa_pallas``):
 
-    K1   azimuth FFT x Phi1                      (csrc/gmti_kernel.cu, K1g's
-                                                  column pass for one channel)
+    K1   azimuth FFT x Phi1                      (csrc/gmti_kernel.cu, the
+                                                  column pass forward, K1g's
+                                                  for one channel)
     K2   range FFT -> Phi2 -> range IFFT -> Phi3 (csrc/csa_kernel.cu)
-    K3   azimuth IFFT (1/N)                      (csrc/gmti_kernel.cu, K3g's
-                                                  column pass)
+    K3   azimuth IFFT (1/N)                      (csrc/gmti_kernel.cu, the
+                                                  column pass inverse, K3g's
+                                                  for one channel)
 
 Beside each wrapper is its plain PyTorch version (``*_plain``, same
 signature and return tuple), which the wrapper runs for CPU tensors; for
@@ -29,8 +31,9 @@ from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 
 # CPI sides the kernels take: powers of two (radix-2 FFTs) in the range they
-# were checked at; a K1 / K2 block holds a whole line, 64-80 KB of shared
-# memory at 4096
+# were checked at; a K2 block holds a whole range line (64 KB of shared
+# memory at 4096), the column passes (K1, K3 and their pairs) split n_az
+# over a cluster of at most 8 blocks (column_plan)
 MIN_N, MAX_N = 64, 4096
 
 
@@ -40,16 +43,16 @@ def supported(n_az: int, n_rg: int) -> bool:
                for n in (n_az, n_rg))
 
 
-# Threads a block of the K3 / K3g column pass, and halo rows K3g keeps on
-# either side of a chunk of its power (csrc/gmti_kernel.cu, kColThreads and
-# kHalo)
+# Threads a block of the column pass (K1 / K1g, K3 / K3g), and halo rows
+# K3g keeps on either side of a chunk of its power (csrc/gmti_kernel.cu,
+# kColThreads and kHalo)
 COLUMN_THREADS, COLUMN_HALO = 256, 16
 
 
 class ColumnPlan(NamedTuple):
-    """Launch plan of the K3 / K3g column pass: ``cols`` adjacent range
-    columns a tile, one tile a cluster of ``cluster`` blocks, ``smem`` bytes
-    of dynamic shared memory a block."""
+    """Launch plan of the column pass (K1 / K1g forward, K3 / K3g inverse):
+    ``cols`` adjacent range columns a tile, one tile a cluster of
+    ``cluster`` blocks, ``smem`` bytes of dynamic shared memory a block."""
     cols: int
     cluster: int
     smem: int
@@ -63,35 +66,43 @@ def column_split(n_az: int, cluster: int):
     return q // qb, qb
 
 
-def column_smem(n_az: int, cols: int, cluster: int, nch: int) -> int:
+def column_smem(n_az: int, cols: int, cluster: int, nch: int,
+                forward: bool = False) -> int:
     """Shared-memory bytes a block of the plan takes (the launchers compute
     the same and refuse a plan that disagrees): per channel (Q + QB) x cols
-    complex64 slots; K3g adds its Q x cols power slots, 2 COLUMN_HALO x cols
-    halo slots for each of its ``cluster`` chunks and one float32 a
-    thread."""
+    complex64 slots; K1g (``forward``) adds one complex64 sum a thread and
+    ``cluster`` x cols of block sums; K3g its Q x cols power slots, 2
+    COLUMN_HALO x cols halo slots for each of its ``cluster`` chunks and one
+    float32 a thread."""
     q = n_az // cluster
     n = nch * (q + column_split(n_az, cluster)[1]) * cols * 8
-    if nch == 2:
+    if nch == 2 and forward:
+        n += (COLUMN_THREADS + cluster * cols) * 8
+    elif nch == 2:
         n += ((q + 2 * COLUMN_HALO * cluster) * cols + COLUMN_THREADS) * 4
     return n
 
 
-def column_plan(n_az: int, n_rg: int, nch: int) -> ColumnPlan:
+def column_plan(n_az: int, n_rg: int, nch: int,
+                forward: bool = False) -> ColumnPlan:
     """The plan of the column pass over (n_az, n_rg) planes of ``nch``
-    channels (1: K3, 2: K3g). The cluster size depends on n_az alone, so K3
-    and K3g split the transform alike and K3 gives K3g's s1 bits: one block
-    holds up to 512 rows of a column. The tile is as wide as gives pass A
-    one task a thread over the channels (nch x QB x cols = 256), never under
-    8 columns (one 32-byte sector of each plane's row segment). At 4096 x
-    4096 that is K3 16 columns, K3g 8, in clusters of 8 blocks of 68 and
-    93 KB (two blocks an SM): the fastest of the plans timed on the H100
-    (scripts/probe_torch_column_plan.py)."""
+    channels: inverse (1: K3, 2: K3g) or ``forward`` (1: K1, 2: K1g). The
+    cluster size and split depend on n_az alone, so the one- and
+    two-channel kernels split the transform alike and K3 gives K3g's s1
+    bits, K1 K1g's z1: one block holds up to 512 rows of a column. The tile
+    is as wide as gives pass A one task a thread over the channels (nch x
+    QB x cols = 256), never under 8 columns (one 32-byte sector of each
+    plane's row segment). At 4096 x 4096 that is 16 columns for K1 and K3,
+    8 for K1g and K3g, in clusters of 8 blocks of 68 KB (K1, K3), 70 KB
+    (K1g) and 93 KB (K3g), two blocks an SM: for K3 / K3g the fastest of the
+    plans timed on the H100 (scripts/probe_torch_column_plan.py)."""
     if not supported(n_az, n_rg):
         raise ValueError(f"column_plan: shape {(n_az, n_rg)} not supported")
     cluster = max(1, n_az // 512)
     qb = column_split(n_az, cluster)[1]
     cols = min(n_rg, max(8, COLUMN_THREADS // (nch * qb)))
-    return ColumnPlan(cols, cluster, column_smem(n_az, cols, cluster, nch))
+    return ColumnPlan(cols, cluster,
+                      column_smem(n_az, cols, cluster, nch, forward))
 
 
 def plane_shape(name: str, x: torch.Tensor):
@@ -220,8 +231,10 @@ def k1_plain(xr, xi, f: CsaFactors, *, twiddles=None):
 
 def k1_call(xr, xi, f: CsaFactors, *, twiddles=None):
     """Azimuth FFT of one channel times Phi1 = exp(j c1(a) (u(r) - w(a))^2),
-    Phi1 on natural azimuth frequencies: K1g's column pass for one channel
-    (the same code, so its result is K1g's for that channel bit for bit).
+    Phi1 on natural azimuth frequencies: the forward column pass on tiles of
+    adjacent columns (:func:`column_plan` with ``forward``), K1g's for one
+    channel on the same split of n_az, so its result is K1g's for that
+    channel bit for bit.
 
     (n_az, n_rg) float32 planes in, two planes out. ``twiddles``: the
     n_az-point table (built when None)."""
@@ -235,7 +248,7 @@ def k1_call(xr, xi, f: CsaFactors, *, twiddles=None):
     tw = twiddles_for("k1_call", twiddles, n_az, dev)
     out = [torch.empty_like(xr) for _ in range(2)]
     _build.launch("k1_launch", (xr, xi, f.u, f.c1, f.w, tw, *out),
-                  (n_az, n_rg))
+                  (n_az, n_rg, *column_plan(n_az, n_rg, 1, forward=True)))
     k1_call.launches += 1
     return tuple(out)
 

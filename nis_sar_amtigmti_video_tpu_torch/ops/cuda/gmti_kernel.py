@@ -50,12 +50,17 @@ def k1_gmti_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
 
 def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
                    twiddles=None):
-    """Two-channel K1 + raw balance sums in one pass.
+    """Two-channel K1 + raw balance sums in one pass: the forward column
+    pass on tiles of adjacent columns (``column_plan(..., 2,
+    forward=True)``).
 
     Returns (z1r, z1i, z2r, z2i, xs_re, xs_im): the azimuth FFT of each
     channel times Phi1 = exp(j c1 (u - w)^2), and re/im of
     sum(x1 conj x2) over the raw pair (zeros when balance=False) as 0-d
-    tensors. ``twiddles``: the n_az-point table (built when None)."""
+    tensors. The kernel writes each column's sum, from the two spectra by
+    Parseval (sum_k X1 conj X2 / n_az) and reduced in a fixed order, so two
+    launches give the same bits; the columns are summed here.
+    ``twiddles``: the n_az-point table (built when None)."""
     if _build.on_cpu(x1r):
         return k1_gmti_plain(x1r, x1i, x2r, x2i, f, balance=balance)
     n_az, n_rg = plane_shape("k1_gmti_planes", x1r)
@@ -67,9 +72,11 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     out = [torch.empty_like(x1r) for _ in range(4)]
     bal = torch.empty((2, n_rg), dtype=torch.float32, device=dev)
     _build.launch("k1g_launch", (x1r, x1i, x2r, x2i, f.u, f.c1, f.w, tw,
-                                 *out, bal), (n_az, n_rg, int(balance)))
+                                 *out, bal),
+                  (n_az, n_rg, int(balance),
+                   *column_plan(n_az, n_rg, 2, forward=True)))
     k1_gmti_planes.launches += 1
-    # per-column partials -> two scalars (the host-side reduction)
+    # per-column sums -> two scalars
     xs = torch.sum(bal, dim=1)
     return (*out, xs[0], xs[1])
 

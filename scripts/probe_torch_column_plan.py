@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The K3 / K3g column pass at the slice's 4096 x 4096 under each launch
-plan the kernels are built for, and under variants of its source.
+"""The column pass at the slice's 4096 x 4096, forward (K1 / K1g) and
+inverse (K3 / K3g), under each launch plan the kernels are built for, and
+under variants of its source.
 
     python3 scripts/probe_torch_column_plan.py [--parent DIR]   # on a GPU
 
@@ -9,23 +10,27 @@ Builds ``csrc/gmti_kernel.cu`` as it is and each variant of VARIANTS (a
 copy with the listed text replaced), each with the extra launch splits of
 EXTRA_SPLITS added to its dispatch, into its own library under
 ``build/probe_column/``, all nvcc processes at once, and prints what ptxas
-reports for the column kernels of each (registers, stack, spills). Then,
-for each library and each plan (columns a tile, blocks a cluster) of K3 and
-of K3g: the error against the plain version (<= 1e-4 of the peak, else it
-fails), K3's bits against K3g's s1 under the same cluster, and the time
-(CUDA events, median of 20 after a warm-up) beside ``torch.fft.ifft`` over
-the azimuth axis and the byte bound. With ``--parent DIR`` (a checkout of
-an earlier commit of the port, whose one-column K3 / K3g launchers take no
-plan), it also builds DIR's gmti_kernel.cu and times its K3 and K3g on the
-same inputs. The card's name and power limit head the output. The
-wrappers' launch counters do not move. Imports neither JAX nor the JAX
-package.
+reports for the column kernels of each (registers, stack, spills) and the
+SM cycles of each phase of K1, K1g, K3 and K3g (thread 0's ``clock64()``
+marks). Then, for each library and each plan (columns a tile, blocks a
+cluster) of K1, K1g, K3 and K3g: the error against the plain version
+(<= 1e-4 of the peak, else it fails), K1's bits against K1g's z1 and K3's
+against K3g's s1 under the same cluster, and the time (CUDA events, median
+of 20 after a warm-up) beside ``torch.fft.fft`` (K1, K1g: over one and over
+both channels) or ``torch.fft.ifft`` over the azimuth axis and the byte
+bound. With ``--parent DIR`` (a checkout of an earlier commit of the port
+whose K3 / K3g launchers take the plan and whose one-column K1 / K1g
+launchers take none), it also builds DIR's gmti_kernel.cu and times its
+four column kernels on the same inputs. The card's name and power limit
+head the output. The wrappers' launch counters do not move. Imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -38,6 +43,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from nis_sar_amtigmti_video_tpu_torch import config  # noqa: E402
+from nis_sar_amtigmti_video_tpu_torch.ops import csa  # noqa: E402
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (  # noqa: E402
     _build, csa_kernel, gmti_kernel)
 from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (  # noqa: E402
@@ -45,10 +52,11 @@ from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (  # noqa: E402
 
 N = 4096
 H_OUT, H_IN = 10, 2
-# (cols, cluster) of each plan timed; a cluster of 8 splits 4096 rows as
+# (cols, cluster) of each plan timed, of the one-channel kernels (K1, K3)
+# and the two-channel ones (K1g, K3g); a cluster of 8 splits 4096 rows as
 # 8 x 32 x 16 (column_plan's), one of 4 as 4 x 32 x 32
-K3_PLANS = [(8, 4), (16, 4), (8, 8), (16, 8), (32, 8)]
-K3G_PLANS = [(8, 4), (8, 8), (16, 8)]
+PLANS_1CH = [(8, 4), (16, 4), (8, 8), (16, 8), (32, 8)]
+PLANS_2CH = [(8, 4), (8, 8), (16, 8)]
 # the package's build holds one split per n_az (column_plan's); every copy
 # built here also gets the cluster-of-4 split of 4096 rows timed against it
 EXTRA_SPLITS = [
@@ -70,6 +78,21 @@ VARIANTS = {
          "t);",
          "    const float2 w = make_float2(pcol[pslot<J>(k1, jj, c, t)], "
          "0.0f);")],
+    "diag: Phi1 not evaluated": [
+        ("        sincosf(__ldg(c1 + row) * du * du, &sn, &cs);\n",
+         "        sn = du;\n        cs = 1.0f;\n")],
+    "diag: fast sincos": [
+        ("        sincosf(__ldg(c1 + row) * du * du, &sn, &cs);\n",
+         "        __sincosf(__ldg(c1 + row) * du * du, &sn, &cs);\n")],
+    "Phi1 sincosf out of line": [
+        ("// K1 / K1g: the forward column DFT",
+         "__device__ __noinline__ float2 cis_call(float x) {\n"
+         "  float s, c;\n  sincosf(x, &s, &c);\n  return make_float2(c, s);\n"
+         "}\n\n// K1 / K1g: the forward column DFT"),
+        ("        float sn, cs;\n"
+         "        sincosf(__ldg(c1 + row) * du * du, &sn, &cs);\n"
+         "        const float2 phi = make_float2(cs, sn);\n",
+         "        const float2 phi = cis_call(__ldg(c1 + row) * du * du);\n")],
     "no register cap": [("__launch_bounds__(kColThreads, 2)",
                          "__launch_bounds__(kColThreads)")],
     "3 blocks/SM": [("__launch_bounds__(kColThreads, 2)",
@@ -79,7 +102,6 @@ VARIANTS = {
                    "  for (int task = threadIdx.x; "
                    "task < (J << t.log2cols);")],
 }
-
 # the "phase marks" build: thread 0 of each block records clock64() at each
 # phase boundary of the column pass (the marks cost a few cycles each)
 MARKS_HEADER = r"""
@@ -95,14 +117,20 @@ extern "C" int probe_read_marks(unsigned long long* host, int blocks) {
 MARKS = [
     ("namespace cg = cooperative_groups;\n",
      "namespace cg = cooperative_groups;\n" + MARKS_HEADER),
-    ("  pass_a<NCH, CS, QA, QB>(",
-     "  nis_mark(0);\n  pass_a<NCH, CS, QA, QB>("),
-    ("  __syncthreads();\n  pass_b<CS, QA, QB>(y, tw, t);\n",
+    ("  pass_a<INV, NCH, CS, QA, QB>(",
+     "  nis_mark(0);\n  pass_a<INV, NCH, CS, QA, QB>("),
+    ("  __syncthreads();\n  pass_b<INV, CS, QA, QB>(y, tw, t);\n",
      "  nis_mark(1);\n  __syncthreads();\n  nis_mark(2);\n"
-     "  pass_b<CS, QA, QB>(y, tw, t);\n"),
-    ("pass_b<CS, QA, QB>(y + ysz, tw, t);\n  cluster_barrier<CS>();\n}",
-     "pass_b<CS, QA, QB>(y + ysz, tw, t);\n  nis_mark(3);\n"
+     "  pass_b<INV, CS, QA, QB>(y, tw, t);\n"),
+    ("pass_b<INV, CS, QA, QB>(y + ysz, tw, t);\n  cluster_barrier<CS>();\n}",
+     "pass_b<INV, CS, QA, QB>(y + ysz, tw, t);\n  nis_mark(3);\n"
      "  cluster_barrier<CS>();\n  nis_mark(4);\n}"),
+    ("      });\n  if constexpr (NCH == 2) {\n    red[threadIdx.x] = s;",
+     "      });\n  nis_mark(5);\n  if constexpr (NCH == 2) {\n"
+     "    red[threadIdx.x] = s;"),
+    ("  cluster_barrier<CS>();   // every gather and every block's sums",
+     "  cluster_barrier<CS>();\n  nis_mark(6);   // every gather and every "
+     "block's sums"),
     ("        si[idx] = v.y;\n      });\n  cluster_barrier<CS>();\n}",
      "        si[idx] = v.y;\n      });\n  nis_mark(5);\n"
      "  cluster_barrier<CS>();\n  nis_mark(6);\n}"),
@@ -118,7 +146,13 @@ MARKS = [
     ("  if (!local) cluster_barrier<CS>();",
      "  nis_mark(10);\n  if (!local) cluster_barrier<CS>();"),
 ]
-PHASES = {"k3": ["pass A (loads, DFT)", "block barrier", "pass B",
+PHASES = {"k1": ["pass A (loads, DFT)", "block barrier", "pass B",
+                 "cluster barrier", "gather + Phi1 + stores",
+                 "final barrier"],
+          "k1g": ["pass A (loads, DFT)", "block barrier", "pass B x2",
+                  "cluster barrier", "gather + Phi1 + stores + sums",
+                  "column sums + final barrier"],
+          "k3": ["pass A (loads, DFT)", "block barrier", "pass B",
                  "cluster barrier", "gather + stores", "final barrier"],
           "k3g": ["pass A (loads, DFT)", "block barrier", "pass B x2",
                   "cluster barrier", "gather + products + stores",
@@ -162,11 +196,10 @@ def build_variants(parent) -> dict:
             raise RuntimeError(f"{name}: nvcc failed\n{err}")
         lines = err.splitlines()
         for k, line in enumerate(lines):
-            if "Compiling entry function" in line and "k3" in line:
-                m = re.search(r"(k3g?)_kernel(ILi(\d+)ELi(\d+)ELi(\d+))?",
-                              line)
-                kern = m.group(1) + ("<{},{},{}>".format(*m.groups()[2:])
-                                     if m.group(2) else "")
+            m = re.search(r"(k[13]g?)_kernelI?((?:Li\d+E)*)", line)
+            if "Compiling entry function" in line and m:
+                args = re.findall(r"Li(\d+)E", m.group(2))
+                kern = m.group(1) + (f"<{','.join(args)}>" if args else "")
                 info = " ".join(ln.split(":", 1)[-1].strip()
                                 for ln in lines[k + 1:k + 4]
                                 if "Compiling" not in ln)
@@ -204,6 +237,27 @@ def phase_report(lib, name, launch, blocks) -> None:
               f"{p} {v:.0f}" for p, v in zip(PHASES[name], d)))
 
 
+def slice_factors(dev):
+    """The slice scenario's CSA factors at 4096 x 4096 (chip_smoke.py's
+    GMTI kernel inputs: config.ati_dpca() at the 120 MHz waveform)."""
+    sc = config.ati_dpca()
+    r = dataclasses.replace(sc.radar, bandwidth_hz=120e6, pulse_width_s=2e-6,
+                            fs_hz=150e6)
+    g = sc.geometry
+    return csa.csa_factors(csa.CsaParams(
+        wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate, fs_hz=r.fs_hz,
+        prf_hz=r.prf_hz, velocity_mps=g.effective_velocity_mps,
+        range_ref_m=g.slant_range_m,
+        t_start_fast=2.0 * g.slant_range_m / 299792458.0
+        - r.pulse_width_s / 2 - 1e-6, num_pulses=N, num_samples=N), dev)
+
+
+def rel(got, want) -> float:
+    """Largest error of the planes over the peak of each."""
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_torch_column_plan: needs a CUDA device")
@@ -213,92 +267,131 @@ def main() -> None:
                          text=True, check=True).stdout.strip())
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of an earlier commit whose "
-                    "K3 / K3g to time beside")
+                    "K1 / K1g / K3 / K3g to time beside")
     parent = ap.parse_args().parent
     libs = build_variants(parent)
     rng = np.random.default_rng(0)
     x = [torch.from_numpy(rng.standard_normal((N, N), dtype=np.float32)
                           ).to(dev) for _ in range(4)]
+    f = slice_factors(dev)
+    phi = (f.u, f.c1, f.w)
     tw = csa_kernel.twiddle_table(N, dev)
     cal_cs = torch.tensor([np.cos(0.4), np.sin(0.4)], dtype=torch.float32,
                           device=dev)
     plane = 4.0 * N * N
+    want1 = csa_kernel.k1_plain(x[0], x[1], f)
+    want1g = gmti_kernel.k1_gmti_plain(*x, f)
     want3 = csa_kernel.k3_plain(x[0], x[1])
     want3g = gmti_kernel.k3_gmti_plain(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
     xc = torch.complex(x[0], x[1])
+    xc2 = torch.stack([xc, torch.complex(x[2], x[3])])
     lib_ms = median_ms(lambda: torch.fft.ifft(xc, dim=0), reps=20)
-    bound3, bound3g = 4 * plane / HBM_BYTES_PER_S * 1e3, \
-        13 * plane / HBM_BYTES_PER_S * 1e3
-    print(f"[plan] column_plan: K3 {csa_kernel.column_plan(N, N, 1)[:2]}, "
-          f"K3g {csa_kernel.column_plan(N, N, 2)[:2]} (cols, cluster); "
-          f"torch.fft.ifft(dim=0) {lib_ms:.4f} ms; bounds K3 {bound3:.4f} "
-          f"ms, K3g {bound3g:.4f} ms")
+    lib1_ms = median_ms(lambda: torch.fft.fft(xc, dim=0), reps=20)
+    lib1g_ms = median_ms(lambda: torch.fft.fft(xc2, dim=1), reps=20)
+    del xc, xc2
+    bound = {k: planes * plane / HBM_BYTES_PER_S * 1e3
+             for k, planes in (("K1", 4), ("K1g", 8), ("K3", 4), ("K3g", 13))}
+    print(f"[plan] column_plan (cols, cluster): K1 "
+          f"{csa_kernel.column_plan(N, N, 1, forward=True)[:2]}, K1g "
+          f"{csa_kernel.column_plan(N, N, 2, forward=True)[:2]}, K3 "
+          f"{csa_kernel.column_plan(N, N, 1)[:2]}, K3g "
+          f"{csa_kernel.column_plan(N, N, 2)[:2]}; torch.fft.fft(dim=0) "
+          f"{lib1_ms:.4f} ms, over 2 channels {lib1g_ms:.4f} ms, "
+          f"torch.fft.ifft(dim=0) {lib_ms:.4f} ms; byte bounds "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in bound.items()))
+
+    def outs(k):
+        n = {"K1": 2, "K1g": 4, "K3": 2, "K3g": 9}[k]
+        o = [torch.empty_like(x[0]) for _ in range(n)]
+        if k == "K1g":
+            o.append(torch.empty((2, N), device=dev))
+        elif k == "K3g":
+            o.append(torch.empty(N, device=dev))
+        return o
+
+    def launch(lib, k, out, plan=None):
+        """Kernel k of `lib` into `out`, under `plan` (cols, cluster) or,
+        when None, through the parent's launchers (K1 / K1g take none)."""
+        if plan is not None:
+            cols, cluster = plan
+            plan = (cols, cluster, csa_kernel.column_smem(
+                N, cols, cluster, 1 + k.endswith("g"), k.startswith("K1")))
+        elif k in ("K3", "K3g"):
+            plan = tuple(csa_kernel.column_plan(N, N, 1 + k.endswith("g")))
+        plan = plan or ()
+        if k == "K1":
+            call(lib, "k1_launch", (x[0], x[1], *phi, tw, *out),
+                 (N, N, *plan))
+        elif k == "K1g":
+            call(lib, "k1g_launch", (*x, *phi, tw, *out), (N, N, 1, *plan))
+        elif k == "K3":
+            call(lib, "k3_launch", (x[0], x[1], tw, *out), (N, N, *plan))
+        else:
+            call(lib, "k3g_launch", (*x, cal_cs, tw, *out),
+                 (N, N, H_OUT, H_IN, *plan))
+
+    def error(k, out):
+        """Planes' error over the peak; K1g's balance sums' beside."""
+        if k == "K1":
+            return rel(out, want1)
+        if k == "K1g":
+            sums = torch.sum(out[4], dim=1)
+            return max(rel(out[:4], want1g[:4]),
+                       rel([sums], [torch.stack(want1g[4:])]))
+        if k == "K3":
+            return rel(out, want3)
+        return rel([o for i, o in enumerate(out) if i != 4],
+                   [w for i, w in enumerate(want3g) if i != 4])
+
+    lib_of = {"K1": lib1_ms, "K1g": lib1g_ms, "K3": lib_ms}
     marks = libs.pop("phase marks")
     if parent is not None:
         old = libs.pop("parent")
-        o3 = [torch.empty_like(x[0]) for _ in range(2)]
-        o3g = [torch.empty_like(x[0]) for _ in range(9)] + [
-            torch.empty(N, device=dev)]
-        ms3 = median_ms(lambda: call(old, "k3_launch", (x[0], x[1], tw, *o3),
-                                     (N, N)), reps=20)
-        err3 = max(float((a - b).abs().max() / b.abs().max())
-                   for a, b in zip(o3, want3))
-        ms3g = median_ms(lambda: call(old, "k3g_launch",
-                                      (*x, cal_cs, tw, *o3g),
-                                      (N, N, H_OUT, H_IN)), reps=20)
-        err3g = max(float((a - b).abs().max() / b.abs().max())
-                    for i, (a, b) in enumerate(zip(o3g, want3g)) if i != 4)
-        print(f"[parent] K3 {ms3:.4f} ms (rel err {err3:.2e}, "
-              f"{ms3 / lib_ms:.2f}x torch.fft.ifft, {bound3 / ms3:.1%} of "
-              f"the byte bound); K3g {ms3g:.4f} ms (rel err {err3g:.2e}, "
-              f"{bound3g / ms3g:.1%})")
-    p3, p3g = csa_kernel.column_plan(N, N, 1), csa_kernel.column_plan(N, N, 2)
-    o3 = [torch.empty_like(x[0]) for _ in range(2)]
-    o3g = [torch.empty_like(x[0]) for _ in range(9)] + [
-        torch.empty(N, device=dev)]
-    phase_report(marks, "k3", lambda: call(
-        marks, "k3_launch", (x[0], x[1], tw, *o3), (N, N, *p3)),
-        N // p3.cols * p3.cluster)
-    phase_report(marks, "k3g", lambda: call(
-        marks, "k3g_launch", (*x, cal_cs, tw, *o3g),
-        (N, N, H_OUT, H_IN, *p3g)), N // p3g.cols * p3g.cluster)
+        for k in ("K1", "K1g", "K3", "K3g"):
+            out = outs(k)
+            launch(old, k, out)
+            err = error(k, out)
+            ms = median_ms(lambda: launch(old, k, out), reps=20)
+            vs = (f", {ms / lib_of[k]:.2f}x the library" if k in lib_of
+                  else "")
+            print(f"[parent] {k} {ms:.4f} ms (rel err {err:.2e}{vs}, "
+                  f"{bound[k] / ms:.1%} of the byte bound)")
+    for k in ("K1", "K1g", "K3", "K3g"):
+        plan = csa_kernel.column_plan(N, N, 1 + k.endswith("g"),
+                                      forward=k.startswith("K1"))
+        phase_report(marks, k.lower(),
+                     lambda: launch(marks, k, outs(k), plan[:2]),
+                     N // plan.cols * plan.cluster)
     for name, lib in libs.items():
-        def k3(cols, cluster, out):
-            smem = csa_kernel.column_smem(N, cols, cluster, 1)
-            call(lib, "k3_launch", (x[0], x[1], tw, *out),
-                 (N, N, cols, cluster, smem))
-
-        def k3g(cols, cluster, out):
-            smem = csa_kernel.column_smem(N, cols, cluster, 2)
-            call(lib, "k3g_launch", (*x, cal_cs, tw, *out),
-                 (N, N, H_OUT, H_IN, cols, cluster, smem))
-
-        s1 = {}
-        for cols, cluster in K3G_PLANS:
-            out = [torch.empty_like(x[0]) for _ in range(9)] + [
-                torch.empty(N, device=dev)]
-            k3g(cols, cluster, out)
-            err = max(float((a - b).abs().max() / b.abs().max())
-                      for i, (a, b) in enumerate(zip(out, want3g)) if i != 4)
-            assert err <= 1e-4 or name.startswith("diag"), (name, cols,
-                                                            cluster, err)
-            s1[cluster] = out[:2]
-            ms = median_ms(lambda: k3g(cols, cluster, out), reps=20)
-            print(f"[K3g] {name}: cols {cols:2d} cluster {cluster}: rel err "
-                  f"{err:.2e}; {ms:.4f} ms, {bound3g / ms:.1%} of the byte "
-                  "bound")
-        for cols, cluster in K3_PLANS if not name.startswith("diag") else ():
-            out = [torch.empty_like(x[0]) for _ in range(2)]
-            k3(cols, cluster, out)
-            err = max(float((a - b).abs().max() / b.abs().max())
-                      for a, b in zip(out, want3))
-            assert err <= 1e-4, (name, cols, cluster, err)
-            same = all(torch.equal(a, b) for a, b in zip(out, s1[cluster]))
-            ms = median_ms(lambda: k3(cols, cluster, out), reps=20)
-            print(f"[K3] {name}: cols {cols:2d} cluster {cluster}: rel err "
-                  f"{err:.2e}; K3g's s1 bit for bit: {same}; {ms:.4f} ms, "
-                  f"{ms / lib_ms:.2f}x torch.fft.ifft, {bound3 / ms:.1%} of "
-                  "the byte bound")
+        diag = name.startswith("diag")
+        kept = {}             # two-channel outputs by (kernel, cluster)
+        for k, twin, plans in (("K3g", None, PLANS_2CH),
+                               ("K3", "K3g", PLANS_1CH),
+                               ("K1g", None, PLANS_2CH),
+                               ("K1", "K1g", PLANS_1CH)):
+            # a diag variant is timed only on the kernels it changes
+            if diag and k not in (("K3g",) if "box sums" in name
+                                  else ("K1g", "K1")):
+                continue
+            for cols, cluster in plans:
+                out = outs(k)
+                launch(lib, k, out, (cols, cluster))
+                err = error(k, out)
+                assert err <= 1e-4 or diag, (name, k, cols, cluster, err)
+                if twin is None:
+                    kept[(k, cluster)] = out[:2]
+                    same = ""
+                else:
+                    same = "; {}'s first channel bit for bit: {}".format(
+                        twin, all(torch.equal(a, b) for a, b in
+                                  zip(out, kept[(twin, cluster)])))
+                ms = median_ms(lambda: launch(lib, k, out, (cols, cluster)),
+                               reps=20)
+                vs = (f", {ms / lib_of[k]:.2f}x the library" if k in lib_of
+                      else "")
+                print(f"[{k}] {name}: cols {cols:2d} cluster {cluster}: "
+                      f"rel err {err:.2e}{same}; {ms:.4f} ms{vs}, "
+                      f"{bound[k] / ms:.1%} of the byte bound")
 
 
 if __name__ == "__main__":

@@ -49,6 +49,8 @@ def dev():
 
 
 def _factors(n, dev):
+    """The slice's CSA factors at (n, n) or at shape n."""
+    n_az, n_rg = (n, n) if isinstance(n, int) else n
     sc = config.ati_dpca()
     r = dataclasses.replace(sc.radar, bandwidth_hz=120e6, pulse_width_s=2e-6,
                             fs_hz=150e6)
@@ -58,7 +60,7 @@ def _factors(n, dev):
         prf_hz=r.prf_hz, velocity_mps=g.effective_velocity_mps,
         range_ref_m=g.slant_range_m,
         t_start_fast=2.0 * g.slant_range_m / 299792458.0 - 2e-6,
-        num_pulses=n, num_samples=n), dev)
+        num_pulses=n_az, num_samples=n_rg), dev)
 
 
 def _planes(n, dev, seed=0):
@@ -77,7 +79,12 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+# the column pass's shapes: square, one tile wide, one tile of rows per
+# block, and a cluster of 4 over rectangular planes
+COLUMN_SHAPES = [256, 4096, (4096, 64), (64, 4096), (1024, 4096)]
+
+
+@pytest.mark.parametrize("n", COLUMN_SHAPES)
 def test_k1g_matches_plain(dev, n):
     f, x = _factors(n, dev), _planes(n, dev)
     before = gmti_kernel.k1_gmti_planes.launches
@@ -92,6 +99,29 @@ def test_k1g_matches_plain(dev, n):
     assert float(nb[4]) == 0.0 and float(nb[5]) == 0.0
 
 
+@pytest.mark.parametrize("n", [(4096, 256), (256, 64)])
+def test_k1g_repeats_bit_for_bit(dev, n):
+    """Two launches give the same bits in every plane and in the balance
+    sums (no float atomics; the column sums reduce in a fixed order)."""
+    f, x = _factors(n, dev), _planes(n, dev, 11)
+    a = gmti_kernel.k1_gmti_planes(*x, f)
+    b = gmti_kernel.k1_gmti_planes(*x, f)
+    for i, (u, v) in enumerate(zip(a, b)):
+        assert torch.equal(u, v), i
+
+
+@pytest.mark.parametrize("n", [4096, (1024, 4096)])
+def test_k1g_balance_angle(dev, n):
+    """The balance phase atan2(xs_im, xs_re) of K1g's sums (from the
+    spectra, by Parseval) within 1e-5 rad of the plain version's direct
+    sum over the raw pair."""
+    f, x = _factors(n, dev), _planes(n, dev, 12)
+    got = gmti_kernel.k1_gmti_planes(*x, f)
+    want = gmti_kernel.k1_gmti_plain(*x, f)
+    d = float(torch.atan2(got[5], got[4]) - torch.atan2(want[5], want[4]))
+    assert abs(d) <= 1e-5
+
+
 @pytest.mark.parametrize("n", [256, 4096])
 def test_k2_pair_matches_plain(dev, n):
     f, x = _factors(n, dev), _planes(n, dev, 1)
@@ -99,11 +129,6 @@ def test_k2_pair_matches_plain(dev, n):
     want = csa_kernel.k2_pair_plain(*x, f)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-4
-
-
-# the column pass's shapes: square, one tile wide, one tile of rows per
-# block, and a cluster of 4 over rectangular planes
-COLUMN_SHAPES = [256, 4096, (4096, 64), (64, 4096), (1024, 4096)]
 
 
 def _cal_cs(dev):
@@ -178,10 +203,11 @@ def test_k4_matches_plain(dev, n):
                                atol=1e-6 * float(want[3].abs().max()))
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("n", COLUMN_SHAPES)
 def test_k1_matches_plain_and_k1g(dev, n):
     """K1 vs its plain version, and bit for bit K1g's planes for the
-    channel (k1_kernel<1> and <2> run the same code per channel)."""
+    channel (k1_kernel<1, ...> and <2, ...> run the same code per channel
+    on the same split of n_az)."""
     f, x = _factors(n, dev), _planes(n, dev, 4)
     before = csa_kernel.k1_call.launches
     got = csa_kernel.k1_call(x[0], x[1], f)
