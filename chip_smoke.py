@@ -27,7 +27,8 @@ raises and the exit code is non-zero:
               times of each, its plain version and (K1, K3, balance) the
               one PyTorch call computing the same function; K1's and K3's
               times as multiples of torch.fft.fft's / torch.fft.ifft's and
-              their shares of their byte bounds and their column_plans
+              their shares of their byte bounds and their column_plans; the
+              balance's as a multiple of torch.vdot's and its share
   4. main     models.gmti.run(path='kernel_fused') on the card: every launch
               counter must rise, every product plane be finite, and the
               products agree with path='composed' on the same raw; the CPI
@@ -63,8 +64,11 @@ tile, coarse-tile factorized):
               kernel; ring offsets 500 / 1000 / 2000 bit-identical to the
               chronological order; times (CUDA events, median of 5 after a
               warm-up) of each kernel, its plain version and cuFFT's
-              transform beside the forward spectra; the forward spectra
-              again at the ring path's launch shape (one 500-pulse step)
+              transform beside the forward spectra, with its multiple of
+              torch.fft.fft's time and its share of its byte bound; the
+              forward spectra again at the ring path's launch shape (one
+              500-pulse step), bit for bit the first 500 pulses of the
+              2,500-pulse launch, with the same multiple and share
   7. acc      the two fast-BP accumulate kernels (pixel tile, coarse-tile
               factorized) vs their plain versions (<= 1e-4 of the peak) on
               operands made as backproject_fast makes them: the fused
@@ -514,9 +518,14 @@ def phase_csa_kernels(dev) -> dict:
            lambda: gmti_kernel.raw_balance_plain(*x),
            4 * plane_bytes, 8.0 * N * N,
            lib=lambda: torch.vdot(x2c.flatten(), x1c.flatten()))
+    r = rec["balance"]
+    blocks = gmti_kernel.balance_grid(N, N, *gmti_kernel.balance_limits(dev))
     print(f"[3b csa] balance angle {float(torch.atan2(got[1], got[0])):.7f}"
           f" rad, {dang:.1e} from plain (<= 1e-5), torch.vdot's "
-          f"{vang:.1e}; two launches bit-identical")
+          f"{vang:.1e}; two launches bit-identical; "
+          f"{r['ms'] / r['library_ms']:.2f}x torch.vdot's time, "
+          f"{r['bound_ms'] / r['ms']:.1%} of its byte bound on "
+          f"{blocks} blocks")
     return rec
 
 
@@ -845,20 +854,28 @@ def phase_bp(dev) -> dict:
            lambda: fft_kernel.forward_spectra_plain(rc, p),
            8.0 * cpi * (ns + nfft), cpi * (fft_flops + 6.0 * nfft),
            lib=lambda: torch.fft.fft(rc, n=nfft, dim=-1))
-    # the ring path's launches take one step of pulses each
+    r = rec["forward_spectra"]
+    print(f"[6 bp] forward_spectra at {cpi} pulses: "
+          f"{r['ms'] / r['library_ms']:.2f}x torch.fft.fft's time, "
+          f"{r['bound_ms'] / r['ms']:.1%} of its byte bound")
+    # the ring path's launches take one step of pulses each; a pulse's
+    # spectrum depends on that pulse alone
     step = sc.video.step_pulses(sc.radar.prf_hz)
     seg = rc[:step].contiguous()
-    seg_err = rel_err(fft_kernel.forward_spectra(seg, p),
-                      fft_kernel.forward_spectra_plain(seg, p))
+    seg_spec = fft_kernel.forward_spectra(seg, p)
+    seg_err = rel_err(seg_spec, fft_kernel.forward_spectra_plain(seg, p))
     assert seg_err <= 1e-4, seg_err
+    assert torch.equal(seg_spec, spec[:step])
     seg_ms = median_ms(lambda: fft_kernel.forward_spectra(seg, p))
     seg_lib = median_ms(lambda: torch.fft.fft(seg, n=nfft, dim=-1))
     seg_bound = bound(8.0 * step * (ns + nfft),
                       step * (fft_flops + 6.0 * nfft))["bound_ms"]
     print(f"[6 bp] forward_spectra at the ring path's {step}-pulse segment: "
-          f"rel err {seg_err:.2e}; {seg_ms:.3f} ms vs torch.fft.fft "
-          f"{seg_lib:.3f} ms; bound {seg_bound:.3f} ms")
-    del seg
+          f"rel err {seg_err:.2e}; bit-identical to pulses [0, {step}) of "
+          f"the {cpi}-pulse launch; {seg_ms:.3f} ms vs torch.fft.fft "
+          f"{seg_lib:.3f} ms ({seg_ms / seg_lib:.2f}x); bound "
+          f"{seg_bound:.3f} ms ({seg_bound / seg_ms:.1%})")
+    del seg, seg_spec
     split = fft_kernel.recentre_from_spectra(spec, *args, out_rows=rows)[0]
     record("recentre_from_spectra", split,
            fft_kernel.recentre_from_spectra_plain(spec, *args,

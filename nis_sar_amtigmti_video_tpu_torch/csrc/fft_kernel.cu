@@ -24,7 +24,9 @@
 // barriers between them and the per-point index and sincos work take the
 // time (scripts/probe_torch_fft_phases.py times each phase): the kernels
 // are bound by instruction issue and barrier latency on one 512-thread
-// block per SM, not by device memory.
+// block per SM, not by device memory. Forward spectra (below) runs four
+// smaller blocks an SM, so their memory phases overlap, and reaches ~40 %
+// of its byte bound.
 //
 // Design. One pulse's spectrum (256 KB at nfft 32,768, 512 KB at 65,536)
 // does not fit the 227 KB of shared memory a block may have, so each
@@ -52,13 +54,21 @@
 // atomics), so a group's result does not depend on which cluster or which
 // ring slot served it.
 //
-// The block FFTs do radix-2 butterflies (fft_smem.cuh's, bit for bit) with
-// few passes: the stages spanning 32 points or more two or three at a time
-// in registers, the last five in one warp pass with shuffles; every warp
-// access is to consecutive points, so no pass has bank conflicts. The
-// nfft-point twiddle WN^m comes from a two-level table (256 + nfft / 256
-// entries, float64-built) that stays in L1; the filter table is stored in
-// the row FFTs' output order, so its reads are coalesced.
+// Forward spectra alone (forward_spectra_kernel) runs the same split on
+// smaller blocks: 32 rows a block at nfft 16,384 and 32,768 (clusters of 4
+// and 8, 256 threads, 34 KB of shared memory, four blocks an SM, so one
+// block's loads and stores overlap the others' transforms), every DFT in
+// registers, the rows' k1 in natural order so the spectra stores coalesce,
+// and the filter read in that order too.
+//
+// The other kernels' block FFTs do radix-2 butterflies (fft_smem.cuh's, bit
+// for bit) with few passes: the stages spanning 32 points or more two or
+// three at a time in registers, the last five in one warp pass with
+// shuffles; every warp access is to consecutive points, so no pass has
+// bank conflicts. The nfft-point twiddle WN^m comes from a two-level table
+// (256 + nfft / 256 entries, float64-built) that stays in L1; their filter
+// table is stored in the row FFTs' output order, so its reads are
+// coalesced.
 //
 // Exact ramp: the host splits each pulse's shift into si = round(shift)
 // mod nfft and sf = shift - round(shift) in float64, and wraps the carrier
@@ -445,21 +455,175 @@ __device__ void group_inverse(cg::cluster_group& cluster, float2* acc,
   cluster.sync();
 }
 
-// One cluster per pulse.
-__global__ void __launch_bounds__(kThreads, 1) forward_spectra_kernel(
-    const float2* __restrict__ x, const float2* __restrict__ filt, Tables t,
-    float2* __restrict__ out, int ns, Shape s) {
+// Forward spectra. A cluster of CS = B1 / R blocks per pulse; block r owns
+// the k2 rows [r R, r R + R) and the columns n1 in [r C, r C + C), C =
+// 128 / CS: P = 128 R points, 16 a thread, T = 8 R threads. Every DFT runs
+// in registers (nis::dft_reg); shared memory only transposes between the two
+// halves of each transform, so a block makes three barriers and one cluster
+// exchange a pulse. The B1-point columns split as B1 = A x 16 (n2 = a + A b,
+// k2 = kb + 16 ka), the 128-point rows as 8 x 16 (n1 = a' + 8 b', k1 = kb' +
+// 16 ka'), so the rows leave k1 in natural order and each warp store writes
+// two whole 128-byte lines. One buffer of kFwdPitch-point rows serves the
+// column transpose, the rows a block receives and the row transpose.
+// the rows' pitch in points: a warp's reads of 4 rows x 8 points take two
+// bank wavefronts, the least for 256 bytes
+constexpr int kFwdPitch = 136;
+
+template <int B1, int R>
+struct Fwd {
+  static constexpr int CS = B1 / R, C = 128 / CS, T = 8 * R;
+  static constexpr int A = B1 / 16;
+  static constexpr int kRowT = 8 * R + 1;      // row transpose: odd pitch
+  static constexpr int kSmem = R * kFwdPitch * (int)sizeof(float2);
+  // blocks an SM holds: 4 at 256 threads (64 registers, no spills), 1 at
+  // 512
+  static constexpr int kBlocksPerSm = T == 256 ? 4 : 1;
+  // the buffer holds the column transpose ([a][kb][c]), the received rows
+  // and the row transpose
+  static_assert(C * B1 <= R * kFwdPitch && 16 * kRowT <= R * kFwdPitch, "");
+  // kBlocksPerSm blocks fit an H100 SM: 228 KB of shared memory (1 KB of it
+  // the runtime's for each block) and 2,048 threads
+  static_assert(kBlocksPerSm * (kSmem + 1024) <= 233472 &&
+                kBlocksPerSm * T <= 2048, "");
+};
+
+// The cluster barrier in two halves: arrive (releasing this thread's shared
+// memory reads and writes) and wait (acquiring the others').
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// v[j] = X[c][kb + 16 (j-th ka this thread holds)] x WN^(k2 n1) into row
+// k2 % R, column n1 of the block that owns k2.
+template <int B1, int R, int N>
+__device__ __forceinline__ void push_column(cg::cluster_group& cluster,
+                                            float2* buf, const float2 (&v)[N],
+                                            int n1, int kb, int ka0,
+                                            int ka_step,
+                                            const float2* __restrict__ tw_n) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int k2 = kb + 16 * (ka0 + ka_step * j);
+    float2* dst = cluster.map_shared_rank(buf, k2 / R);
+    dst[(k2 % R) * kFwdPitch + n1] = nis::cmul(v[j], tw_full(tw_n, k2 * n1));
+  }
+}
+
+template <int B1, int R>
+__global__ void __launch_bounds__(Fwd<B1, R>::T, Fwd<B1, R>::kBlocksPerSm)
+    forward_spectra_kernel(const float2* __restrict__ x,
+                           const float2* __restrict__ filt, Tables t,
+                           float2* __restrict__ out, int ns) {
+  using F = Fwd<B1, R>;
+  constexpr int C = F::C, A = F::A, T = F::T;
   cg::cluster_group cluster = cg::this_cluster();
-  float2* y = reinterpret_cast<float2*>(nis_smem);
-  float2* col = y + kPoints;
-  const int pulse = blockIdx.x / (int)cluster.num_blocks();
-  const int k2_0 = (int)cluster.block_rank() * kRowsPerBlock;
-  pulse_forward(cluster, PulseLoad{x + (size_t)pulse * ns, ns}, y, col, t,
-                s);
-  float2* o = out + (size_t)pulse * s.nfft + (size_t)k2_0 * 128;
-  const float2* f = filt + (size_t)k2_0 * 128;
-  each_point([&](int l) { return nis::cmul(y[l], __ldg(f + l)); },
-             [&](int l, float2 v) { o[row_natural(l)] = v; });
+  float2* buf = reinterpret_cast<float2*>(nis_smem);
+  const int tid = (int)threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int pulse = blockIdx.x / F::CS;
+  const int c0 = rank * C;
+  const float2* xp = x + (size_t)pulse * ns;
+
+  // Columns, first half: thread (c, a) loads n2 = a + A b, b < 16 (a warp
+  // reads whole 128-byte segments), the 16-point DFT over b, WB1^(a kb).
+  {
+    const int c = tid % C, a = tid / C;
+    float2 v[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int n = c0 + c + 128 * (a + A * b);
+      v[b] = n < ns ? __ldcs(xp + n) : make_float2(0.f, 0.f);
+    }
+    nis::dft_reg<false, 16>(v, t.tw_b1, A);
+#pragma unroll
+    for (int kb = 1; kb < 16; ++kb)
+      v[kb] = nis::cmul(v[kb], nis::twiddle_pow<false>(t.tw_b1, a * kb, B1));
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb) buf[(a * 16 + kb) * C + c] = v[kb];
+  }
+  __syncthreads();
+
+  // Columns, second half: the A-point DFT over a of each (c, kb), then each
+  // X[c][k2] x WN^(k2 n1) goes to the block that owns row k2 (a DSMEM
+  // store), once every block of the cluster is past its reads of `buf`.
+  if constexpr (A <= 16) {
+    constexpr int kItems = 16 / A;
+    float2 w[kItems][A];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T, c = j % C, kb = j / C;
+#pragma unroll
+      for (int a = 0; a < A; ++a) w[i][a] = buf[(a * 16 + kb) * C + c];
+    }
+    cluster_arrive();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) nis::dft_reg<false, A>(w[i], t.tw_b1, 16);
+    cluster_wait();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T;
+      push_column<B1, R>(cluster, buf, w[i], c0 + j % C, j / C, 0, 1, t.tw_n);
+    }
+  } else {
+    // A = 32: a lane pair per (c, kb), lane h holding a = 16 h + n; one
+    // radix-2 step across the pair leaves lane h the 16-point DFT of
+    // ka = 2 k + h
+    static_assert(A == 32, "");
+    const int h = tid & 1, item = tid >> 1, c = item % C, kb = item / C;
+    float2 u[16];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) u[n] = buf[((h * 16 + n) * 16 + kb) * C + c];
+    cluster_arrive();
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float2 o = shfl_xor(u[n], 1);
+      u[n] = h == 0 ? cadd(u[n], o)
+                    : nis::cmul(make_float2(o.x - u[n].x, o.y - u[n].y),
+                                nis::twiddle_pow<false>(t.tw_b1, 16 * n, B1));
+    }
+    nis::dft_reg<false, 16>(u, t.tw_b1, 32);
+    cluster_wait();
+    push_column<B1, R>(cluster, buf, u, c0 + c, kb, h, 2, t.tw_n);
+  }
+  cluster.sync();
+
+  // Rows, first half: thread (r, a') the 16-point DFT over b' of n1 = a' +
+  // 8 b', W128^(a' kb'), into the row transpose.
+  {
+    const int r = tid / 8, a = tid % 8;
+    float2 v[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) v[b] = buf[r * kFwdPitch + a + 8 * b];
+    nis::dft_reg<false, 16>(v, t.tw_128, 8);
+#pragma unroll
+    for (int kb = 1; kb < 16; ++kb)
+      v[kb] = nis::cmul(v[kb], nis::twiddle_pow<false>(t.tw_128, a * kb, 128));
+    __syncthreads();
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb) buf[kb * F::kRowT + r * 8 + a] = v[kb];
+  }
+  __syncthreads();
+
+  // Rows, second half: the 8-point DFT over a' of each (r, kb'), times the
+  // filter, k1 = kb' + 16 ka' in natural order.
+  const int k2_0 = rank * R;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * T, kb = j % 16, r = j / 16;
+    float2 w[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) w[a] = buf[kb * F::kRowT + r * 8 + a];
+    nis::dft_reg<false, 8>(w, t.tw_128, 16);
+    const size_t row = (size_t)(k2_0 + r) * 128 + kb;
+    const float2* f = filt + row;
+    float2* o = out + (size_t)pulse * (B1 * 128) + row;
+#pragma unroll
+    for (int ka = 0; ka < 8; ++ka)
+      __stcs(o + 16 * ka, nis::cmul(w[ka], __ldg(f + 16 * ka)));
+  }
 }
 
 // One cluster per presum group.
@@ -544,14 +708,14 @@ Shape shape_of(int nfft) {
   return s;
 }
 
-// `items` clusters of B1 / 64 blocks each; returns the launch's error code.
+// `items` clusters of `cs` blocks of `threads` each; returns the launch's
+// error code.
 template <typename... KArgs, typename... Args>
-int launch_clusters(void (*kernel)(KArgs...), int items, int nfft, int smem,
-                    void* stream, Args... args) {
+int launch_clusters(void (*kernel)(KArgs...), int items, int cs, int threads,
+                    int smem, void* stream, Args... args) {
   int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
-  const int cs = nfft / 128 / kRowsPerBlock;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cs;
@@ -559,7 +723,7 @@ int launch_clusters(void (*kernel)(KArgs...), int items, int nfft, int smem,
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(items * cs);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
@@ -569,24 +733,49 @@ int launch_clusters(void (*kernel)(KArgs...), int items, int nfft, int smem,
   return (int)cudaGetLastError();
 }
 
+// The shared kernels' cluster: B1 / 64 blocks of kThreads.
+int cluster_of(int nfft) { return nfft / 128 / kRowsPerBlock; }
+
+// Forward spectra on Fwd<B1, R>'s plan: a cluster of CS blocks a pulse.
+template <int B1, int R>
+int forward_spectra_on(int num_p, void* stream, const float2* x,
+                       const float2* filt, Tables t, float2* out, int ns) {
+  using F = Fwd<B1, R>;
+  return launch_clusters(forward_spectra_kernel<B1, R>, num_p, F::CS, F::T,
+                         F::kSmem, stream, x, filt, t, out, ns);
+}
+
 }  // namespace
 
-// The launchers: nfft = 128 * B1 with B1 a power of two in [128, 512]
-// (clusters of 2, 4 or 8 blocks). Each returns the launch's CUDA error.
+// The launchers: nfft = 128 * B1 with B1 a power of two in [128, 512].
+// Each returns the launch's CUDA error.
+
+// Forward spectra: 32 k2 rows a block at nfft 16,384 and 32,768 (clusters
+// of 4 and 8, four blocks an SM), 64 at 65,536 (clusters of 8, one an SM).
 extern "C" int forward_spectra_launch(
     const float2* x, const float2* filt, const float2* tw_n,
     const float2* tw_b1, const float2* tw_128, float2* out, int num_p, int ns,
     int nfft, void* stream) {
-  return launch_clusters(forward_spectra_kernel, num_p, nfft, kSmemOne,
-                         stream, x, filt, Tables{tw_n, tw_b1, tw_128}, out,
-                         ns, shape_of(nfft));
+  const Tables t{tw_n, tw_b1, tw_128};
+  switch (nfft) {
+    case 128 * 128:
+      return forward_spectra_on<128, 32>(num_p, stream, x, filt, t, out, ns);
+    case 128 * 256:
+      return forward_spectra_on<256, 32>(num_p, stream, x, filt, t, out, ns);
+    case 128 * 512:
+      return forward_spectra_on<512, 64>(num_p, stream, x, filt, t, out, ns);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// The other three: clusters of B1 / 64 blocks (2, 4 or 8).
 extern "C" int recentre_spectra_launch(
     const float2* spec, const int* si, const float* sf, const float* car,
     const float2* tw_n, const float2* tw_b1, const float2* tw_128,
     float2* out, int num_p, int d, int nfft, int p0, int p1, void* stream) {
-  return launch_clusters(recentre_spectra_kernel, (num_p + d - 1) / d, nfft,
+  return launch_clusters(recentre_spectra_kernel, (num_p + d - 1) / d,
+                         cluster_of(nfft), kThreads,
                          kSmemOne, stream, spec, si, sf, car,
                          Tables{tw_n, tw_b1, tw_128}, out, num_p, d, p0, p1,
                          shape_of(nfft));
@@ -597,7 +786,8 @@ extern "C" int recenter_presum_launch(
     const float* car, const float2* tw_n, const float2* tw_b1,
     const float2* tw_128, float2* out, int num_p, int ns, int d, int nfft,
     int p0, int p1, void* stream) {
-  return launch_clusters(recenter_presum_kernel, (num_p + d - 1) / d, nfft,
+  return launch_clusters(recenter_presum_kernel, (num_p + d - 1) / d,
+                         cluster_of(nfft), kThreads,
                          kSmemTwo, stream, x, filt, si, sf, car,
                          Tables{tw_n, tw_b1, tw_128}, out, num_p, ns, d, p0,
                          p1, shape_of(nfft));
@@ -608,7 +798,8 @@ extern "C" int fft_conv_launch(const float* xr, const float* xi,
                                const float2* tw_b1, const float2* tw_128,
                                float2* out, int num_p, int ns, int nfft,
                                int p0, int p1, void* stream) {
-  return launch_clusters(fft_conv_kernel, num_p, nfft, kSmemOne, stream, xr,
+  return launch_clusters(fft_conv_kernel, num_p, cluster_of(nfft), kThreads,
+                         kSmemOne, stream, xr,
                          xi, filt, Tables{tw_n, tw_b1, tw_128}, out, ns, p0,
                          p1, shape_of(nfft));
 }

@@ -148,19 +148,23 @@ static __device__ __forceinline__ void dft_reg(
   }
 }
 
-// Sum of one value per thread over the block (blockDim.x a power of two),
-// as a fixed tree in shared memory `red` (blockDim.x floats): the same
-// association on every run, no atomics. Synchronises on entry and exit.
-static __device__ float block_sum(float* red, float v) {
-  red[threadIdx.x] = v;
+// Sum of one value per thread over the block, as a fixed tree: each warp's
+// lanes by shuffles, then the warps' sums by warp 0 through `red` (32
+// floats). The same association on every run, no atomics. The result is
+// valid in thread 0; synchronises on entry, so `red` may be reused.
+static __device__ __forceinline__ float block_sum(float* red, float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
   __syncthreads();
-  for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   }
-  const float r = red[0];
-  __syncthreads();
-  return r;
+  return v;
 }
 
 // Sum of v[i - half .. i + half] clipped to [0, n): a locally windowed sum

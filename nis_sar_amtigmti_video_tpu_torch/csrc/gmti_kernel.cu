@@ -44,12 +44,14 @@
 // beyond each end of a block's chunks of rows copied once from the blocks
 // holding them. ops/cuda/csa_kernel.py::column_plan picks the tile width
 // and cluster size and the launchers check them. K4 owns whole range rows,
-// so its box sums close in the block. Balance reads contiguous slabs of
-// rows as float4.
-// No float atomics anywhere: the balance kernel's per-block partials and
-// K1g's per-column sums are summed by the wrappers (torch.sum), and K1g's
-// column sums and K3g's column peaks are reduced over a cluster's blocks in
-// rank order, so results do not change from run to run.
+// so its box sums close in the block. Balance reads the four planes as
+// float4 on a grid sized to the card, several loads in flight a thread, and
+// closes its sum in the same launch (see balance_kernel).
+// No float atomics anywhere: the balance kernel's last block sums the
+// per-block partials in block order, K1g's per-column sums are summed by
+// the wrapper (torch.sum), and K1g's column sums and K3g's column peaks are
+// reduced over a cluster's blocks in rank order, so results do not change
+// from run to run.
 #include <cooperative_groups.h>
 
 #include "fft_smem.cuh"
@@ -499,34 +501,84 @@ __global__ void k4_kernel(
   }
 }
 
-// Per-block partials of re / im of sum(x1 conj(x2)) over `rows` contiguous
-// rows of the four planes, read as float4 (n_rg a multiple of 4).
-__global__ void balance_kernel(
+// Raw balance: re / im of sum(x1 conj(x2)) over n4 float4 of each plane, in
+// one launch. Thread i of the grid takes float4 i, i + S, i + 2 S, ... (S
+// the grid's threads), kBalU of them per plane at a time: their loads go out
+// together (streaming loads, evict-first: each byte is read once) into kBalU
+// separate sums, combined in a fixed order. A block reduces its threads in a
+// fixed tree and writes its partial; the last block to finish (a ticket
+// taken after a fence) sums the partials in block order and resets the
+// ticket. No float atomics, and the grid is a function of the shape alone
+// (ops/cuda/gmti_kernel.py::balance_grid), so every launch gives the same
+// bits. Bound by bytes: four planes read once, 0.080 ms at 4096^2.
+constexpr int kBalThreads = 256;
+constexpr int kBalU = 4;
+constexpr int kBalBlocksPerSm = 3;   // at most 80 registers a thread
+
+__global__ void __launch_bounds__(kBalThreads, kBalBlocksPerSm)
+    balance_kernel(
     const float4* __restrict__ x1r, const float4* __restrict__ x1i,
     const float4* __restrict__ x2r, const float4* __restrict__ x2i,
-    float* __restrict__ part, int rows, int n_rg) {
-  float* red = reinterpret_cast<float*>(nis_smem);
-  const size_t n4 = (size_t)rows * n_rg / 4;
-  const size_t base = (size_t)blockIdx.x * n4;
-  float pr = 0.0f;
-  float pi = 0.0f;
-  for (size_t i = threadIdx.x; i < n4; i += blockDim.x) {
-    const float4 ar = x1r[base + i], ai = x1i[base + i];
-    const float4 br = x2r[base + i], bi = x2i[base + i];
-    pr += ar.x * br.x + ai.x * bi.x;
-    pi += ai.x * br.x - ar.x * bi.x;
-    pr += ar.y * br.y + ai.y * bi.y;
-    pi += ai.y * br.y - ar.y * bi.y;
-    pr += ar.z * br.z + ai.z * bi.z;
-    pi += ai.z * br.z - ar.z * bi.z;
-    pr += ar.w * br.w + ai.w * bi.w;
-    pi += ai.w * br.w - ar.w * bi.w;
+    float* __restrict__ work, float* __restrict__ out, long long n4) {
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(work);
+  float* part = work + 1;
+  __shared__ float red[32];
+  __shared__ bool last;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float pr[kBalU] = {}, pi[kBalU] = {};
+  auto add = [&](int u, float4 ar, float4 ai, float4 br, float4 bi) {
+    pr[u] += ar.x * br.x + ai.x * bi.x;
+    pi[u] += ai.x * br.x - ar.x * bi.x;
+    pr[u] += ar.y * br.y + ai.y * bi.y;
+    pi[u] += ai.y * br.y - ar.y * bi.y;
+    pr[u] += ar.z * br.z + ai.z * bi.z;
+    pi[u] += ai.z * br.z - ar.z * bi.z;
+    pr[u] += ar.w * br.w + ai.w * bi.w;
+    pi[u] += ai.w * br.w - ar.w * bi.w;
+  };
+  for (; i + (kBalU - 1) * stride < n4; i += kBalU * stride) {
+    float4 ar[kBalU], ai[kBalU], br[kBalU], bi[kBalU];
+#pragma unroll
+    for (int u = 0; u < kBalU; ++u) {
+      ar[u] = __ldcs(x1r + i + u * stride);
+      ai[u] = __ldcs(x1i + i + u * stride);
+      br[u] = __ldcs(x2r + i + u * stride);
+      bi[u] = __ldcs(x2i + i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < kBalU; ++u) add(u, ar[u], ai[u], br[u], bi[u]);
   }
-  pr = nis::block_sum(red, pr);
-  pi = nis::block_sum(red, pi);
+#pragma unroll
+  for (int u = 0; u < kBalU; ++u, i += stride)
+    if (i < n4) add(u, __ldcs(x1r + i), __ldcs(x1i + i), __ldcs(x2r + i),
+                    __ldcs(x2i + i));
+  float sr = (pr[0] + pr[1]) + (pr[2] + pr[3]);
+  float si = (pi[0] + pi[1]) + (pi[2] + pi[3]);
+  sr = nis::block_sum(red, sr);
+  si = nis::block_sum(red, si);
+  const int nb = (int)gridDim.x;
   if (threadIdx.x == 0) {
-    part[blockIdx.x] = pr;
-    part[gridDim.x + blockIdx.x] = pi;
+    part[blockIdx.x] = sr;
+    part[nb + blockIdx.x] = si;
+    __threadfence();                 // the partials before the ticket
+    last = atomicAdd(ticket, 1u) == (unsigned)nb - 1u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();                   // every block's partials are visible
+  sr = 0.0f;
+  si = 0.0f;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    sr += __ldcg(part + b);
+    si += __ldcg(part + nb + b);
+  }
+  sr = nis::block_sum(red, sr);
+  si = nis::block_sum(red, si);
+  if (threadIdx.x == 0) {
+    out[0] = sr;
+    out[1] = si;
+    *ticket = 0u;                    // ready for the next launch
   }
 }
 
@@ -706,17 +758,26 @@ extern "C" int k4_launch(
   return (int)cudaGetLastError();
 }
 
-// `part` holds 2 x blocks floats (re partials, then im); each block reduces
-// n_az / blocks contiguous rows (blocks divides n_az).
+// The balance kernel's float4 loads of a plane a block makes in one round,
+// and its blocks an SM: ops/cuda/gmti_kernel.py::balance_limits sizes the
+// grid and the workspace from them.
+extern "C" int balance_loads_per_block() { return kBalThreads * kBalU; }
+extern "C" int balance_blocks_per_sm() { return kBalBlocksPerSm; }
+
+// Raw balance over n4 = n_az * n_rg / 4 float4 of each plane on `blocks`
+// blocks (ops/cuda/gmti_kernel.py::balance_grid): `work` holds the ticket
+// (a zero uint32, left zero) and then 2 x blocks floats for the partials,
+// `out` re and im.
 extern "C" int balance_launch(const float* x1r, const float* x1i,
-                              const float* x2r, const float* x2i, float* part,
-                              int n_az, int n_rg, int blocks, void* stream) {
-  const int threads = 256;
-  balance_kernel<<<blocks, threads, threads * (int)sizeof(float),
-                   (cudaStream_t)stream>>>(
+                              const float* x2r, const float* x2i,
+                              float* work, float* out, int n_az, int n_rg,
+                              int blocks, void* stream) {
+  if (n_rg % 4 || blocks < 1) return (int)cudaErrorInvalidValue;
+  balance_kernel<<<blocks, kBalThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(x1r),
       reinterpret_cast<const float4*>(x1i),
       reinterpret_cast<const float4*>(x2r),
-      reinterpret_cast<const float4*>(x2i), part, n_az / blocks, n_rg);
+      reinterpret_cast<const float4*>(x2i), work, out,
+      (long long)n_az * n_rg / 4);
   return (int)cudaGetLastError();
 }

@@ -118,6 +118,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def stream_handle(dev: torch.device) -> int:
+    """The ``cudaStream_t`` of ``dev``'s current stream, as an int, read
+    without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def launch(name: str, tensors: Sequence[torch.Tensor],
            ints: Sequence[int], floats: Sequence[float] = ()) -> None:
     """Call C launcher ``name`` with the tensors' data pointers, the ints,
@@ -131,9 +137,8 @@ def launch(name: str, tensors: Sequence[torch.Tensor],
     fn.restype = ctypes.c_int
     dev = tensors[0].device
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), *(int(i) for i in ints),
-                 *(float(f) for f in floats), stream)
+                 *(float(f) for f in floats), stream_handle(dev))
     if err != 0:
         msg = lib.nis_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
@@ -153,6 +158,7 @@ def check(name: str, tensors: Sequence[torch.Tensor], shape, device,
           dtype: torch.dtype = torch.float32) -> None:
     """Each tensor of ``dtype`` (float32 unless given: complex64, int32,
     ...), contiguous, of ``shape``, on ``device``."""
+    shape = tuple(shape)
     for i, t in enumerate(tensors):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: argument {i} is not a tensor")
@@ -162,9 +168,9 @@ def check(name: str, tensors: Sequence[torch.Tensor], shape, device,
         if t.device != device:
             raise ValueError(f"{name}: argument {i} is on {t.device}, "
                              f"the others on {device}")
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != shape:
             raise ValueError(f"{name}: argument {i} has shape "
-                             f"{tuple(t.shape)}, needs {tuple(shape)}")
+                             f"{tuple(t.shape)}, needs {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} is not contiguous "
                              "(pass .contiguous() planes)")

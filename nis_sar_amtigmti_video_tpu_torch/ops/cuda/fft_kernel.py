@@ -103,14 +103,21 @@ def matched_filter(p: bp_ops.BpParams, nfft: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _filter(p: bp_ops.BpParams, nfft: int, compress: bool,
-            device: torch.device) -> torch.Tensor:
-    """Matched-filter spectrum (ones without compression) in the kernels'
-    order: the layout with k1 bit-reversed within each row, as the
-    kernels' row FFTs leave it."""
+def _filter_layout(p: bp_ops.BpParams, nfft: int, compress: bool,
+                   device: torch.device) -> torch.Tensor:
+    """Matched-filter spectrum (ones without compression) in the spectra
+    layout (B1, 128), k1 in natural order: forward spectra's table."""
     if not compress:
         return torch.ones((nfft // _LANE, _LANE), dtype=C64, device=device)
-    lay = _to_layout(matched_filter(p, nfft, device)[None, :])[0]
+    return _to_layout(matched_filter(p, nfft, device)[None, :])[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _filter(p: bp_ops.BpParams, nfft: int, compress: bool,
+            device: torch.device) -> torch.Tensor:
+    """The same in the fused kernel's order: k1 bit-reversed within each
+    row, as its row FFTs leave it."""
+    lay = _filter_layout(p, nfft, compress, device)
     return lay[:, _BITREV_LANE.to(device)].contiguous()
 
 
@@ -168,7 +175,10 @@ def forward_spectra(rc: torch.Tensor, p: bp_ops.BpParams,
                     filter_compress: bool = True) -> torch.Tensor:
     """Per raw pulse (P, ns) complex64: the nfft-point DFT of the zero-
     padded pulse times the conjugate reference-chirp spectrum (with
-    ``filter_compress``), as (P, nfft/128, 128) complex64 spectra."""
+    ``filter_compress``), as (P, nfft/128, 128) complex64 spectra. One
+    thread-block cluster per pulse, so a pulse's spectrum depends on that
+    pulse alone: ``forward_spectra(rc[a:b])`` is ``forward_spectra(rc)[a:b]``
+    bit for bit."""
     num_p, ns = rc.shape
     nfft = _nfft_of(ns)
     if not supported(nfft):
@@ -179,7 +189,7 @@ def forward_spectra(rc: torch.Tensor, p: bp_ops.BpParams,
     _build.check("forward_spectra", (rc,), (num_p, ns), dev, C64)
     out = torch.empty((num_p, nfft // _LANE, _LANE), dtype=C64, device=dev)
     _build.launch("forward_spectra_launch",
-                  (rc, _filter(p, nfft, filter_compress, dev),
+                  (rc, _filter_layout(p, nfft, filter_compress, dev),
                    *_tables(nfft, dev), out),
                   (num_p, ns, nfft))
     forward_spectra.launches += 1

@@ -18,6 +18,9 @@ returns the raw sums and the caller takes atan2 before K3g; the split CPI
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import _count_1d, _window_sum
@@ -94,28 +97,71 @@ def raw_balance_plain(x1r, x1i, x2r, x2i):
             torch.sum(x1i * x2r - x1r * x2i))
 
 
+def balance_grid(n_az: int, n_rg: int, loads_per_block: int,
+                 max_blocks: int) -> int:
+    """Blocks of the balance kernel over (n_az, n_rg) planes: enough for one
+    full round of ``loads_per_block`` float4 loads a block, at most
+    ``max_blocks`` (:func:`balance_limits`). A function of the shape alone
+    on a given card, so the summation order, and the bits, never change."""
+    n4 = n_az * n_rg // 4
+    return max(1, min(max_blocks, -(-n4 // loads_per_block)))
+
+
+@functools.lru_cache(maxsize=None)
+def balance_limits(dev: torch.device) -> tuple[int, int]:
+    """(float4 loads of a plane a block makes in one round, blocks the card
+    holds at once) for the balance kernel on ``dev``: its constants from the
+    library times the card's SM count."""
+    lib = _build.library()
+    per_block, per_sm = lib.balance_loads_per_block, lib.balance_blocks_per_sm
+    for fn in (per_block, per_sm):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return per_block(), per_sm() * sms
+
+
+# (device, stream handle) -> the balance kernel's workspace there: its
+# ticket (one zero uint32, which every launch leaves zero) and then room for
+# the partials of the most blocks; launches on one stream run in turn, so
+# they share it
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    work = _WORKSPACES.get((dev, stream))
+    if work is None:
+        work = torch.zeros(1 + 2 * balance_limits(dev)[1],
+                           dtype=torch.float32, device=dev)
+        _WORKSPACES[(dev, stream)] = work
+    return work
+
+
 def raw_balance(x1r, x1i, x2r, x2i):
     """(xs_re, xs_im): re and im of sum(x1 conj x2) over the raw pair, as
-    0-d float32 tensors; the caller takes atan2. One coalesced pass over the
-    four (n_az, n_rg) planes; per-block partials reduced in a fixed order
-    (no float atomics), so a launch gives the same bits every time."""
+    0-d float32 tensors; the caller takes atan2. One launch over the four
+    (n_az, n_rg) planes (n_rg a multiple of 4, 16-byte aligned): per-block
+    partials on :func:`balance_grid`'s blocks, summed in block order by the
+    last block to finish (no float atomics), so a launch gives the same bits
+    every time."""
     if _build.on_cpu(x1r):
         return raw_balance_plain(x1r, x1i, x2r, x2i)
-    n_az, n_rg = plane_shape("raw_balance", x1r)
+    if x1r.dim() != 2 or x1r.shape[1] % 4:
+        raise ValueError("raw_balance: needs (n_az, n_rg) planes with n_rg "
+                         f"a multiple of 4, got shape {tuple(x1r.shape)}")
+    n_az, n_rg = x1r.shape
     dev = x1r.device
     _build.check("raw_balance", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
     if any(t.data_ptr() % 16 for t in (x1r, x1i, x2r, x2i)):
         raise ValueError("raw_balance: planes must start on 16-byte "
                          "boundaries (the kernel reads float4)")
-    # one slab of n_az / blocks rows per block, enough slabs to fill the
-    # card; a power of two, so it divides n_az
-    blocks = min(n_az, 512)
-    part = torch.empty((2, blocks), dtype=torch.float32, device=dev)
-    _build.launch("balance_launch", (x1r, x1i, x2r, x2i, part),
-                  (n_az, n_rg, blocks))
+    stream = _build.stream_handle(dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    _build.launch("balance_launch",
+                  (x1r, x1i, x2r, x2i, _workspace(dev, stream), out),
+                  (n_az, n_rg, balance_grid(n_az, n_rg,
+                                            *balance_limits(dev))))
     raw_balance.launches += 1
-    xs = torch.sum(part, dim=1)
-    return xs[0], xs[1]
+    return out.unbind()
 
 
 raw_balance.launches = 0

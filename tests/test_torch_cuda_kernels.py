@@ -243,16 +243,31 @@ def test_k3_matches_plain_and_k3g(dev, n):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("n", [256, 4096, (1024, 4096), (4096, 64),
+                               (4097, 4096)])
 def test_raw_balance_matches_plain_and_repeats(dev, n):
     x = _planes(n, dev, 7)
+    before = gmti_kernel.raw_balance.launches
     got = gmti_kernel.raw_balance(*x)
+    assert gmti_kernel.raw_balance.launches == before + 1
+    assert all(g.dim() == 0 and g.dtype == torch.float32 for g in got)
     want = gmti_kernel.raw_balance_plain(*x)
     assert _rel(torch.stack(got), torch.stack(want)) <= 1e-4
     d = float(torch.atan2(got[1], got[0]) - torch.atan2(want[1], want[0]))
     assert abs(d) <= 1e-5
     again = gmti_kernel.raw_balance(*x)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_raw_balance_refuses_misaligned_and_ragged_planes(dev):
+    x = _planes(256, dev, 7)
+    base = torch.zeros(256 * 256 + 1, device=dev)
+    off = base[1:].view(256, 256)               # 4 bytes past a boundary
+    off.copy_(x[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        gmti_kernel.raw_balance(off, *x[1:])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gmti_kernel.raw_balance(*(v[:, :254].contiguous() for v in x))
 
 
 def test_csa_pallas_refuses_shapes_on_cuda(dev):
@@ -381,6 +396,49 @@ def test_forward_spectra_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert fft_kernel.forward_spectra.launches == before + 1
     assert _rel(got, fft_kernel.forward_spectra_plain(rc, p)) <= 1e-4
+
+
+def _pulses(n_p, ns, dev, seed=5):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal((n_p, ns))
+                             + 1j * rng.standard_normal((n_p, ns))
+                             ).astype(np.complex64)).to(dev)
+
+
+@pytest.mark.parametrize("n_p", [1, 7, 500])
+def test_forward_spectra_pulse_counts(dev, n_p):
+    """The tails of the launch: one, a few and a ring step of pulses at the
+    reference length."""
+    _, _, _, p, _, _, _ = _bp_case("small", dev)
+    p = dataclasses.replace(p, num_samples=22004)
+    rc = _pulses(n_p, 22004, dev)
+    assert _rel(fft_kernel.forward_spectra(rc, p),
+                fft_kernel.forward_spectra_plain(rc, p)) <= 1e-4
+
+
+@pytest.mark.parametrize("ns", [20480, 16384, 32768])
+def test_forward_spectra_unpadded_lengths(dev, ns):
+    """ns a multiple of 128 and ns = nfft (no padding), with and without
+    the filter."""
+    _, _, _, p, _, _, _ = _bp_case("small", dev)
+    p = dataclasses.replace(p, num_samples=ns)
+    rc = _pulses(5, ns, dev)
+    for compress in (True, False):
+        got = fft_kernel.forward_spectra(rc, p, filter_compress=compress)
+        want = fft_kernel.forward_spectra_plain(rc, p,
+                                                filter_compress=compress)
+        assert _rel(got, want) <= 1e-4
+
+
+def test_forward_spectra_batch_independent_and_repeatable(dev):
+    """A pulse's spectrum depends on that pulse alone, bit for bit, and two
+    launches give the same bits (the ring path relies on both)."""
+    rc, _, _, p, _, _, _ = _bp_case("reference", dev)
+    full = fft_kernel.forward_spectra(rc, p)
+    assert torch.equal(fft_kernel.forward_spectra(rc, p), full)
+    for a, b in ((0, 500), (700, 1207), (2499, 2500)):
+        part = fft_kernel.forward_spectra(rc[a:b].contiguous(), p)
+        assert torch.equal(part, full[a:b]), (a, b)
 
 
 @pytest.mark.parametrize("case", sorted(BP_CASES))
