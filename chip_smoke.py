@@ -76,7 +76,9 @@ tile, coarse-tile factorized):
               frame geometry and coefficient fit; the pixel kernel with the
               collect's 64-sample-window plan (1,664 x 640), the factorized
               one with the first CPI's factor plan (1,664 x 768, 10 sub-
-              apertures); times of each and its plain version
+              apertures); two launches bit for bit; times of each and its
+              plain version; bounds with the contraction on the tensor
+              cores (three TF32 passes) and on the f32 FMA pipe
   8. videosar models.videosar.run(num_frames=6) on the destroyer scene with
               bp_backend 'fast_factor' and 'fast_pallas' (the pixel-tile
               accumulate kernel), each per frame (mode A) and on the spectra
@@ -245,6 +247,8 @@ F32_FLOPS = 67e12
 # instruction throughput, compute capability 9.0), and an FMA is 2 of
 # F32_FLOPS
 SFU_PER_S = F32_FLOPS / 16
+# dense TF32 tensor-core operations a second (H100 SXM data sheet)
+TF32_FLOPS = 495e12
 # f32 planes of N^2 each kernel reads plus writes (PR 1's bytes column)
 GMTI_PLANES = {"K1g": 8, "K2 pair": 8, "K3g": 13, "K4": 9}
 SHIP_SPEED, SHIP_HEADING = 15.0, 45.0
@@ -779,13 +783,16 @@ def phase_golden(raw, sc, t0):
     assert not bad, bad
 
 
-def bound(n_bytes: float, n_flops: float, n_sfu: float = 0.0) -> dict:
+def bound(n_bytes: float, n_flops: float, n_sfu: float = 0.0,
+          n_tc: float = 0.0) -> dict:
     """The least time of the work on the card: the larger of its bytes over
-    the memory rate and its operations, f32 operations over the f32 peak or
-    sin / cos results over the special-function units' rate, whichever
-    takes longer (the two units issue side by side)."""
+    the memory rate and its operations, f32 operations over the f32 peak,
+    sin / cos results over the special-function units' rate or TF32
+    tensor-core operations over their peak, whichever takes longest (the
+    units issue side by side)."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = max(n_flops / F32_FLOPS, n_sfu / SFU_PER_S) * 1e3
+    t_f = max(n_flops / F32_FLOPS, n_sfu / SFU_PER_S,
+              n_tc / TF32_FLOPS) * 1e3
     return dict(bound_ms=max(t_b, t_f),
                 bound_by="bytes" if t_b >= t_f else "operations")
 
@@ -938,22 +945,33 @@ def acc_operands(rc, tr, vf, p, d, plan, fit_stride):
     return (rc2, *(c.contiguous() for c in co), plan_acc)
 
 
-def acc_work(ops, ncols, sub_p=None, nx=None):
-    """(bytes, f32 operations) of one accumulate call: each input read and
-    the output written once; per pixel and pulse a W-deep complex MAC
-    (8 W) plus ~20 for taper, phase and sum; per row and pulse the split
-    window DFT (8 W (W / 8 + 9)); for the factorized one, the merge (a
-    real matmul of each sub-aperture's real and imaginary planes, 4 nx_c
-    per fine pixel, and ~16 for the carrier and sum)."""
+def acc_work(ops, ncols, sub_p=None, nx=None) -> dict:
+    """bound()'s keywords for one accumulate call: n_bytes, each input
+    read and the output written once; n_tc, the W-deep complex MAC of
+    every pixel and pulse (8 W operations) on the tensor cores, three TF32
+    passes; n_flops, the rest in f32: per pixel and pulse ~20 for taper,
+    phase and sum; per row and pulse the split window DFT (8 W (W / 8 +
+    9)); for the factorized one, the merge (a real matmul of each
+    sub-aperture's real and imaginary planes, 4 nx_c per fine pixel, and
+    ~16 for the carrier and sum)."""
     rc2, plan = ops[0], ops[-1]
     num_p, w, ny = rc2.shape[0], plan.w_win, plan.ny_i
     n_bytes = (rc2.numel() * 8 + 4 * num_p * ny * 4 + 2 * num_p * 4
                + ny * (nx or ncols) * 8)
-    flops = num_p * ny * (ncols * (8 * w + 20) + 8 * w * (w // 8 + 9))
+    flops = num_p * ny * (ncols * 20 + 8 * w * (w // 8 + 9))
     if sub_p is not None:
         n_sub = -(-num_p // sub_p)
         flops += n_sub * ny * nx * (4 * ncols + 16)
-    return n_bytes, flops
+    return dict(n_bytes=n_bytes, n_flops=flops,
+                n_tc=3.0 * num_p * ny * ncols * 8 * w)
+
+
+def acc_bounds(work: dict):
+    """The tensor-core bound of acc_work's work (bound()'s dict), and the
+    f32-FMA bound in ms: the same work with the contraction's one f32 pass
+    on the FMA pipe."""
+    f32 = bound(work["n_bytes"], work["n_flops"] + work["n_tc"] / 3.0)
+    return bound(**work), f32["bound_ms"]
 
 
 def phase_acc(dev) -> dict:
@@ -987,20 +1005,24 @@ def phase_acc(dev) -> dict:
         torch.cuda.synchronize(dev)
         err = rel_err(got, want)
         assert err <= 1e-4, (name, err)
+        assert torch.equal(got, kernel(*ops, *extra)), name    # same bits
+        tc, f32_ms = acc_bounds(acc_work(ops, ncols, **wkw))
         rec[name] = dict(max_abs_err=float((got - want).abs().max()),
                          ms=median_ms(lambda: kernel(*ops, *extra)),
                          plain_ms=median_ms(lambda: plain(*ops, *extra)),
-                         library_ms=None, **bound(*acc_work(ops, ncols,
-                                                            **wkw)))
+                         library_ms=None, **tc)
         r = rec[name]
         if extra:              # the factor kernel's launch without the merge
             inner = median_ms(lambda: bp_factor_kernel.inner_sums(*ops,
                                                                   *extra))
             print(f"[7 acc] {name}: the kernel's inner sums alone "
                   f"{inner:.3f} ms, the rest is the merge")
-        print(f"[7 acc] {name} rel err {err:.2e}; {r['ms']:.3f} ms vs plain "
-              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}); P {ops[0].shape[0]}, grid {plan.ny_i} x "
+        print(f"[7 acc] {name} rel err {err:.2e}, two launches bit for bit;"
+              f" {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}; the contraction "
+              f"as three TF32 passes on the tensor cores), {f32_ms:.3f} ms "
+              f"with it on the f32 FMA pipe; P {ops[0].shape[0]}, grid "
+              f"{plan.ny_i} x "
               f"{plan.nx_i}, w {plan.w_win}, columns {ncols}, band_start "
               f"{ops[-1].band_start}" + (f", sub-apertures of {sub_p}"
                                          if extra else ""))

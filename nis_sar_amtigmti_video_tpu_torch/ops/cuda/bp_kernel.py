@@ -5,7 +5,10 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/bp_kernel.py``
 ``ops/bp_fast.py::_accumulate`` on a ``w_win=64`` plan, running the
 hand-written CUDA kernel of ``csrc/bp_kernel.cu``, which fuses the whole
 per-pulse chain (window DFT, ramp, column kernel, taper, focusing phase)
-over a pixel tile held in registers. :func:`accumulate_pallas` runs its
+over a pixel tile held in registers: producer warps prepare each pulse's
+window spectra and phasor tables while the consumer warpgroups contract
+the previous one on the tensor cores (wgmma, three TF32 passes) and run
+its epilogue. :func:`accumulate_pallas` runs its
 plain version (``bp_fast._accumulate``) for CPU tensors, and launches the
 kernel or raises for CUDA tensors. The TPU knobs ``block``, ``tile_y``,
 ``mode``, ``interpret`` and ``ablate`` are not ported.
@@ -65,6 +68,9 @@ def launch_accumulate(name: str, rc2, u0, c0, c1, c2, b_t, c_t,
         raise ValueError(f"{name}: the kernel takes w_win 32 or 64, rows in "
                          f"multiples of {TILE_Y} and columns in multiples of "
                          f"{TILE_X}, got {(w, ny, ncols)}")
+    if not 0 <= plan.taper_pow <= 15:
+        raise ValueError(f"{name}: the kernel takes taper_pow 0 to 15, got "
+                         f"{plan.taper_pow}")
     band_end = plan.band_start + plan.stride * (ny - 1) + w
     if plan.band_start < 0 or band_end > n:
         raise ValueError(f"{name}: band [{plan.band_start}, {band_end}) "

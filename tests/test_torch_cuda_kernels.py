@@ -5,7 +5,8 @@ twins) at 256^2 and at the slice's 4096^2, K3 and K3g also on rectangular
 planes, twice for the same bits and at their columns' edges, the fast-BP
 recentre kernels at nfft 16,384 and at the VideoSAR reference shape
 (2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
-kernels on synthetic operands and at the VideoSAR full width, and the
+kernels on synthetic operands (also on more tiles than the card holds at
+once, twice for the same bits) and at the VideoSAR full width, and the
 NUFFT echo's spread (both orders) and FFT-conv kernels and the direct-echo
 kernel at small shapes and at the full-scale GMTI chain's (512-pulse
 chunks, nfft 65,536), with the freq and pallas echo backends end to end on
@@ -485,16 +486,16 @@ def test_ring_is_bit_identical(dev, case):
 # --------------------------------------------------------------------------
 
 def _acc_operands(dev, n_p, ny, nx, w, seed, scales, stride=1, nx_c=0,
-                  sub_raw=0):
+                  sub_raw=0, n=512):
     """tests/test_bp_fast.py's synthetic accumulate operands, on the card:
-    band_start 7 of 512 samples per pulse."""
+    band_start 7 of ``n`` samples per pulse."""
     plan = bp_fast.FastBpPlan(ny_i=ny, nx_i=nx, w_win=w, stride=stride,
                               band_start=7, nfft=512, dx_m=1.0, t_ref=1e-3,
                               n_org=100.0, sub_raw=sub_raw, nx_c=nx_c)
     u0_mid, pb_s, pc_s, bt_s, ct_s = scales
     rng = np.random.default_rng(seed)
-    rc2 = (rng.standard_normal((n_p, 512))
-           + 1j * rng.standard_normal((n_p, 512))).astype(np.complex64)
+    rc2 = (rng.standard_normal((n_p, n))
+           + 1j * rng.standard_normal((n_p, n))).astype(np.complex64)
     f32 = np.float32
     ops = (rc2, (u0_mid + 2.0 * rng.standard_normal((n_p, ny))).astype(f32),
            rng.uniform(-3, 3, (n_p, ny)).astype(f32),
@@ -574,6 +575,37 @@ def test_accumulate_factor_matches_plain(dev, n_p, sub_p):
     assert bp_factor_kernel.accumulate_factor_pallas.launches == before + 1
     want = bp_factor_kernel.accumulate_factor_pallas_plain(*ops, plan, sub_p)
     assert _rel(got, want) <= 1e-4
+    assert torch.equal(got, bp_factor_kernel.accumulate_factor_pallas(
+        *ops, plan, sub_p))
+
+
+@pytest.mark.parametrize("factor", [False, True])
+def test_accumulate_kernels_second_wave_repeats_bit_for_bit(dev, factor):
+    """More tiles than the card holds at once (one block an SM): W 64 on
+    8 x 40 = 320 tiles of 24 pulses, W 32 on 40 row tiles x 13 sub-
+    apertures of 16 pulses (the last of 8) = 520; the last wave is partial.
+    Two launches give the same bits (fixed pulse order, no atomics)."""
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    if factor:
+        ops, plan = _acc_operands(dev, 200, 1280, 512, 32, 5, FACTOR_SCALES,
+                                  nx_c=128, sub_raw=16, n=1536)
+        tiles = 1280 // 32 * -(-200 // 16)
+        got = bp_factor_kernel.inner_sums(*ops, plan, 16)
+        again = bp_factor_kernel.inner_sums(*ops, plan, 16)
+        want = bp_factor_kernel.accumulate_factor_pallas_plain(*ops, plan, 16)
+        img = bp_factor_kernel.accumulate_factor_pallas(*ops, plan, 16)
+        assert _rel(img, want) <= 1e-4
+    else:
+        ops, plan = _acc_operands(dev, 24, 1280, 1024, 64, 3, PIXEL_SCALES,
+                                  n=1536)
+        tiles = 1024 // 128 * 1280 // 32
+        got = bp_kernel.accumulate_pallas(*ops, plan)
+        again = bp_kernel.accumulate_pallas(*ops, plan)
+        assert _rel(got, bp_kernel.accumulate_pallas_plain(*ops, plan)) \
+            <= 1e-4
+    torch.cuda.synchronize()
+    assert tiles > blocks and tiles % blocks
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("factor", [False, True])
@@ -588,6 +620,27 @@ def test_accumulate_kernels_match_plain_full_width(dev, factor):
                                                                sub_p)
     else:
         assert bp_kernel.supported(plan)
+        got = bp_kernel.accumulate_pallas(*ops, plan)
+        want = bp_kernel.accumulate_pallas_plain(*ops, plan)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("taper_pow", [0, 2, 3])
+@pytest.mark.parametrize("factor", [False, True])
+def test_accumulate_kernels_match_plain_at_other_taper_powers(dev, factor,
+                                                              taper_pow):
+    """The plans use taper power 4; the kernel's epilogue takes any power
+    in [0, 15] (an odd one meets the 1e-4 floor where the sine is
+    negative, as in the plain version)."""
+    if factor:
+        ops, plan = _acc_operands(dev, 11, 128, 512, 32, 5, FACTOR_SCALES,
+                                  nx_c=128, sub_raw=4)
+        plan = dataclasses.replace(plan, taper_pow=taper_pow)
+        got = bp_factor_kernel.accumulate_factor_pallas(*ops, plan, 4)
+        want = bp_factor_kernel.accumulate_factor_pallas_plain(*ops, plan, 4)
+    else:
+        ops, plan = _acc_operands(dev, 21, 128, 256, 64, 3, PIXEL_SCALES)
+        plan = dataclasses.replace(plan, taper_pow=taper_pow)
         got = bp_kernel.accumulate_pallas(*ops, plan)
         want = bp_kernel.accumulate_pallas_plain(*ops, plan)
     assert _rel(got, want) <= 1e-4
@@ -642,6 +695,17 @@ def test_accumulate_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError, match="shape"):
         bp_factor_kernel.accumulate_factor_pallas(fops[0], fops[1][:, :64],
                                                   *fops[2:], fplan, 4)
+    # the epilogue's branch-free power by squaring takes 4 bits
+    before = (bp_kernel.accumulate_pallas.launches,
+              bp_factor_kernel.accumulate_factor_pallas.launches)
+    with pytest.raises(ValueError, match="taper_pow 0 to 15, got 16"):
+        bp_kernel.accumulate_pallas(
+            *ops, dataclasses.replace(plan, taper_pow=16))
+    with pytest.raises(ValueError, match="taper_pow 0 to 15, got 16"):
+        bp_factor_kernel.accumulate_factor_pallas(
+            *fops, dataclasses.replace(fplan, taper_pow=16), 4)
+    assert before == (bp_kernel.accumulate_pallas.launches,
+                      bp_factor_kernel.accumulate_factor_pallas.launches)
 
 
 # --------------------------------------------------------------------------
