@@ -11,10 +11,15 @@
 // spectra times each pulse's recentre ramp and carrier, divided by d, and
 // one band-limited inverse transform. The conv (fft_conv_kernel, one
 // cluster per row of the echo's impulse field, read as float32 real and
-// imaginary planes): ifft(fft(row, nfft) x filter) cut to the band rows
-// [p0, p1); at the NUFFT echo's full-scale chunk (512 rows of 50,420
-// samples, nfft 65,536, 207 band rows) it moves ~315 MB, 0.094 ms at
-// 3.35 TB/s.
+// imaginary planes through a row stride): ifft(fft(row, nfft) x filter) cut
+// to the band rows [p0, p1); at the NUFFT echo's full-scale chunk (512 rows
+// of 50,420 samples, nfft 65,536, 207 band rows) it moves ~315 MB, 0.094 ms
+// at 3.35 TB/s. It runs forward spectra's plan (below) forward, then the
+// same plan backwards: the rows' filter and inverse in registers, a second
+// cluster exchange back to the column owners, the columns' inverse DFTs,
+// and only the band rows stored (the inverse's last 16-point DFTs run in
+// full: pruning them to the band would save a few per cent of its
+// operations).
 //
 // What bounds it on the H100. By bytes it would be the fused kernel's
 // ~0.45 GB (each raw pulse read once, one band row per group written) at
@@ -24,9 +29,9 @@
 // barriers between them and the per-point index and sincos work take the
 // time (scripts/probe_torch_fft_phases.py times each phase): the kernels
 // are bound by instruction issue and barrier latency on one 512-thread
-// block per SM, not by device memory. Forward spectra (below) runs four
-// smaller blocks an SM, so their memory phases overlap, and reaches ~40 %
-// of its byte bound.
+// block per SM, not by device memory. Forward spectra and the conv (below)
+// run several smaller blocks an SM, so their memory phases overlap: forward
+// spectra reached ~46 % of its byte bound.
 //
 // Design. One pulse's spectrum (256 KB at nfft 32,768, 512 KB at 65,536)
 // does not fit the 227 KB of shared memory a block may have, so each
@@ -332,17 +337,6 @@ struct PulseLoad {
   }
 };
 
-// Sample n of a zero-padded row held as float32 real and imaginary planes.
-struct PlanesLoad {
-  const float* __restrict__ re;
-  const float* __restrict__ im;
-  int ns;
-  __device__ __forceinline__ float2 operator()(int n) const {
-    return n < ns ? make_float2(__ldg(re + n), __ldg(im + n))
-                  : make_float2(0.f, 0.f);
-  }
-};
-
 // Step 1, local half: this block's columns n1 in [c0, c0 + cols) of one
 // zero-padded pulse (`load(n)` its sample n), B1-point forward DFT in `col`
 // (column c at c * (B1 + 1), bit-reversed k2 order).
@@ -626,6 +620,279 @@ __global__ void __launch_bounds__(Fwd<B1, R>::T, Fwd<B1, R>::kBlocksPerSm)
   }
 }
 
+// The conv's forward transform on forward spectra's plan (Fwd<B1, R>), the
+// same arithmetic as forward_spectra_kernel's steps. Forward spectra keeps
+// its own copy: calling these from it changed its SASS
+// (scripts/probe_torch_echo_phases.py compares it with an earlier
+// commit's). The text here differs from that copy where
+// scripts/probe_torch_fft_phases.py anchors its marks (the buffer's name,
+// the barriers' comments), so those anchors stay forward spectra's alone.
+//
+// The columns' second half: with the first half's 16-point DFTs over b in
+// `sm` as [a][kb][c], the A-point DFT over a of each (c, kb). After it (a
+// cluster barrier) row k2 % R of the block that owns k2 (pitch kFwdPitch)
+// holds X1[k2][n1] x WN^(k2 n1) for every n1.
+template <int B1, int R>
+__device__ __forceinline__ void columns_second_half(
+    cg::cluster_group& cluster, float2* sm, const Tables& t) {
+  using F = Fwd<B1, R>;
+  constexpr int C = F::C, A = F::A, T = F::T;
+  const int tid = (int)threadIdx.x;
+  const int c0 = (int)cluster.block_rank() * C;
+
+  // Columns, second half: the A-point DFT over a of each (c, kb), then each
+  // X[c][k2] x WN^(k2 n1) goes to the block that owns row k2 (a DSMEM
+  // store), once every block of the cluster is past its reads of `sm`.
+  if constexpr (A <= 16) {
+    constexpr int kItems = 16 / A;
+    float2 w[kItems][A];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T, c = j % C, kb = j / C;
+#pragma unroll
+      for (int a = 0; a < A; ++a) w[i][a] = sm[(a * 16 + kb) * C + c];
+    }
+    cluster_arrive();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) nis::dft_reg<false, A>(w[i], t.tw_b1, 16);
+    cluster_wait();  // every block is past its reads
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T;
+      push_column<B1, R>(cluster, sm, w[i], c0 + j % C, j / C, 0, 1, t.tw_n);
+    }
+  } else {
+    // A = 32: a lane pair per (c, kb), lane h holding a = 16 h + n; one
+    // radix-2 step across the pair leaves lane h the 16-point DFT of
+    // ka = 2 k + h
+    static_assert(A == 32, "");
+    const int h = tid & 1, item = tid >> 1, c = item % C, kb = item / C;
+    float2 u[16];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) u[n] = sm[((h * 16 + n) * 16 + kb) * C + c];
+    cluster_arrive();
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float2 o = shfl_xor(u[n], 1);
+      u[n] = h == 0 ? cadd(u[n], o)
+                    : nis::cmul(make_float2(o.x - u[n].x, o.y - u[n].y),
+                                nis::twiddle_pow<false>(t.tw_b1, 16 * n, B1));
+    }
+    nis::dft_reg<false, 16>(u, t.tw_b1, 32);
+    cluster_wait();  // every block is past its reads
+    push_column<B1, R>(cluster, sm, u, c0 + c, kb, h, 2, t.tw_n);
+  }
+  cluster.sync();  // this block's rows are in
+}
+
+// The rows' first half. Ends with a block barrier; then sm[kb' * kRowT +
+// r * 8 + a'] holds row r's point (a', kb').
+template <int B1, int R>
+__device__ __forceinline__ void rows_first_half(float2* sm,
+                                                const Tables& t) {
+  using F = Fwd<B1, R>;
+  const int tid = (int)threadIdx.x;
+
+  // Rows, first half: thread (r, a') the 16-point DFT over b' of n1 = a' +
+  // 8 b', W128^(a' kb'), into the row transpose.
+  {
+    const int r = tid / 8, a = tid % 8;
+    float2 v[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) v[b] = sm[r * kFwdPitch + a + 8 * b];
+    nis::dft_reg<false, 16>(v, t.tw_128, 8);
+#pragma unroll
+    for (int kb = 1; kb < 16; ++kb)
+      v[kb] = nis::cmul(v[kb], nis::twiddle_pow<false>(t.tw_128, a * kb, 128));
+    __syncthreads();
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb) sm[kb * F::kRowT + r * 8 + a] = v[kb];
+  }
+  __syncthreads();
+}
+
+// The FFT conv's plan: Fwd<B1, R>'s clusters, blocks and buffer, with two
+// blocks of 512 threads an SM at nfft 65,536 (so one block's loads and
+// stores overlap the other's transforms) and four of 256 below.
+template <int B1, int R>
+struct Conv {
+  static constexpr int kBlocksPerSm = Fwd<B1, R>::T == 256 ? 4 : 2;
+  static_assert(kBlocksPerSm * (Fwd<B1, R>::kSmem + 1024) <= 233472 &&
+                kBlocksPerSm * Fwd<B1, R>::T <= 2048, "");
+};
+
+// The FFT conv, one cluster a row: the forward transform on forward
+// spectra's plan (its columns' first half on the two planes through their
+// row strides, columns_second_half, rows_first_half); per (r, kb') the rows'
+// 8-point DFT, the filter, the inverse 8-point DFT, all in registers; the
+// rows' inverse 16-point DFTs; each Y[k2][n1] x conj WN^(k2 n1) pushed to
+// the block that owns column n1; the columns' inverse DFTs (A-point over
+// ka, 16-point over kb); the band rows n2 in [p0, p1) stored, / nfft.
+template <int B1, int R>
+__global__ void __launch_bounds__(Fwd<B1, R>::T, Conv<B1, R>::kBlocksPerSm)
+    fft_conv_kernel(const float* __restrict__ xr,
+                    const float* __restrict__ xi,
+                    const float2* __restrict__ filt, Tables t,
+                    float2* __restrict__ out, int ns, int ld_r, int ld_i,
+                    int p0, int p1) {
+  using F = Fwd<B1, R>;
+  constexpr int C = F::C, A = F::A, T = F::T;
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* buf = reinterpret_cast<float2*>(nis_smem);
+  const int tid = (int)threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int row = blockIdx.x / F::CS;
+  const float* re = xr + (size_t)row * ld_r;
+  const float* im = xi + (size_t)row * ld_i;
+
+  // Columns, first half, as forward spectra's: thread (c, a) reads n2 = a +
+  // A b of both planes, the 16-point DFT over b, WB1^(a kb), into
+  // [a][kb][c]
+  {
+    const int c = tid % C, a = tid / C, n0 = rank * C + c + 128 * a;
+    float2 v[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int n = n0 + 128 * A * b;
+      v[b] = n < ns ? make_float2(__ldcs(re + n), __ldcs(im + n))
+                    : make_float2(0.f, 0.f);
+    }
+    nis::dft_reg<false, 16>(v, t.tw_b1, A);
+    float2* col = buf + a * 16 * C + c;
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb)
+      col[kb * C] = kb == 0 ? v[0]
+                            : nis::cmul(v[kb], nis::twiddle_pow<false>(
+                                                   t.tw_b1, a * kb, B1));
+  }
+  __syncthreads();
+  columns_second_half<B1, R>(cluster, buf, t);
+  rows_first_half<B1, R>(buf, t);
+
+  // Rows, second half and back: per (r, kb') the 8-point DFT over a', the
+  // filter at k1 = kb' + 16 ka', the inverse 8-point DFT over ka' and conj
+  // W128^(a' kb'), in place.
+  const int k2_0 = rank * R;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * T, kb = j % 16, r = j / 16;
+    float2* p = buf + kb * F::kRowT + r * 8;
+    float2 w[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) w[a] = p[a];
+    nis::dft_reg<false, 8>(w, t.tw_128, 16);
+    const float2* f = filt + (size_t)(k2_0 + r) * 128 + kb;
+#pragma unroll
+    for (int ka = 0; ka < 8; ++ka)
+      w[ka] = nis::cmul(w[ka], __ldg(f + 16 * ka));
+    nis::dft_reg<true, 8>(w, t.tw_128, 16);
+#pragma unroll
+    for (int a = 1; a < 8; ++a)
+      w[a] = nis::cmul(w[a], nis::twiddle_pow<true>(t.tw_128, a * kb, 128));
+#pragma unroll
+    for (int a = 0; a < 8; ++a) p[a] = w[a];
+  }
+  __syncthreads();
+
+  // Rows, inverse second half: thread (r, a') the inverse 16-point DFT over
+  // kb' (n1 = a' + 8 b'), x conj WN^(k2 n1), each value to the block that
+  // owns column n1, at [k2][n1 % C], once every block is past its reads of
+  // `buf`. Odd rows take b' ^ 1 at step b' (the same owner), so a warp's
+  // four rows write both halves of the banks.
+  const int r = tid / 8, a = tid % 8, k2 = k2_0 + r;
+  const bool odd = r & 1;
+  float2 v[16];
+#pragma unroll
+  for (int kb = 0; kb < 16; ++kb) v[kb] = buf[kb * F::kRowT + r * 8 + a];
+  cluster_arrive();
+  nis::dft_reg<true, 16>(v, t.tw_128, 8);
+#pragma unroll
+  for (int b = 0; b < 16; ++b) {
+    const float2 w = tw_full(t.tw_n, k2 * (a + 8 * b));
+    v[b] = nis::cmul(v[b], make_float2(w.x, -w.y));
+  }
+  cluster_wait();
+#pragma unroll
+  for (int b = 0; b < 16; ++b) {
+    const int n1 = a + 8 * (odd ? b ^ 1 : b);
+    float2* dst = cluster.map_shared_rank(buf, n1 / C);
+    dst[k2 * C + n1 % C] = odd ? v[b ^ 1] : v[b];
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // Columns, inverse first half: per (c, kb) the inverse A-point DFT over
+  // ka (k2 = kb + 16 ka), conj WB1^(kb a), into [a][kb][c].
+  if constexpr (A <= 16) {
+    constexpr int kItems = 16 / A;
+    float2 w[kItems][A];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T, c = j % C, kb = j / C;
+#pragma unroll
+      for (int ka = 0; ka < A; ++ka) w[i][ka] = buf[(kb + 16 * ka) * C + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T, c = j % C, kb = j / C;
+      nis::dft_reg<true, A>(w[i], t.tw_b1, 16);
+#pragma unroll
+      for (int n = 0; n < A; ++n)
+        buf[(n * 16 + kb) * C + c] =
+            n == 0 ? w[i][n]
+                   : nis::cmul(w[i][n],
+                               nis::twiddle_pow<true>(t.tw_b1, kb * n, B1));
+    }
+  } else {
+    // A = 32: a lane pair per (c, kb), lane h holding ka = 16 h + n; one
+    // radix-2 step across the pair leaves lane h the 16-point inverse DFT
+    // of a = 2 m + h
+    static_assert(A == 32, "");
+    const int h = tid & 1, item = tid >> 1, c = item % C, kb = item / C;
+    float2 u[16];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) u[n] = buf[(kb + 16 * (16 * h + n)) * C + c];
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float2 o = shfl_xor(u[n], 1);
+      u[n] = h == 0 ? cadd(u[n], o)
+                    : nis::cmul(make_float2(o.x - u[n].x, o.y - u[n].y),
+                                nis::twiddle_pow<true>(t.tw_b1, 16 * n, B1));
+    }
+    nis::dft_reg<true, 16>(u, t.tw_b1, 32);
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int n = 2 * m + h;
+      buf[(n * 16 + kb) * C + c] =
+          n == 0 ? u[m]
+                 : nis::cmul(u[m],
+                             nis::twiddle_pow<true>(t.tw_b1, kb * n, B1));
+    }
+  }
+  __syncthreads();
+
+  // Columns, inverse second half: thread (c, a) the inverse 16-point DFT
+  // over kb (n2 = a + A b), the band rows stored / nfft (a warp writes whole
+  // 128-byte segments).
+  {
+    const int c = tid % C, n = tid / C;
+    float2 x[16];
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb) x[kb] = buf[(n * 16 + kb) * C + c];
+    nis::dft_reg<true, 16>(x, t.tw_b1, A);
+    const float inv_n = 1.0f / (float)(128 * B1);
+    float2* o = out + (size_t)row * (p1 - p0) * 128 + rank * C + c;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int n2 = n + A * b;
+      if (n2 >= p0 && n2 < p1)
+        __stcs(o + (size_t)(n2 - p0) * 128, nis::cscale(x[b], inv_n));
+    }
+  }
+}
+
 // One cluster per presum group.
 __global__ void __launch_bounds__(kThreads, 1) recentre_spectra_kernel(
     const float2* __restrict__ spec, const int* __restrict__ si,
@@ -678,26 +945,6 @@ __global__ void __launch_bounds__(kThreads, 1) recenter_presum_kernel(
                 t, s);
 }
 
-// One cluster per row: the row's forward transform, the filter and the
-// band-limited inverse, the spectrum never leaving the cluster.
-__global__ void __launch_bounds__(kThreads, 1) fft_conv_kernel(
-    const float* __restrict__ xr, const float* __restrict__ xi,
-    const float2* __restrict__ filt, Tables t, float2* __restrict__ out,
-    int ns, int p0, int p1, Shape s) {
-  cg::cluster_group cluster = cg::this_cluster();
-  float2* y = reinterpret_cast<float2*>(nis_smem);
-  float2* col = y + kPoints;
-  const int row = blockIdx.x / (int)cluster.num_blocks();
-  const int k2_0 = (int)cluster.block_rank() * kRowsPerBlock;
-  const size_t at = (size_t)row * ns;
-  pulse_forward(cluster, PlanesLoad{xr + at, xi + at, ns}, y, col, t, s);
-  const float2* f = filt + (size_t)k2_0 * 128;
-  each_point([&](int l) { return nis::cmul(y[l], __ldg(f + l)); },
-             [&](int l, float2 v) { y[l] = v; });
-  group_inverse(cluster, y, col, out + (size_t)row * (p1 - p0) * 128, p0, p1,
-                t, s);
-}
-
 Shape shape_of(int nfft) {
   Shape s;
   s.nfft = nfft;
@@ -743,6 +990,17 @@ int forward_spectra_on(int num_p, void* stream, const float2* x,
   using F = Fwd<B1, R>;
   return launch_clusters(forward_spectra_kernel<B1, R>, num_p, F::CS, F::T,
                          F::kSmem, stream, x, filt, t, out, ns);
+}
+
+// The FFT conv on Conv<B1, R>'s plan: a cluster of CS blocks a row.
+template <int B1, int R>
+int fft_conv_on(int num_p, void* stream, const float* xr, const float* xi,
+                const float2* filt, Tables t, float2* out, int ns, int ld_r,
+                int ld_i, int p0, int p1) {
+  using F = Fwd<B1, R>;
+  return launch_clusters(fft_conv_kernel<B1, R>, num_p, F::CS, F::T,
+                         F::kSmem, stream, xr, xi, filt, t, out, ns, ld_r,
+                         ld_i, p0, p1);
 }
 
 }  // namespace
@@ -793,13 +1051,26 @@ extern "C" int recenter_presum_launch(
                          p1, shape_of(nfft));
 }
 
+// The FFT conv on Conv<B1, R>'s plan (forward spectra's clusters); the
+// field rows fr + j fi at row strides ld_r and ld_i (floats).
 extern "C" int fft_conv_launch(const float* xr, const float* xi,
                                const float2* filt, const float2* tw_n,
                                const float2* tw_b1, const float2* tw_128,
-                               float2* out, int num_p, int ns, int nfft,
-                               int p0, int p1, void* stream) {
-  return launch_clusters(fft_conv_kernel, num_p, cluster_of(nfft), kThreads,
-                         kSmemOne, stream, xr,
-                         xi, filt, Tables{tw_n, tw_b1, tw_128}, out, ns, p0,
-                         p1, shape_of(nfft));
+                               float2* out, int num_p, int ns, int ld_r,
+                               int ld_i, int nfft, int p0, int p1,
+                               void* stream) {
+  const Tables t{tw_n, tw_b1, tw_128};
+  switch (nfft) {
+    case 128 * 128:
+      return fft_conv_on<128, 32>(num_p, stream, xr, xi, filt, t, out, ns,
+                                  ld_r, ld_i, p0, p1);
+    case 128 * 256:
+      return fft_conv_on<256, 32>(num_p, stream, xr, xi, filt, t, out, ns,
+                                  ld_r, ld_i, p0, p1);
+    case 128 * 512:
+      return fft_conv_on<512, 64>(num_p, stream, xr, xi, filt, t, out, ns,
+                                  ld_r, ld_i, p0, p1);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -18,147 +18,331 @@
 //
 // What bounds it on the H100: bytes. At the NUFFT echo's full-scale chunk
 // (512 pulses x 16 groups of 315 targets, win 4,096, one set of 8 taps) a
-// launch reads 206 MB of values and cells and writes 268 MB of windows:
-// 0.14 ms at 3.35 TB/s; the adds are ~40 M.
+// launch reads 176 MB of values and cells and writes 268 MB of windows:
+// 0.13 ms at 3.35 TB/s; the adds are ~40 M. The first design walked every
+// window cell and tap (32,768 probes of the cell starts for at most 2,520
+// occupied pairs) and ranked each target against every target before it:
+// ~6K instructions a warp, bound by issue, not by bytes.
 //
-// Design: one block per (pulse, group), deterministic, no float atomics.
-//   1. The group's cells (cells outside [0, win) marked dropped) and all of
-//      its values are staged in shared memory; cell counts by shared integer
-//      atomics.
-//   2. A block scan turns the counts into cell starts; each target's slot in
-//      its cell is the number of earlier targets in the same cell, so every
-//      cell lists its targets in index order and every sum has a fixed
-//      order. (The first design sorted each cell's list with one thread;
-//      where targets outside the grid all clamp onto one cell that cost
-//      O(bg^2) serial steps, 3.8 ms a full-scale chunk on the H100.)
-//   3. One thread per output cell j gathers the targets of cells j - k over
-//      the taps k in a fixed order (k ascending, targets ascending) and
-//      writes the window cell: coalesced stores, each window written once.
+// Design: one block of 256 threads per (pulse, group), deterministic, no
+// float atomics, ~26 KB of shared memory at the main pass and ~36 KB at the
+// edge pass (six blocks an SM).
+//   1. Staging: the group's values go to shared memory by cp.async (16-byte
+//      copies where aligned), in flight while the cells are processed.
+//   2. Count: an occupancy bitmask of the window (one bit a cell, win / 32
+//      words) by shared atomicOr; a prefix of the words' popcounts gives each
+//      occupied cell its index among the occupied cells, u; per u, shared
+//      integer atomics take the count of its targets and the least of them.
+//   3. Scan (one warp): the counts become each occupied cell's start in the
+//      target list.
+//   4. Rank: a stable list (each cell's targets in index order) at O(1) a
+//      target, however the cells are ordered: one warp walks the targets
+//      of the cells of several targets 32 at a time in index order,
+//      __match_any_sync over u giving each its rank among the equal cells
+//      of its 32 and a running count per cell the targets before them (a
+//      one-target cell needs no list: the gather reads its least target).
+//   5. Gather and store: a thread takes 4 adjacent window cells j0 .. j0 + 3
+//      and reads the occupancy of cells j0 - K + 1 .. j0 + 3 as one word
+//      (a cell's occupied index: the first cell's plus the bits below); each
+//      cell visits only its occupied predecessors (k ascending): a
+//      one-target cell adds its value (its target and count in one word), a
+//      cell of several targets its terms in list order (the roll order
+//      through the per-tap partial). The 4 cells go out as one float4 a row
+//      (16-byte, coalesced); a group with no occupied cell stores zeros at
+//      once. A cell with no occupied predecessor is +0.0.
+// The sums are the first design's, term for term: the same terms in the
+// same order (k ascending, each cell's targets ascending), the roll order's
+// per-tap partial sum starting at +0.0. The terms skipped are the empty
+// cells' +0.0 partials, and a one-target cell adds v where the first design
+// added the partial 0 + v: adding +0.0, or 0 + v for v, to a sum that
+// started at +0.0 never changes it (no such sum is ever -0.0). So the
+// windows are the first design's bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-// In place inclusive scan of a[0, n) by the whole block: warp w scans its
-// contiguous segment 32 entries at a time (lanes on consecutive entries, so
-// no bank conflicts, the running total carried across), then adds the
-// totals of the segments before it. Ends with a barrier.
-__device__ void block_inclusive_scan(int* a, int n, int* warp_tot) {
-  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
-  const int seg = ((n + kWarps - 1) / kWarps + 31) & ~31;
-  const int lo = min(n, warp * seg), hi = min(n, lo + seg);
-  int carry = 0;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    int v = i < hi ? a[i] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           bool wide) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (wide)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src));
+}
+
+// i mod win in [0, win) for i >= -win * 2^20.
+__device__ __forceinline__ int wrap_cell(int i, int win) {
+  return i >= 0 ? i : (i % win + win) % win;
+}
+
+// For lo < 0 (the window's first cells): bit t of the result (t < 33) is
+// the occupancy of cell lo + t; cells >= win are empty; a cell below 0 is
+// cell (lo + t) mod win with `wrap` (the roll order), else empty.
+__device__ __forceinline__ unsigned long long occupancy_below_0(
+    const unsigned* occ, int lo, int win, bool wrap) {
+  unsigned long long x = 0;
+  for (int t = 0; t < 33; ++t) {
+    int i = lo + t;
+    if (i < 0) {
+      if (!wrap) continue;
+      i = wrap_cell(i, win);
     }
-    if (i < hi) a[i] = v + carry;
-    carry += __shfl_sync(0xffffffffu, v, 31);
+    if (i < win && ((occ[i >> 5] >> (i & 31)) & 1u)) x |= 1ull << t;
   }
-  if (lane == 0) warp_tot[warp] = carry;
-  __syncthreads();
-  int offset = 0;
-  for (int w = 0; w < warp; ++w) offset += warp_tot[w];
-  for (int i = lo + lane; i < hi; i += 32) a[i] += offset;
-  __syncthreads();
+  return x;
+}
+
+// The index of occupied cell i among the occupied cells.
+__device__ __forceinline__ int occupied_index(const unsigned* occ,
+                                              const int* word_pre, int i) {
+  return word_pre[i >> 5] + __popc(occ[i >> 5] & ((1u << (i & 31)) - 1u));
 }
 
 // One block per (pulse, group): cells (bg,) int32, vals (S, 2K, bg) float32,
 // out (2S, win) float32, all at offset blockIdx.x of their arrays.
+// K <= 30, bg < 2^15.
 template <bool kQr>
-__global__ void __launch_bounds__(kThreads) spread_windows_kernel(
+__global__ void __launch_bounds__(kThreads, 6) spread_windows_kernel(
     const int* __restrict__ cells, const float* __restrict__ vals,
     float* __restrict__ out, int bg, int win, int n_sets, int k_taps) {
-  extern __shared__ int smem[];
-  int* s_cell = smem;                    // bg: cell, or -1 (dropped)
-  int* s_list = s_cell + bg;             // bg: target indices by cell
-  int* s_pos = s_list + bg;              // win + 1: cell starts
-  float* s_val = reinterpret_cast<float*>(s_pos + win + 1);
-  __shared__ int warp_tot[kWarps];
-
-  const int tid = (int)threadIdx.x;
-  const size_t item = blockIdx.x;
+  extern __shared__ float4 smem4[];
   const int nv = n_sets * 2 * k_taps * bg;
+  const int nw = (win + 31) >> 5;
+  float* s_val = reinterpret_cast<float*>(smem4);   // nv, 16-byte aligned
+  int* s_key = reinterpret_cast<int*>(s_val + ((nv + 3) & ~3));
+  int* s_list = s_key + bg;       // bg: targets by cell, stable
+  int* s_cnt = s_list + bg;       // bg: u's count; then its targets ranked
+  int* s_first = s_cnt + bg;      // bg: u's least target | its count << 16
+  int* s_start = s_first + bg;    // bg + 1: u's start in s_list
+  unsigned* s_occ = reinterpret_cast<unsigned*>(s_start + bg + 1);  // nw+1
+  int* s_wpre = reinterpret_cast<int*>(s_occ + nw + 1);           // nw+1
+  __shared__ int n_occ;
+
+  const int tid = (int)threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t item = blockIdx.x;
   const int* c_g = cells + item * bg;
   const float* v_g = vals + item * (size_t)nv;
   float* o_g = out + item * (size_t)(2 * n_sets) * win;
+  auto cell = [&](int b) {       // target b's cell, or -1 (dropped)
+    const int c = __ldg(c_g + b);
+    return c >= 0 && c < win ? c : -1;
+  };
 
-  for (int j = tid; j <= win; j += kThreads) s_pos[j] = 0;
-  for (int i = tid; i < nv; i += kThreads) s_val[i] = __ldg(v_g + i);
+  // 1. staging: the values by cp.async (in flight until step 5), the cells,
+  // zeroed words and counts
+  const bool wide = ((nv & 3) == 0) && ((size_t)v_g & 15) == 0;
+  if (wide) {
+    for (int i = 4 * tid; i < nv; i += 4 * kThreads)
+      copy_async(s_val + i, v_g + i, true);
+  } else {
+    for (int i = tid; i < nv; i += kThreads)
+      copy_async(s_val + i, v_g + i, false);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int w = tid; w <= nw; w += kThreads) s_occ[w] = 0u;
+  for (int u = tid; u < bg; u += kThreads) {
+    s_cnt[u] = 0;
+    s_first[u] = 0x7fffffff;
+  }
+  for (int b = tid; b < bg; b += kThreads) s_key[b] = cell(b);
   __syncthreads();
+
+  // 2. count: occupancy; the occupied index u of each live target; per u
+  // the count and the least target
   for (int b = tid; b < bg; b += kThreads) {
-    int c = __ldg(c_g + b);
-    if (c < 0 || c >= win) c = -1;
-    s_cell[b] = c;
-    if (c >= 0) atomicAdd(s_pos + c + 1, 1);
+    const int c = s_key[b];
+    if (c >= 0) atomicOr(s_occ + (c >> 5), 1u << (c & 31));
   }
   __syncthreads();
-
-  // counts -> s_pos[c] = cell c's start, s_pos[c + 1] its end
-  block_inclusive_scan(s_pos + 1, win, warp_tot);
-  // stable placement: a target's slot in its cell is the number of
-  // targets before it in the same cell, so each cell lists its targets in
-  // index order (a whole group can share one cell: targets outside the
-  // grid are clamped onto its edges)
+  if (warp == 0) {
+    int carry = 0;
+    for (int base = 0; base <= nw; base += 32) {
+      const int w = base + lane;
+      const int p = w < nw ? __popc(s_occ[w]) : 0;
+      int x = p;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (w <= nw) s_wpre[w] = carry + x - p;
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) n_occ = carry;
+  }
+  __syncthreads();
   for (int b = tid; b < bg; b += kThreads) {
-    const int c = s_cell[b];
+    const int c = s_key[b];
     if (c < 0) continue;
-    int rank = 0;
-    for (int e = 0; e < b; ++e) rank += s_cell[e] == c;
-    s_list[s_pos[c] + rank] = b;
+    const int u = occupied_index(s_occ, s_wpre, c);
+    s_key[b] = u;
+    atomicAdd(s_cnt + u, 1);
+    atomicMin(s_first + u, b);
+  }
+  __syncthreads();
+  const int n_u = n_occ;
+
+  // 3. scan (one warp): s_start[u], the targets of the occupied cells
+  // before u; lane l takes a run of ceil(n_u / 32) counts
+  if (warp == 0) {
+    const int per = (n_u + 31) >> 5;
+    const int a0 = min(n_u, lane * per), a1 = min(n_u, a0 + per);
+    int sum = 0;
+    for (int i = a0; i < a1; ++i) sum += s_cnt[i];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+    for (int i = a0; i < a1; ++i) {
+      const int n = s_cnt[i];
+      s_start[i] = run;
+      run += n;
+      s_first[i] |= n << 16;
+      s_cnt[i] = 0;
+    }
+    if (lane == 31) s_start[n_u] = incl;
   }
   __syncthreads();
 
-  for (int j = tid; j < win; j += kThreads) {
+  // 4. rank (one warp): the targets of the cells of several targets, 32 at
+  // a time in index order; __match_any_sync gives each its rank among the
+  // equal cells of its 32, a running count per cell the targets before them
+  if (warp == 0) {
+    const unsigned below = (1u << lane) - 1u;
+    for (int base = 0; base < bg; base += 32) {
+      const int b = base + lane;
+      int u = b < bg ? s_key[b] : -1;
+      if (u >= 0 && s_first[u] < (2 << 16)) u = -1;   // one target
+      if (!__any_sync(kFull, u >= 0)) continue;
+      const unsigned peers = __match_any_sync(kFull, u);
+      const int rank = __popc(peers & below);
+      if (u >= 0) s_list[s_start[u] + s_cnt[u] + rank] = b;
+      __syncwarp();
+      if (u >= 0 && rank == 0) s_cnt[u] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 5. gather and store, 4 cells a thread: bit t of `bits` is the occupancy
+  // of cell lo + t, so cell j0 + d, tap k is bit d + K - 1 - k; where lo >= 0
+  // the occupied index of the cell at bit t is that of cell lo plus the set
+  // bits below t
+  const unsigned tap_mask = (1u << k_taps) - 1u;
+  const unsigned long long live_mask = (1ull << (k_taps + 3)) - 1ull;
+  const bool vec = (win & 3) == 0;
+  for (int j0 = 4 * tid; j0 < win; j0 += 4 * kThreads) {
+    const int lo = j0 - k_taps + 1, w0 = max(lo, 0) >> 5;
+    // s_occ holds one zero word after the window's, so w0 + 1 is in range
+    const unsigned long long bits =
+        (lo >= 0 ? (s_occ[w0] | ((unsigned long long)s_occ[w0 + 1] << 32))
+                       >> (lo & 31)
+                 : occupancy_below_0(s_occ, lo, win, !kQr)) & live_mask;
+    if (bits == 0) {
+      for (int s = 0; s < n_sets; ++s) {
+        float* o = o_g + (size_t)(2 * s) * win + j0;
+        if (vec) {
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          __stcs(reinterpret_cast<float4*>(o), zero);
+          __stcs(reinterpret_cast<float4*>(o + win), zero);
+        } else {
+          for (int d = 0; d < 4 && j0 + d < win; ++d) o[d] = o[win + d] = 0.f;
+        }
+      }
+      continue;
+    }
+    const int u_lo =
+        lo >= 0 ? s_wpre[w0] + __popc(s_occ[w0] & ((1u << (lo & 31)) - 1u))
+                : 0;
     for (int s = 0; s < n_sets; ++s) {
       const float* vr = s_val + (size_t)s * 2 * k_taps * bg;
       const float* vi = vr + (size_t)k_taps * bg;
-      float acc_r = 0.f, acc_i = 0.f;
-      for (int k = 0; k < k_taps; ++k) {
-        int i = j - k;
-        if (i < 0) {
-          if (kQr) break;        // cells below 0 hold no target
-          i += win;              // the roll wraps around the window
+      float re[4], im[4];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int j = j0 + d;
+        unsigned m = (unsigned)(bits >> d) & tap_mask;
+        float acc_r = 0.f, acc_i = 0.f;
+        while (m) {
+          const int t = 31 - __clz(m);          // the highest bit: least k
+          m &= ~(1u << t);
+          const int k = k_taps - 1 - t;
+          const int u =
+              lo >= 0 ? u_lo + __popcll(bits & ((1ull << (d + t)) - 1ull))
+                      : occupied_index(s_occ, s_wpre, wrap_cell(j - k, win));
+          const int info = s_first[u];
+          const float* wr = vr + k * bg;
+          const float* wi = vi + k * bg;
+          if (info < (2 << 16)) {
+            // one target: 0 + v is v for the sum (no such sum is -0.0)
+            acc_r += wr[info & 0xffff];
+            acc_i += wi[info & 0xffff];
+          } else {
+            const int e0 = s_start[u], e1 = e0 + (info >> 16);
+            float pr = 0.f, pi = 0.f;
+            for (int e = e0; e < e1; ++e) {
+              const int b = s_list[e];
+              if (kQr) {
+                acc_r += wr[b];
+                acc_i += wi[b];
+              } else {
+                pr += wr[b];
+                pi += wi[b];
+              }
+            }
+            if (!kQr) {
+              acc_r += pr;
+              acc_i += pi;
+            }
+          }
         }
-        const int lo = s_pos[i], hi = s_pos[i + 1];
-        if (kQr) {
-          for (int e = lo; e < hi; ++e) {
-            const int b = s_list[e];
-            acc_r += vr[k * bg + b];
-            acc_i += vi[k * bg + b];
-          }
-        } else {
-          float pr = 0.f, pi = 0.f;
-          for (int e = lo; e < hi; ++e) {
-            const int b = s_list[e];
-            pr += vr[k * bg + b];
-            pi += vi[k * bg + b];
-          }
-          acc_r += pr;
-          acc_i += pi;
+        re[d] = acc_r;
+        im[d] = acc_i;
+      }
+      float* o = o_g + (size_t)(2 * s) * win + j0;
+      if (vec) {
+        __stcs(reinterpret_cast<float4*>(o),
+               make_float4(re[0], re[1], re[2], re[3]));
+        __stcs(reinterpret_cast<float4*>(o + win),
+               make_float4(im[0], im[1], im[2], im[3]));
+      } else {
+        for (int d = 0; d < 4 && j0 + d < win; ++d) {
+          o[d] = re[d];
+          o[win + d] = im[d];
         }
       }
-      o_g[(size_t)(2 * s) * win + j] = acc_r;
-      o_g[(size_t)(2 * s + 1) * win + j] = acc_i;
     }
   }
+}
+
+// Shared memory of one block: the values (rounded up to 16 bytes), the
+// target keys and list, the occupied cells' counts, least targets and
+// starts, and the occupancy words and their prefix
+// (ops/cuda/spread_kernel.py::smem_bytes says the same).
+int smem_bytes(int bg, int win, int n_sets, int k_taps) {
+  const int nv = n_sets * 2 * k_taps * bg, nw = (win + 31) / 32;
+  return 4 * (((nv + 3) & ~3) + 5 * bg + 2 * nw + 3);
 }
 
 }  // namespace
 
 // items = pc x grp blocks; qr selects the one-accumulator order. Returns the
-// launch's CUDA error.
+// launch's CUDA error; cudaErrorInvalidValue for k_taps outside [1, 30].
 extern "C" int spread_windows_launch(const int* cells, const float* vals,
                                      float* out, int items, int bg, int win,
                                      int n_sets, int k_taps, int qr,
                                      void* stream) {
-  const int smem = 4 * (2 * bg + win + 1 + n_sets * 2 * k_taps * bg);
+  if (k_taps < 1 || k_taps > 30) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(bg, win, n_sets, k_taps);
   void (*kernel)(const int*, const float*, float*, int, int, int, int) =
       qr ? spread_windows_kernel<true> : spread_windows_kernel<false>;
   int err = (int)cudaFuncSetAttribute(

@@ -27,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from nis_sar_amtigmti_video_tpu_torch.ops import bp as bp_ops
 from nis_sar_amtigmti_video_tpu_torch.ops import bp_fast
@@ -328,14 +329,50 @@ def fft_conv_plain(fr: torch.Tensor, fi: torch.Tensor, filt: torch.Tensor,
     return torch.fft.ifft(spec, dim=-1)[:, p0 * _LANE:p1 * _LANE]
 
 
+# filter spectrum -> (its version, the kernel's table), held while the
+# filter lives
+_CONV_FILTERS = WeakIdKeyDictionary()
+
+
+def conv_filter(filt: torch.Tensor) -> torch.Tensor:
+    """The conv kernel's filter table: ``filt`` ((nfft,) complex64, natural
+    order) in the spectra layout (B1, 128), k1 natural, as the kernel's rows
+    leave the spectrum. Built once per filter tensor (and again if it is
+    changed in place), not per call."""
+    hit = _CONV_FILTERS.get(filt)
+    if hit is None or hit[0] != filt._version:
+        hit = (filt._version, _to_layout(filt[None])[0])
+        _CONV_FILTERS[filt] = hit
+    return hit[1]
+
+
+def _check_rows(name: str, tensors, shape, device) -> None:
+    """Each tensor float32, of ``shape`` (P, L), on ``device``, its rows
+    contiguous each at a row stride below 2^31 elements (a view of columns
+    of a wider array will do)."""
+    for i, t in enumerate(tensors):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: argument {i} is {t.dtype}, needs "
+                            "torch.float32")
+        if t.device != device or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: argument {i} is {tuple(t.shape)} on "
+                             f"{t.device}, needs {shape} on {device}")
+        if (shape[1] > 1 and t.stride(1) != 1) \
+                or not 0 <= t.stride(0) < 2 ** 31:
+            raise ValueError(f"{name}: argument {i}'s rows are not "
+                             f"contiguous (strides {t.stride()})")
+
+
 def fft_conv_pallas(fr: torch.Tensor, fi: torch.Tensor, filt, nfft: int,
                     out_rows=None) -> torch.Tensor:
     """Row-wise linear FFT convolution ifft(fft(field, nfft) * filt)[:,
     p0*128 : p1*128] of the field rows fr + j fi ((P, L) float32, L <=
     nfft) with the spectrum ``filt`` ((nfft,) complex, natural order): one
     thread-block cluster per row holds its spectrum, so device memory sees
-    the field rows in and the band rows out. Returns (P, (p1 - p0) * 128)
-    complex64 (the reference returns its real and imaginary planes)."""
+    the field rows in and the band rows out. The rows may be views with any
+    row stride (each row contiguous), as the padded field's columns are.
+    Returns (P, (p1 - p0) * 128) complex64 (the reference returns its real
+    and imaginary planes)."""
     if not supported(nfft):
         raise ValueError(f"fft_conv_pallas: nfft={nfft} unsupported")
     num_p, l_in = fr.shape
@@ -346,15 +383,14 @@ def fft_conv_pallas(fr: torch.Tensor, fi: torch.Tensor, filt, nfft: int,
     if _build.on_cpu(fr):
         return fft_conv_plain(fr, fi, filt, nfft, out_rows)
     dev = fr.device
-    _build.check("fft_conv_pallas", (fr, fi), (num_p, l_in), dev)
+    _check_rows("fft_conv_pallas", (fr, fi), (num_p, l_in), dev)
     _build.check("fft_conv_pallas", (filt,), (nfft,), dev, C64)
-    # the kernel's order: the digit layout, k1 bit-reversed within each row
-    lay = _to_layout(filt[None])[0][:, _BITREV_LANE.to(dev)].contiguous()
     out = torch.empty((num_p, (p1 - p0) * _LANE), dtype=C64, device=dev)
     if num_p == 0:
         return out
-    _build.launch("fft_conv_launch", (fr, fi, lay, *_tables(nfft, dev), out),
-                  (num_p, l_in, nfft, p0, p1))
+    _build.launch("fft_conv_launch",
+                  (fr, fi, conv_filter(filt), *_tables(nfft, dev), out),
+                  (num_p, l_in, fr.stride(0), fi.stride(0), nfft, p0, p1))
     fft_conv_pallas.launches += 1
     return out
 

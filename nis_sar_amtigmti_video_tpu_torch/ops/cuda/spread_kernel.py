@@ -14,8 +14,12 @@ for every value set sharing the one cell list. A target with c outside
 [0, win) drops at every tap. :func:`spread_windows_pallas` runs its plain
 version (one-hot contractions, bounded in memory by pulse blocks) for CPU
 tensors, and launches the hand-written CUDA kernel of
-``csrc/spread_kernel.cu`` or raises for CUDA tensors. The reference's bf16
-hi/lo split (a Mosaic workaround) is not ported: values are float32.
+``csrc/spread_kernel.cu`` or raises for CUDA tensors. The kernel (one block
+a (pulse, group)) lists each occupied cell's targets stably (an occupancy
+bitmask of the window, warp matches), and each window cell visits only its
+occupied predecessors, so it gives the same bits as a walk over every
+window cell and tap. The reference's bf16 hi/lo split (a Mosaic
+workaround) is not ported: values are float32.
 
 Layout: cells (pc, grp, bg) int32; values (pc, grp, S, 2K, bg) float32,
 [re | im] on the tap axis, S value sets; windows (pc, grp, 2S, win) float32,
@@ -31,13 +35,22 @@ import torch
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 
 SMEM_MAX = 232_448             # bytes of shared memory a block may use
+K_MAX = 30           # taps the kernel takes: 4 cells read K + 3 <= 33 bits
 _PLAIN_ELEMENTS = 1 << 26      # one-hot elements per pulse block (plain)
 
 
 def smem_bytes(bg: int, win: int, n_sets: int, k_taps: int) -> int:
-    """The kernel's shared memory: cells and the sorted target list (bg
-    each), cell starts (win + 1) and the group's values."""
-    return 4 * (2 * bg + win + 1 + n_sets * 2 * k_taps * bg)
+    """The kernel's shared memory (``smem_bytes`` in the source): the
+    group's values rounded up to 16 bytes; the target keys and the stable
+    target list (bg each); the counts, the least targets and the
+    starts of the occupied cells (bg, bg, bg + 1); the window's occupancy
+    words (win / 32 rounded up, one zero word after them) and their
+    popcount prefix (as many). Within ``SMEM_MAX``, bg stays below 2^15,
+    as the kernel needs (it packs a target index and a count in one
+    word)."""
+    nv = n_sets * 2 * k_taps * bg
+    nw = -(-win // 32)
+    return 4 * (-(-nv // 4) * 4 + 5 * bg + 2 * nw + 3)
 
 
 def _check_shapes(name, c_ok, vals, win):
@@ -99,6 +112,9 @@ def spread_windows_pallas(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
                                                 c_ok, vals, win)
     if _build.on_cpu(c_ok):
         return spread_windows_plain(c_ok, vals, win, qr)
+    if k_taps > K_MAX:
+        raise ValueError(f"spread_windows_pallas: {k_taps} taps exceed the "
+                         f"kernel's {K_MAX}")
     smem = smem_bytes(bg, win, n_sets, k_taps)
     if smem > SMEM_MAX:
         raise ValueError(

@@ -403,8 +403,9 @@ def _conv(pl: _Plan, fr, fi):
     samples: (pc, Ns) complex64."""
     ns, os_ = pl.opts.num_samples, pl.os
     if pl.conv == "pallas":
-        conv_c = fft_kernel.fft_conv_pallas(fr.contiguous(), fi.contiguous(),
-                                            pl.filt, pl.l_fft,
+        # the field planes are column views of the padded field: the kernel
+        # reads them through their row stride, no copy
+        conv_c = fft_kernel.fft_conv_pallas(fr, fi, pl.filt, pl.l_fft,
                                             out_rows=pl.rows)
         return conv_c[:, pl.off_c:pl.off_c + ns * os_:os_]
     conv_c = fft_kernel.fft_conv_plain(fr, fi, pl.filt, pl.l_fft)
@@ -545,8 +546,10 @@ def kernel_operands(tau_rel, carrier, amp, opts, **synth_kw) -> dict:
     edge"``, a list of the same, one a :func:`_spread_dense` call of the
     exact-edge pass, for ``spread_kernel.spread_windows_pallas``;
     ``"conv"`` (fr, fi, filt, l_fft, rows) for
-    ``fft_kernel.fft_conv_pallas``. The routes must be a dense spreader, the
-    conv kernel and the exact-edge pass (ValueError otherwise)."""
+    ``fft_kernel.fft_conv_pallas``, the field planes as the column views of
+    the padded field that :func:`synthesize` passes. The routes must be a
+    dense spreader, the conv kernel and the exact-edge pass (ValueError
+    otherwise)."""
     pl = _plan(tau_rel, opts, **synth_kw)
     if pl.spreader == "scatter" or pl.conv != "pallas" or not pl.n_edge:
         raise ValueError(
@@ -566,5 +569,4 @@ def kernel_operands(tau_rel, carrier, amp, opts, **synth_kw) -> dict:
 
     return {"spread main": spread_ops(*main),
             "spread edge": [spread_ops(*c) for c in edge],
-            "conv": (fr.contiguous(), fi.contiguous(), pl.filt, pl.l_fft,
-                     pl.rows)}
+            "conv": (fr, fi, pl.filt, pl.l_fft, pl.rows)}

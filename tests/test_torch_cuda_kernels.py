@@ -7,7 +7,9 @@ recentre kernels at nfft 16,384 and at the VideoSAR reference shape
 (2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
 kernels on synthetic operands (also on more tiles than the card holds at
 once, twice for the same bits) and at the VideoSAR full width, and the
-NUFFT echo's spread (both orders) and FFT-conv kernels and the direct-echo
+NUFFT echo's spread (both orders; cells sorted, reversed, nearly sorted,
+on one cell, at the window's ends) and FFT-conv kernels (every nfft, on
+column views of wider planes, bands at both ends) and the direct-echo
 kernel at small shapes and at the full-scale GMTI chain's (512-pulse
 chunks, nfft 65,536), with the freq and pallas echo backends end to end on
 the card. Marked ``cuda``: they skip
@@ -793,6 +795,127 @@ def test_fft_conv_matches_plain(dev, nfft, l_in, rows):
     assert _rel(got, want) <= 3e-5
     with pytest.raises(ValueError, match="unsupported"):
         fft_kernel.fft_conv_pallas(fr, fi, filt, 8192)
+
+
+def _spread_kind(dev, kind, pc, grp, bg, win, n_sets, k, seed=4):
+    """Cells of one kind at (pc, grp, bg): 'sorted' (duplicates, dropped
+    targets), 'reversed', 'one cell' (every group on one cell, one target
+    dropped), 'near sorted' (the sorted cells with adjacent swaps), 'edges'
+    (cells at both ends of the window and beyond it); seeded values."""
+    c, v = _spread_operands(dev, pc, grp, bg, win, n_sets, k, seed=seed)
+    rng = np.random.default_rng(seed)
+    if kind == "reversed":
+        c = c.flip(-1).contiguous()
+    elif kind == "one cell":
+        c[:] = 11
+        c[:, :, 5] = -1
+    elif kind == "near sorted":
+        i = torch.from_numpy(rng.integers(0, bg - 1, 40))
+        c[:, :, i], c[:, :, i + 1] = c[:, :, i + 1].clone(), c[:, :, i].clone()
+    elif kind == "edges":
+        c[:, :, ::3] = torch.from_numpy(
+            rng.integers(0, 3, c[:, :, ::3].shape).astype(np.int32)).to(dev)
+        c[:, :, 1::3] = torch.from_numpy(rng.integers(
+            win - 3, win + 2, c[:, :, 1::3].shape).astype(np.int32)).to(dev)
+    return c, v
+
+
+@pytest.mark.parametrize("qr", [False, True])
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "one cell",
+                                  "near sorted", "edges"])
+@pytest.mark.parametrize("part", ["main", "edge"])
+def test_spread_windows_cell_orders(dev, part, kind, qr):
+    """The kernel at the full-scale chain's main and edge shapes (the edge
+    pass: two value sets sharing one cell list) for cells sorted, reversed,
+    nearly sorted, all on one cell and at the window's ends, with dropped
+    targets: within 1e-5 of the plain version on 16 pulses, two launches
+    bit-identical."""
+    pc, grp, bg, win, n_sets, k = SPREAD_CASES[part]
+    c, v = _spread_kind(dev, kind, 32, grp, bg, win, n_sets, k)
+    got = spread_kernel.spread_windows_pallas(c, v, win, qr=qr)
+    again = spread_kernel.spread_windows_pallas(c, v, win, qr=qr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = spread_kernel.spread_windows_plain(c[:16], v[:16], win, qr=qr)
+    assert _rel(got[:16], want) <= 1e-5
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_qr"])
+def test_spread_dense_two_sets_with_offset_on_card(dev, impl):
+    """_spread_dense through the kernel on the card, two value sets on one
+    cell list with the second 37 cells on (the exact-edge pass's shape of
+    operands), duplicate and out-of-grid cells, against the plain windows
+    on the CPU."""
+    rng = np.random.default_rng(7)
+    i0 = np.sort(rng.integers(-40, 920, (6, 200)), axis=1).astype(np.int32)
+    sets = [(rng.normal(size=(6, 200, 6)).astype(np.float32),
+             rng.normal(size=(6, 200, 6)).astype(np.float32), off)
+            for off in (0, 37)]
+
+    def run(d, route):
+        return echo_freq._spread_dense(
+            torch.from_numpy(i0).to(d),
+            [(torch.from_numpy(a).to(d), torch.from_numpy(b).to(d), o)
+             for a, b, o in sets], 900, 512, 8, lo=64, impl=route)
+
+    got = run(dev, impl)
+    want = run(torch.device("cpu"), "xla")
+    for g, w in zip(got, want):
+        assert _rel(g.cpu(), w) <= 1e-5
+
+
+def test_spread_windows_refuses_too_many_taps(dev):
+    c, v = _spread_operands(dev, 2, 2, 40, 256, 1, 31)
+    before = spread_kernel.spread_windows_pallas.launches
+    with pytest.raises(ValueError, match="taps"):
+        spread_kernel.spread_windows_pallas(c, v, 256)
+    assert spread_kernel.spread_windows_pallas.launches == before
+
+
+def _wide_views(dev, num_p, l_in, gen, pad=(96, 40)):
+    """(fr, fi): column views of wider seeded planes, as the padded field's."""
+    wide = [torch.randn((num_p, pad[0] + l_in + pad[1]), generator=gen,
+                        device=dev) for _ in range(2)]
+    return [w[:, pad[0]:pad[0] + l_in] for w in wide]
+
+
+@pytest.mark.parametrize("case", ["band at 0", "band at B1", "all rows",
+                                  "short field"])
+@pytest.mark.parametrize("nfft", [16384, 32768, 65536])
+def test_fft_conv_on_views_at_every_nfft(dev, nfft, case):
+    """The conv kernel on each plan (clusters of 4 and 8, 256 and 512
+    threads) reading column views of wider planes through their row
+    stride: bands at row 0, at row B1, every row, and a field shorter than
+    nfft / 2; within 3e-5 of the plain version, two launches bit-identical,
+    equal to the launch on contiguous copies."""
+    b1 = nfft // 128
+    l_in, rows = {"band at 0": (nfft - 3000, (0, 9)),
+                  "band at B1": (nfft - 3000, (b1 - 9, b1)),
+                  "all rows": (nfft, (0, b1)),
+                  "short field": (nfft // 2 - 1000, (3, b1 // 2))}[case]
+    gen = torch.Generator(device=dev).manual_seed(nfft + len(case))
+    fr, fi = _wide_views(dev, 40, l_in, gen)
+    filt = torch.complex(torch.randn(nfft, generator=gen, device=dev),
+                         torch.randn(nfft, generator=gen, device=dev))
+    before = fft_kernel.fft_conv_pallas.launches
+    got = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
+    again = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
+    dense = fft_kernel.fft_conv_pallas(fr.contiguous(), fi.contiguous(), filt,
+                                       nfft, out_rows=rows)
+    torch.cuda.synchronize()
+    assert fft_kernel.fft_conv_pallas.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, dense)
+    want = fft_kernel.fft_conv_plain(fr, fi, filt, nfft, out_rows=rows)
+    assert got.shape == want.shape == (40, (rows[1] - rows[0]) * 128)
+    assert _rel(got, want) <= 3e-5
+
+
+def test_fft_conv_refuses_strided_rows(dev):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    fr, fi = _wide_views(dev, 4, 2 * 9000, gen)
+    filt = torch.ones(16384, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="rows are not contiguous"):
+        fft_kernel.fft_conv_pallas(fr[:, ::2], fi[:, ::2], filt, 16384)
 
 
 @pytest.mark.parametrize("waveform", ["slice", "full"])

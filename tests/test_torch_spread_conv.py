@@ -1,0 +1,314 @@
+"""Host-side logic of the NUFFT echo's spread and FFT-conv kernels
+(``ops/cuda/spread_kernel.py``, ``ops/cuda/fft_kernel.py``) on the CPU: the
+conv's filter table and its cache, the conv on strided row views (the padded
+field's columns, as ``ops/echo_freq.py`` passes them, with no copy) against
+the contiguous result and the JAX package's conv kernel in interpret mode,
+the row-stride check, the spread's shared-memory size, and a NumPy model of
+the spread kernel's arithmetic (occupancy bits, occupied-cell index, stable
+target list, 4-cell groups) held bit for bit to the first design's walk over
+every window cell and tap and to the plain version. On the CPU no kernel
+launches."""
+
+import numpy as np
+import pytest
+import torch
+
+from nis_sar_amtigmti_video_tpu_torch.ops import echo, echo_freq
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (_build, fft_kernel,
+                                                       spread_kernel)
+
+# one intra-op thread: the suite runs in several processes at once
+torch.set_num_threads(1)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _filter(nfft, seed=0):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=nfft) + 1j * rng.normal(size=nfft)
+    return torch.from_numpy(z.astype(np.complex64))
+
+
+@pytest.mark.parametrize("nfft", [16384, 32768, 65536])
+def test_conv_filter_is_the_spectra_layout(nfft):
+    """The conv kernel's filter table holds f = k2 + B1 k1 at [k2, k1]: the
+    order its rows leave the spectrum in (k1 natural)."""
+    filt = _filter(nfft)
+    tab = fft_kernel.conv_filter(filt)
+    b1 = nfft // 128
+    assert tab.shape == (b1, 128) and tab.is_contiguous()
+    k2, k1 = np.meshgrid(np.arange(b1), np.arange(128), indexing="ij")
+    assert torch.equal(tab, filt[torch.from_numpy(k2 + b1 * k1)])
+
+
+def test_conv_filter_is_cached_per_tensor():
+    """Built once per filter tensor; rebuilt after an in-place change; a
+    new tensor of the same values gets its own table."""
+    filt = _filter(16384, seed=1)
+    tab = fft_kernel.conv_filter(filt)
+    assert fft_kernel.conv_filter(filt) is tab
+    filt.mul_(2.0)
+    tab2 = fft_kernel.conv_filter(filt)
+    assert tab2 is not tab and torch.equal(tab2, 2.0 * tab)
+    other = filt.clone()
+    assert fft_kernel.conv_filter(other) is not tab2
+    assert torch.equal(fft_kernel.conv_filter(other), tab2)
+
+
+def _field_views(seed, num_p, l_in, pad_lo=96, pad_hi=40):
+    """(fr, fi) as column views [pad_lo, pad_lo + l_in) of wider planes."""
+    rng = np.random.default_rng(seed)
+    wide = [torch.from_numpy(rng.normal(size=(num_p, pad_lo + l_in + pad_hi))
+                             .astype(np.float32)) for _ in range(2)]
+    return [w[:, pad_lo:pad_lo + l_in] for w in wide]
+
+
+@pytest.mark.parametrize("nfft,l_in,rows", [(16384, 15000, (40, 100)),
+                                            (16384, 5000, (0, 128)),
+                                            (32768, 30000, (0, 7)),
+                                            (65536, 50420, (187, 394))])
+def test_fft_conv_on_row_views_equals_contiguous(nfft, l_in, rows):
+    fr, fi = _field_views(3, 2, l_in)
+    assert not fr.is_contiguous() and fr.stride() == (l_in + 136, 1)
+    filt = _filter(nfft, seed=4)
+    got = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
+    want = fft_kernel.fft_conv_pallas(fr.contiguous(), fi.contiguous(), filt,
+                                      nfft, out_rows=rows)
+    assert got.shape == (2, (rows[1] - rows[0]) * 128)
+    assert torch.equal(got, want)
+    assert torch.equal(
+        fft_kernel.fft_conv_plain(fr, fi, filt, nfft, out_rows=rows), want)
+
+
+def test_fft_conv_on_row_views_matches_reference_kernel():
+    """The conv on column views against the JAX package's fused conv
+    kernel in interpret mode on the same (contiguous) field."""
+    jax = pytest.importorskip("jax")
+    from nis_sar_amtigmti_video_tpu.ops.pallas import (
+        fft_kernel as jfft_kernel)
+    nfft, l_in, rows = 16384, 15000, (40, 100)
+    fr, fi = _field_views(13, 3, l_in)
+    filt = _filter(nfft, seed=6) / 8.0
+    cr, ci = jfft_kernel.fft_conv_pallas(
+        jax.numpy.asarray(fr.contiguous().numpy()),
+        jax.numpy.asarray(fi.contiguous().numpy()), filt.numpy(), nfft,
+        out_rows=rows, interpret=True)
+    want = torch.from_numpy(np.asarray(cr) + 1j * np.asarray(ci))
+    got = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
+    assert _rel(got, want) < 3e-5
+
+
+def test_row_check_takes_views_and_refuses_strided_rows():
+    cpu = torch.device("cpu")
+    fr, _ = _field_views(0, 3, 50)
+    fft_kernel._check_rows("t", (fr,), (3, 50), cpu)
+    with pytest.raises(ValueError, match="not contiguous"):
+        _build.check("t", (fr,), (3, 50), cpu)
+    with pytest.raises(ValueError, match="rows are not contiguous"):
+        fft_kernel._check_rows("t", (fr[:, ::2],), (3, 25), cpu)
+    with pytest.raises(ValueError, match=r"needs \(2, 3\)"):
+        fft_kernel._check_rows("t", (torch.zeros(2, 3, 4),), (2, 3), cpu)
+    with pytest.raises(TypeError, match="float32"):
+        fft_kernel._check_rows("t", (fr.double(),), (3, 50), cpu)
+
+
+def _freq_case():
+    opts = echo.EchoOpts(fc_hz=9.65e9, chirp_rate=50e6 / 2e-6,
+                         pulse_width_s=2e-6, fs_hz=60e6, num_samples=4000,
+                         endpoint_grid=False, backend="freq")
+    rng = np.random.default_rng(11)
+    p, b = 3, 48
+    tau = np.sort(rng.uniform(5e-6, 5.5e-5, (p, b)), axis=1)
+    car = rng.uniform(-np.pi, np.pi, (p, b))
+    amp = rng.uniform(0.5, 2.0, (p, b))
+    return opts, [torch.from_numpy(a.astype(np.float32))
+                  for a in (tau, car, amp)]
+
+
+def test_synthesize_hands_the_conv_field_views(monkeypatch):
+    """synthesize and kernel_operands give the conv the padded field's
+    column views (no copy), and the result equals the conv of contiguous
+    planes."""
+    opts, fields = _freq_case()
+    kw = dict(spreader="dense_kernel", conv="pallas")
+    seen = []
+    conv = fft_kernel.fft_conv_pallas
+
+    def conv_rec(fr, fi, filt, nfft, out_rows=None):
+        seen.append((fr, fi))
+        return conv(fr, fi, filt, nfft, out_rows)
+
+    monkeypatch.setattr(fft_kernel, "fft_conv_pallas", conv_rec)
+    got = echo_freq.synthesize(*fields, opts, **kw)
+    monkeypatch.setattr(fft_kernel, "fft_conv_pallas",
+                        lambda fr, fi, *a, **k: conv(fr.contiguous(),
+                                                     fi.contiguous(), *a, **k))
+    want = echo_freq.synthesize(*fields, opts, **kw)
+    assert torch.equal(got, want)
+    ops = echo_freq.kernel_operands(*fields, opts, **kw)
+    for fr, fi in (seen[0], ops["conv"][:2]):
+        assert not fr.is_contiguous() and not fi.is_contiguous()
+        assert fr.stride(1) == 1 and fr.stride(0) > fr.shape[1]
+        assert fr._base is not None and fi._base is not None
+
+
+@pytest.mark.parametrize("bg,win,n_sets,k", [(315, 4096, 1, 8),
+                                             (315, 2048, 2, 6),
+                                             (50, 250, 2, 6)])
+def test_spread_smem_bytes(bg, win, n_sets, k):
+    """The values rounded up to 16 bytes, 5 bg + 1 target ints, the
+    occupancy words with a zero word after them and their prefix; at the
+    full-scale chain's main and edge passes six blocks fit an SM's 228 KB
+    (1 KB of it the runtime's for each block)."""
+    nv = n_sets * 2 * k * bg
+    nw = -(-win // 32)
+    want = 4 * (-(-nv // 4) * 4 + (5 * bg + 1) + 2 * (nw + 1))
+    assert spread_kernel.smem_bytes(bg, win, n_sets, k) == want
+    if bg == 315:       # the full-scale passes: six blocks fit an SM
+        assert 6 * (want + 1024) <= 233_472
+
+
+# --------------------------------------------------------------------------
+# a NumPy model of csrc/spread_kernel.cu's arithmetic
+# --------------------------------------------------------------------------
+
+def _occupancy(words, lo, win, wrap):
+    """The kernel's occupancy bits: bit t is cell lo + t's."""
+    if lo >= 0:
+        w = lo >> 5
+        x = int(words[w]) | (int(words[w + 1]) << 32)
+        return x >> (lo & 31)
+    x = 0
+    for t in range(33):
+        i = lo + t
+        if i < 0:
+            if not wrap:
+                continue
+            i %= win
+        if i < win and (int(words[i >> 5]) >> (i & 31)) & 1:
+            x |= 1 << t
+    return x
+
+
+def _window(cells, vals, win, qr, walk_all):
+    """One (pulse, group)'s (2S, win) float32 window, in the first design's
+    walk over every window cell and tap (``walk_all``) or this design's:
+    each window cell visits its occupied predecessors found through the
+    occupancy bits and the occupied-cell index (where the bits start at a
+    cell >= 0, that cell's index plus the bits below), adding a one-target
+    cell's value,
+    or a cell of several targets as the walk does (its per-tap partial in
+    list order from +0.0, or in the one-accumulator order each term); the
+    sums in float32 in the kernel's order."""
+    n_sets, k_taps = vals.shape[0], vals.shape[1] // 2
+    f32 = np.float32
+    lists = {}
+    for b, c in enumerate(cells):                   # stable: index order
+        if 0 <= c < win:
+            lists.setdefault(int(c), []).append(b)
+    occupied = sorted(lists)
+    nw = -(-win // 32)
+    words = np.zeros(nw + 1, np.int64)
+    for c in occupied:
+        words[c >> 5] |= 1 << (c & 31)
+    pre = np.concatenate([[0], np.cumsum([bin(int(w)).count("1")
+                                          for w in words[:nw]])])
+    out = np.zeros((2 * n_sets, win), np.float32)
+
+    def walk_term(s, k, i, acc_r, acc_i):
+        vr, vi = vals[s, k], vals[s, k_taps + k]
+        if qr:
+            for b in lists.get(i, []):
+                acc_r, acc_i = f32(acc_r + vr[b]), f32(acc_i + vi[b])
+            return acc_r, acc_i
+        pr = pi = f32(0.0)
+        for b in lists.get(i, []):
+            pr, pi = f32(pr + vr[b]), f32(pi + vi[b])
+        return f32(acc_r + pr), f32(acc_i + pi)
+
+    for j in range(win):
+        j0, d = j - j % 4, j % 4
+        lo = j0 - k_taps + 1
+        bits = _occupancy(words, lo, win, not qr) & ((1 << (k_taps + 3)) - 1)
+        for s in range(n_sets):
+            acc_r = acc_i = f32(0.0)
+            if walk_all:
+                for k in range(k_taps):
+                    i = j - k
+                    if i < 0:
+                        if qr:
+                            break
+                        i %= win
+                    acc_r, acc_i = walk_term(s, k, i, acc_r, acc_i)
+                out[2 * s, j], out[2 * s + 1, j] = acc_r, acc_i
+                continue
+            m = (bits >> d) & ((1 << k_taps) - 1)
+            while m:
+                t = m.bit_length() - 1                  # least k first
+                m &= ~(1 << t)
+                k = k_taps - 1 - t
+                i = (j - k) % win
+                if lo >= 0:      # cell lo's index plus the bits below
+                    w = lo >> 5
+                    u = (int(pre[w])
+                         + bin(int(words[w]) & ((1 << (lo & 31)) - 1)).count(
+                             "1")
+                         + bin(bits & ((1 << (d + t)) - 1)).count("1"))
+                else:
+                    u = int(pre[i >> 5]) + bin(
+                        int(words[i >> 5]) & ((1 << (i & 31)) - 1)).count("1")
+                assert occupied[u] == i
+                if len(lists[i]) == 1:           # v where the walk adds 0 + v
+                    b = lists[i][0]
+                    acc_r = f32(acc_r + vals[s, k, b])
+                    acc_i = f32(acc_i + vals[s, k_taps + k, b])
+                else:
+                    acc_r, acc_i = walk_term(s, k, i, acc_r, acc_i)
+            out[2 * s, j], out[2 * s + 1, j] = acc_r, acc_i
+    return out
+
+
+def _spread_case(kind, seed=0, grp=3, bg=40, win=256, n_sets=2, k=6):
+    """Cells of one kind ('sorted' with duplicates and dropped targets,
+    'reversed', 'one cell', 'edges': cells at both ends of the window, some
+    outside it) and seeded values (pc = 2)."""
+    rng = np.random.default_rng(seed)
+    c = np.sort(rng.integers(0, win - k + 1, (2, grp, bg)), axis=-1)
+    c[:, :, 1::5] = c[:, :, 0::5][:, :, :c[:, :, 1::5].shape[-1]]
+    c[:, :, 3::11] = -1
+    if kind == "reversed":
+        c = c[:, :, ::-1].copy()
+    elif kind == "one cell":
+        c[:] = 3
+        c[:, :, 7] = -1
+    elif kind == "edges":
+        c[:, :, ::3] = rng.integers(0, 3, c[:, :, ::3].shape)
+        c[:, :, 1::3] = rng.integers(win - 3, win + 2, c[:, :, 1::3].shape)
+    v = rng.normal(size=(2, grp, n_sets, 2 * k, bg)).astype(np.float32)
+    v[0, 0, :, :, 2] = -0.0
+    return c.astype(np.int32), v
+
+
+@pytest.mark.parametrize("qr", [False, True])
+@pytest.mark.parametrize("kind,win", [("sorted", 256), ("reversed", 256),
+                                      ("one cell", 256), ("edges", 256),
+                                      ("edges", 250), ("sorted", 70)])
+def test_spread_kernel_model_equals_first_design_bit_for_bit(kind, win, qr):
+    """Visiting only the occupied cells (through the occupancy bits, the
+    occupied-cell index and the stable list), a one-target cell adding its
+    value, gives the walk over every cell and tap bit for bit, in both
+    orders (values of -0.0 included), and both agree with the plain
+    version; a window that is no multiple of 4 or 32 takes the kernel's
+    scalar and per-bit paths."""
+    c, v = _spread_case(kind, win=win)
+    plain = spread_kernel.spread_windows_plain(
+        torch.from_numpy(c), torch.from_numpy(v), win, qr=qr).numpy()
+    for p in range(c.shape[0]):
+        for g in range(c.shape[1]):
+            new = _window(c[p, g], v[p, g], win, qr, walk_all=False)
+            old = _window(c[p, g], v[p, g], win, qr, walk_all=True)
+            assert np.array_equal(new.view(np.int32), old.view(np.int32))
+            scale = np.abs(plain[p, g]).max()
+            assert np.abs(new - plain[p, g]).max() <= 1e-5 * scale
