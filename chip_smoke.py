@@ -62,13 +62,15 @@ tile, coarse-tile factorized):
               with the collect's plan, presum and band rows (<= 1e-4 of the
               peak); forward spectra then recentre from spectra vs the fused
               kernel; ring offsets 500 / 1000 / 2000 bit-identical to the
-              chronological order; times (CUDA events, median of 5 after a
-              warm-up) of each kernel, its plain version and cuFFT's
-              transform beside the forward spectra, with its multiple of
-              torch.fft.fft's time and its share of its byte bound; the
-              forward spectra again at the ring path's launch shape (one
-              500-pulse step), bit for bit the first 500 pulses of the
-              2,500-pulse launch, with the same multiple and share
+              chronological order; pulses [1000, 1500) alone give rows
+              [250, 375) of both recentre kernels bit for bit; times
+              (CUDA events, median of 5 after a warm-up) of each kernel,
+              its plain version and cuFFT's transform beside the forward
+              spectra, with its multiple of torch.fft.fft's time and its
+              share of its byte bound; the forward spectra again at the
+              ring path's launch shape (one 500-pulse step), bit for bit
+              the first 500 pulses of the 2,500-pulse launch, with the same
+              multiple and share
   7. acc      the two fast-BP accumulate kernels (pixel tile, coarse-tile
               factorized) vs their plain versions (<= 1e-4 of the peak) on
               operands made as backproject_fast makes them: the fused
@@ -839,6 +841,10 @@ def phase_bp(dev) -> dict:
                           0.0], dtype=torch.float64, device=dev)
     args = (*tr, vf, p, d, plan.t_ref)
     n_out, band = -(-cpi // d), (rows[1] - rows[0]) * 128
+    # the recentre wrappers' trajectory traffic: each pulse's float64
+    # position and time read once, the velocity at each group's centre
+    # pulse, the groups' position, velocity and time written
+    traj_bytes = 32.0 * cpi + 80.0 * n_out
     rec = {}
 
     def record(name, got, want, kernel, plain, n_bytes, n_flops, lib=None):
@@ -893,7 +899,7 @@ def phase_bp(dev) -> dict:
                                                     out_rows=rows),
            lambda: fft_kernel.recentre_from_spectra_plain(spec, *args,
                                                           out_rows=rows),
-           8.0 * (cpi * nfft + n_out * band),
+           8.0 * (cpi * nfft + n_out * band) + traj_bytes,
            cpi * 10.0 * nfft + n_out * fft_flops)
     fused = fft_kernel.recenter_presum(rc, *args, out_rows=rows)
     record("recenter_presum", fused[0],
@@ -901,7 +907,7 @@ def phase_bp(dev) -> dict:
            lambda: fft_kernel.recenter_presum(rc, *args, out_rows=rows),
            lambda: fft_kernel.recenter_presum_plain(rc, *args,
                                                     out_rows=rows),
-           8.0 * (cpi * ns + n_out * band),
+           8.0 * (cpi * ns + n_out * band) + traj_bytes,
            cpi * (fft_flops + 16.0 * nfft) + n_out * fft_flops)
     split_err = rel_err(split, fused[0])
     assert split_err <= 1e-4, split_err
@@ -910,13 +916,27 @@ def phase_bp(dev) -> dict:
         ring = fft_kernel.recentre_from_spectra(
             torch.roll(spec, off, 0), *args, out_rows=rows, ring_offset=off)
         assert torch.equal(ring[0], split), off
+    # a group's rows depend on its own pulses alone: the pulses [a, b) of
+    # whole groups give rows [a/d, b/d) of the whole CPI's launch bit for
+    # bit (t_mean held to the CPI's, which the ramps depend on)
+    a, b = 2 * cpi // 5, 3 * cpi // 5                   # 1000, 1500
+    assert a % d == 0 and b % d == 0
+    sub = (*(t[a:b] for t in tr), vf, p, d, plan.t_ref)
+    t_mean = tr[2].mean()
+    assert torch.equal(fft_kernel.recenter_presum(
+        rc[a:b], *sub, t_mean=t_mean, out_rows=rows)[0],
+        fused[0][a // d:b // d])
+    assert torch.equal(fft_kernel.recentre_from_spectra(
+        spec[a:b], *sub, t_mean=t_mean, out_rows=rows)[0],
+        split[a // d:b // d])
     split_ms = rec["forward_spectra"]["ms"] + rec["recentre_from_spectra"][
         "ms"]
     print(f"[6 bp] P {cpi} x ns {ns}, nfft {nfft}, presum d {d}, band rows "
           f"p0 {rows[0]} p1 {rows[1]} ({band} of {nfft} samples); forward "
           f"spectra then recentre from spectra vs fused: {split_err:.2e}, "
           f"{split_ms:.3f} ms vs {rec['recenter_presum']['ms']:.3f} ms; "
-          f"ring offsets {offsets} bit-identical")
+          f"ring offsets {offsets} bit-identical; pulses [{a}, {b}) alone "
+          f"give rows [{a // d}, {b // d}) of both kernels bit for bit")
     return rec
 
 

@@ -14,73 +14,70 @@
 // imaginary planes through a row stride): ifft(fft(row, nfft) x filter) cut
 // to the band rows [p0, p1); at the NUFFT echo's full-scale chunk (512 rows
 // of 50,420 samples, nfft 65,536, 207 band rows) it moves ~315 MB, 0.094 ms
-// at 3.35 TB/s. It runs forward spectra's plan (below) forward, then the
-// same plan backwards: the rows' filter and inverse in registers, a second
-// cluster exchange back to the column owners, the columns' inverse DFTs,
-// and only the band rows stored (the inverse's last 16-point DFTs run in
-// full: pruning them to the band would save a few per cent of its
-// operations).
+// at 3.35 TB/s.
 //
-// What bounds it on the H100. By bytes it would be the fused kernel's
-// ~0.45 GB (each raw pulse read once, one band row per group written) at
-// the reference shape (P 2,500, ns 22,004, nfft 32,768, d 4): 0.13 ms at
-// 3.35 TB/s; the flops (~2 x 5 N log2 N per pulse) are ~0.03 ms of the f32
-// rate. In practice the shared-memory FFT passes, the block and cluster
-// barriers between them and the per-point index and sincos work take the
-// time (scripts/probe_torch_fft_phases.py times each phase): the kernels
-// are bound by instruction issue and barrier latency on one 512-thread
-// block per SM, not by device memory. Forward spectra and the conv (below)
-// run several smaller blocks an SM, so their memory phases overlap: forward
-// spectra reached ~46 % of its byte bound.
-//
-// Design. One pulse's spectrum (256 KB at nfft 32,768, 512 KB at 65,536)
-// does not fit the 227 KB of shared memory a block may have, so each
-// transform is a four-step split N = 128 x B1 (B1 = nfft / 128):
+// The plan (Fwd<B1, R>, every kernel). Each nfft-point transform is a
+// four-step split N = 128 x B1 (B1 = nfft / 128):
 //   input  n = n1 + 128 n2   (n1 < 128, n2 < B1)
 //   output f = k2 + B1 k1    (k2 < B1,  k1 < 128)
 //   X[f] = sum_n1 W128^(k1 n1) WN^(k2 n1) sum_n2 x[n1 + 128 n2] WB1^(k2 n2)
-// and the spectrum lives in the distributed shared memory of a thread-block
-// cluster of B1 / 64 blocks (2, 4 or 8): block r owns rows k2 in
-// [64 r, 64 r + 64) of the [k2][k1] intermediate, 8,192 points (64 KB).
-// Step 1: each block loads 128 / cs of the strided columns n1 (B1 points
-// each) from device memory, transforms them in its own shared memory,
-// applies WN^(k2 n1), and stores each value into the block that owns its
-// row k2 (a DSMEM store). Step 2: after a cluster barrier each block runs
-// the 128-point transforms of its 64 rows locally. The inverse runs the
-// same two steps backwards: local 128-point row inverses, a cluster
-// barrier, then each block gathers its columns from the owners (DSMEM
-// loads), runs their B1-point inverses and stores only the band rows n2 in
-// [p0, p1) to device memory. So the fused kernel's device traffic is the
-// raw pulses in and the band rows out: a group's spectra and its presum
-// accumulator (64 KB per block) never leave the chip, and no kernel has a
-// scratch buffer in device memory. The spectra are kept in the natural
-// [k2][k1] layout (the TPU kernel's (k, m) digit order). A presum group
-// sums its d pulses in a fixed order in each block's accumulator (no
-// atomics), so a group's result does not depend on which cluster or which
-// ring slot served it.
+// on a thread-block cluster of CS = B1 / R blocks (a pulse, a row or a
+// presum group each): block r owns the k2 rows [r R, r R + R) and the
+// columns n1 in [r C, r C + C), C = 128 / CS, 16 points a thread, T = 8 R
+// threads. Every DFT runs in registers (nis::dft_reg): the B1-point columns
+// split as A x 16 (n2 = a + A b, k2 = kb + 16 ka, A = B1 / 16), the
+// 128-point rows as 8 x 16 (n1 = a' + 8 b', k1 = kb' + 16 ka'), so the rows
+// leave k1 in natural order and a warp's loads and stores of a spectrum are
+// whole 128-byte lines. Shared memory only transposes between the halves of
+// a transform, and one cluster exchange (a DSMEM push to the owner of each
+// row k2) joins the column and row halves. The inverse runs the same plan
+// backwards: the rows' inverse DFTs, a push back to the owner of each column
+// n1, the columns' inverse DFTs, and only the band rows n2 in [p0, p1)
+// stored. No kernel has a scratch buffer in device memory.
 //
-// Forward spectra alone (forward_spectra_kernel) runs the same split on
-// smaller blocks: 32 rows a block at nfft 16,384 and 32,768 (clusters of 4
-// and 8, 256 threads, 34 KB of shared memory, four blocks an SM, so one
-// block's loads and stores overlap the others' transforms), every DFT in
-// registers, the rows' k1 in natural order so the spectra stores coalesce,
-// and the filter read in that order too.
+// Forward spectra (forward_spectra_kernel): 32 rows a block at nfft 16,384
+// and 32,768 (clusters of 4 and 8, 256 threads, 34 KB of shared memory, four
+// blocks an SM, so one block's loads and stores overlap the others'
+// transforms), the filter read in the spectra's order. The conv runs the
+// same forward steps (its own copy of them: sharing forward spectra's text
+// changed forward spectra's SASS) and then the inverse, two blocks of 512
+// threads an SM at nfft 65,536.
 //
-// The other kernels' block FFTs do radix-2 butterflies (fft_smem.cuh's, bit
-// for bit) with few passes: the stages spanning 32 points or more two or
-// three at a time in registers, the last five in one warp pass with
-// shuffles; every warp access is to consecutive points, so no pass has
-// bank conflicts. The nfft-point twiddle WN^m comes from a two-level table
-// (256 + nfft / 256 entries, float64-built) that stays in L1; their filter
-// table is stored in the row FFTs' output order, so its reads are
-// coalesced.
+// The recentre kernels (recenter_presum_kernel, recentre_spectra_kernel)
+// run a presum group on one cluster of the same plan. The fused kernel runs
+// forward spectra's steps for each of the group's d pulses; then, where
+// forward spectra stores, each thread multiplies its 16 points (r, kb', ka')
+// by the pulse's recentre ramp and adds them to its accumulator. Recentre
+// from spectra reads the same 16 points of each stored spectrum (k1 natural,
+// as forward spectra wrote them: whole 128-byte lines a warp). The d pulses
+// go in a fixed order into a zeroed accumulator, with no atomics, so a
+// group's rows do not depend on which cluster served it, nor on the pulses
+// of other groups. After the group: the filter (fused kernel: it is the same
+// for every pulse, so it multiplies the sum once), the conv's inverse, and
+// the band rows stored / nfft. What bounds them on the H100: by bytes, the
+// fused kernel reads the raw pulses and writes the band rows (~0.45 GB, 0.13
+// ms at 3.35 TB/s at the reference shape: P 2,500, ns 22,004, nfft 32,768,
+// d 4, 15 band rows); recentre from spectra reads 655 MB of spectra (0.20
+// ms). The fused kernel does forward spectra's transforms without its 655
+// MB of stores, so its time is that of the transforms and their barriers,
+// at three blocks an SM where forward spectra runs four: the accumulator
+// (32 KB a block) takes the room of the fourth
+// (scripts/probe_torch_fft_phases.py times each phase and the variants).
 //
-// Exact ramp: the host splits each pulse's shift into si = round(shift)
-// mod nfft and sf = shift - round(shift) in float64, and wraps the carrier
-// mod 2 pi; the kernel forms (f si) mod nfft from the low bits of the
-// integer product, so the phase 2 pi / N ((f si mod N) + f_signed sf) + car
-// stays within a few rad and accurate sincosf (no fast math) keeps it to
-// f32 rounding.
+// The ramp, factored. exp(j (2 pi / N ((f si) mod N + f_signed sf) + car))
+// with f = k2 + B1 k1 and f_signed = f - N [k1 >= 64] is E2[k2] E1[k1]:
+//   E2[k2] = exp(j 2 pi / N ((k2 si) mod N + k2 sf))
+//   E1[k1] = exp(j (2 pi / N ((B1 k1 si) mod N + (B1 k1 - N [k1 >= 64]) sf)
+//                   + car))
+// Per pulse a block builds its R values of E2 and the 128 of E1 (with 1 / d
+// folded in) into shared memory, one thread a value: each of those R + 128
+// threads forms the pulse's shift and carrier from the float64 trajectory
+// itself (pulse_scalars), splits the shift into si = round(shift) mod nfft
+// and sf = shift - round(shift) and wraps the carrier mod 2 pi, then makes
+// one accurate sincosf (no fast math): R + 128 calls a block where a
+// per-point ramp would take 16 T, and no launch or barrier of their own.
+// Each phase is formed from the low bits of an integer product, so it stays
+// within a few rad and keeps f32 rounding.
 #include <cooperative_groups.h>
 
 #include "fft_smem.cuh"
@@ -89,27 +86,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kRowsPerBlock = 64;                 // k2 rows a block owns
-constexpr int kPoints = kRowsPerBlock * 128;      // its share of a spectrum
-constexpr int kPerThread = kPoints / kThreads;    // points per thread
-constexpr int kBatch = 4;   // of them whose loads a thread issues together
-// a block's kPoints / B1 columns at a pitch of B1 + 1 points, so a warp
-// that walks across columns hits distinct banks
-constexpr int kColPoints = kPoints + 64;
-constexpr int kSmemOne = (kPoints + kColPoints) * (int)sizeof(float2);
-constexpr int kSmemTwo = (2 * kPoints + kColPoints) * (int)sizeof(float2);
 constexpr float kTwoPi = 6.283185307179586f;
 
 struct Tables {
   const float2* tw_n;     // [WN^b, b < 256 | WN^(256 a), a < nfft / 256]
   const float2* tw_b1;    // exp(-2 pi i k / B1),   k < B1 / 2
   const float2* tw_128;   // exp(-2 pi i k / 128),  k < 64
-};
-
-struct Shape {
-  int nfft, b1, log2b1;
-  int cols, log2cols;     // columns per block: kPoints / B1
 };
 
 // WN^m = exp(-2 pi i m / nfft), 0 <= m < nfft, as WN^(m mod 256) x
@@ -120,333 +102,13 @@ __device__ __forceinline__ float2 tw_full(const float2* __restrict__ tw_n,
   return nis::cmul(__ldg(tw_n + (m & 255)), __ldg(tw_n + 256 + (m >> 8)));
 }
 
-// Recentre ramp exp(j (2 pi / N ((f si) mod N + f_signed sf) + car)).
-__device__ __forceinline__ float2 ramp(int f, int nfft, int si, float sf,
-                                       float car) {
-  // (f si) mod nfft: the low bits of the product, exact mod 2^32
-  const unsigned m = ((unsigned)f * (unsigned)si) & (unsigned)(nfft - 1);
-  const int fs = f >= (nfft >> 1) ? f - nfft : f;
-  const float ph = ((float)m + (float)fs * sf) * (kTwoPi / (float)nfft) + car;
-  float s, c;
-  sincosf(ph, &s, &c);
-  return make_float2(c, s);
-}
-
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
-}
-
-// Rows of 128 points: position l of a row-FFT output (k1 bit-reversed, as
-// the row FFTs, the presum accumulator and the kernels' filter table hold
-// it) is position row_natural(l) in natural k1 order (the spectra).
-__device__ __forceinline__ int row_natural(int l) {
-  return (l & ~127) + nis::bitrev(l & 127, 7);
-}
-
-// The point a thread handles on its q-th step over a block's kPoints.
-__device__ __forceinline__ int point(int q) {
-  return (int)threadIdx.x + q * kThreads;
-}
-
-// Over the thread's points l = point(q), kBatch at a time: v = load(l) for
-// a whole batch (the loads go out together), then store(l, v).
-template <typename Load, typename Store>
-__device__ __forceinline__ void each_point(Load load, Store store) {
-#pragma unroll 1
-  for (int q0 = 0; q0 < kPerThread; q0 += kBatch) {
-    float2 v[kBatch];
-#pragma unroll
-    for (int q = 0; q < kBatch; ++q) v[q] = load(point(q0 + q));
-#pragma unroll
-    for (int q = 0; q < kBatch; ++q) store(point(q0 + q), v[q]);
-  }
-}
-
-// The block FFTs below transform the block's kPoints points, held as
-// kPoints / n sequences of n = 2^log2n points (128 <= n <= 512) `pitch`
-// apart, in place and unnormalised, with the butterflies of fft_smem.cuh's
-// radix-2 fft_dif / fft_dit, so the results are the same bit for bit. They
-// are grouped to cut shared-memory passes and block barriers: the stages
-// whose butterflies span 32 points or more run R at a time in registers
-// (each thread loads 2^R points of a group, runs R stages, stores them),
-// and the five stages within 32 points run in one pass per warp over
-// contiguous 32-point chunks, partners exchanged by shuffles. Every access
-// of a warp is to consecutive points, so no pass has a bank conflict. The
-// caller synchronises before; each call ends with a block barrier.
-
-// Stages s_top .. s_top - R + 1 of a DIF transform (s_top - R >= 5).
-template <int R>
-__device__ void dif_pass(float2* x, int log2n, int pitch, int s_top,
-                         const float2* __restrict__ tw, bool inverse) {
-  constexpr int kG = 1 << R, kPer = kPerThread / kG;
-  const int lowb = s_top - R;
-  int base[kPer], low[kPer];
-  float2 a[kPer][kG];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int g = point(q), gi = g & ((1 << (log2n - R)) - 1);
-    low[q] = gi & ((1 << lowb) - 1);
-    base[q] = (g >> (log2n - R)) * pitch + ((gi >> lowb) << s_top) + low[q];
-#pragma unroll
-    for (int m = 0; m < kG; ++m) a[q][m] = x[base[q] + (m << lowb)];
-  }
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-#pragma unroll
-    for (int t = R - 1; t >= 0; --t) {
-      const int st = lowb + t + 1;                // the stage; half 2^(st-1)
-#pragma unroll
-      for (int m = 0; m < kG; ++m) {
-        if (m & (1 << t)) continue;
-        const int pos = low[q] + ((m & ((1 << t) - 1)) << lowb);
-        const float2 u = a[q][m], v = a[q][m + (1 << t)];
-        a[q][m] = cadd(u, v);
-        a[q][m + (1 << t)] =
-            nis::cmul(make_float2(u.x - v.x, u.y - v.y),
-                      nis::twiddle(tw, pos << (log2n - st), inverse));
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kG; ++m) x[base[q] + (m << lowb)] = a[q][m];
-  }
-}
-
-// Stages s_bot .. s_bot + R - 1 of a DIT transform (s_bot >= 6).
-template <int R>
-__device__ void dit_pass(float2* x, int log2n, int pitch, int s_bot,
-                         const float2* __restrict__ tw, bool inverse) {
-  constexpr int kG = 1 << R, kPer = kPerThread / kG;
-  const int lowb = s_bot - 1;
-  int base[kPer], low[kPer];
-  float2 a[kPer][kG];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int g = point(q), gi = g & ((1 << (log2n - R)) - 1);
-    low[q] = gi & ((1 << lowb) - 1);
-    base[q] = (g >> (log2n - R)) * pitch + ((gi >> lowb) << (lowb + R))
-              + low[q];
-#pragma unroll
-    for (int m = 0; m < kG; ++m) a[q][m] = x[base[q] + (m << lowb)];
-  }
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-#pragma unroll
-    for (int t = 0; t < R; ++t) {
-      const int st = s_bot + t;
-#pragma unroll
-      for (int m = 0; m < kG; ++m) {
-        if (m & (1 << t)) continue;
-        const int pos = low[q] + ((m & ((1 << t) - 1)) << lowb);
-        const float2 u = a[q][m];
-        const float2 w = nis::cmul(
-            nis::twiddle(tw, pos << (log2n - st), inverse),
-            a[q][m + (1 << t)]);
-        a[q][m] = cadd(u, w);
-        a[q][m + (1 << t)] = make_float2(u.x - w.x, u.y - w.y);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kG; ++m) x[base[q] + (m << lowb)] = a[q][m];
-  }
 }
 
 __device__ __forceinline__ float2 shfl_xor(float2 v, int mask) {
   return make_float2(__shfl_xor_sync(0xffffffffu, v.x, mask),
                      __shfl_xor_sync(0xffffffffu, v.y, mask));
-}
-
-// Stages 5 .. 1 (dit: 1 .. 5) on every 32-point chunk, one lane a point.
-template <bool kDit>
-__device__ void warp_stages(float2* x, int log2n, int pitch,
-                            const float2* __restrict__ tw, bool inverse) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
-  int at[kPerThread];
-  float2 v[kPerThread];
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    const int c = warp + q * kWarps;
-    at[q] = (c >> (log2n - 5)) * pitch
-            + ((c & ((1 << (log2n - 5)) - 1)) << 5) + lane;
-    v[q] = x[at[q]];
-  }
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const int st = kDit ? i + 1 : 5 - i, h = 1 << (st - 1);
-    const float2 w = nis::twiddle(tw, (lane & (h - 1)) << (log2n - st),
-                                  inverse);
-    const bool upper = lane & h;
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const float2 o = shfl_xor(v[q], h);
-      if (kDit) {
-        // lower: u = mine, t = w * theirs; upper: u = theirs, t = w * mine
-        const float2 t = nis::cmul(w, upper ? v[q] : o);
-        const float2 u = upper ? o : v[q];
-        v[q] = upper ? make_float2(u.x - t.x, u.y - t.y) : cadd(u, t);
-      } else {
-        // lower: u = mine, v = theirs; upper: u = theirs, v = mine
-        v[q] = upper ? nis::cmul(make_float2(o.x - v[q].x, o.y - v[q].y), w)
-                     : cadd(v[q], o);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) x[at[q]] = v[q];
-}
-
-// Decimation in frequency: natural order in, bit-reversed order out.
-__device__ void block_fft_dif(float2* x, int log2n, int pitch,
-                              const float2* __restrict__ tw, bool inverse) {
-  if (log2n == 9) {
-    dif_pass<2>(x, log2n, pitch, 9, tw, inverse);
-    __syncthreads();
-  }
-  if (log2n == 8)
-    dif_pass<3>(x, log2n, pitch, 8, tw, inverse);
-  else
-    dif_pass<2>(x, log2n, pitch, 7, tw, inverse);
-  __syncthreads();
-  warp_stages<false>(x, log2n, pitch, tw, inverse);
-  __syncthreads();
-}
-
-// Decimation in time: bit-reversed order in, natural order out.
-__device__ void block_fft_dit(float2* x, int log2n, int pitch,
-                              const float2* __restrict__ tw, bool inverse) {
-  warp_stages<true>(x, log2n, pitch, tw, inverse);
-  __syncthreads();
-  if (log2n == 8) {
-    dit_pass<3>(x, log2n, pitch, 6, tw, inverse);
-  } else {
-    dit_pass<2>(x, log2n, pitch, 6, tw, inverse);
-    if (log2n == 9) {
-      __syncthreads();
-      dit_pass<2>(x, log2n, pitch, 8, tw, inverse);
-    }
-  }
-  __syncthreads();
-}
-
-// Sample n of a zero-padded complex64 pulse of ns samples.
-struct PulseLoad {
-  const float2* __restrict__ x;
-  int ns;
-  __device__ __forceinline__ float2 operator()(int n) const {
-    return n < ns ? __ldg(x + n) : make_float2(0.f, 0.f);
-  }
-};
-
-// Step 1, local half: this block's columns n1 in [c0, c0 + cols) of one
-// zero-padded pulse (`load(n)` its sample n), B1-point forward DFT in `col`
-// (column c at c * (B1 + 1), bit-reversed k2 order).
-template <typename Load>
-__device__ void columns_forward(Load load, int c0, float2* col,
-                                const Tables& t, const Shape& s) {
-  each_point(
-      [&](int l) {
-        return load(c0 + (l & (s.cols - 1)) + 128 * (l >> s.log2cols));
-      },
-      [&](int l, float2 v) {
-        col[(l & (s.cols - 1)) * (s.b1 + 1) + (l >> s.log2cols)] = v;
-      });
-  __syncthreads();
-  block_fft_dif(col, s.log2b1, s.b1 + 1, t.tw_b1, false);
-}
-
-// Step 1, cluster half: Y[k2][n1] = col x WN^(k2 n1) into row k2 % 64 of
-// the block that owns k2. Every block of the cluster must be past its last
-// read of `y` (a cluster barrier) before this runs.
-__device__ void scatter_columns(cg::cluster_group& cluster, const float2* col,
-                                float2* y, int c0, const Tables& t,
-                                const Shape& s) {
-  each_point(
-      [&](int l) {
-        const int c = l & (s.cols - 1), p = l >> s.log2cols;
-        return nis::cmul(col[c * (s.b1 + 1) + p],
-                         tw_full(t.tw_n, nis::bitrev(p, s.log2b1) * (c0 + c)));
-      },
-      [&](int l, float2 v) {
-        const int k2 = nis::bitrev(l >> s.log2cols, s.log2b1);
-        float2* dst = cluster.map_shared_rank(y, k2 / kRowsPerBlock);
-        dst[(k2 % kRowsPerBlock) * 128 + c0 + (l & (s.cols - 1))] = v;
-      });
-}
-
-// The forward transform of one pulse (`load(n)` its sample n) into this
-// block's rows of `y`: after it, y[r * 128 + q] = X[k2 + B1 bitrev(q)],
-// k2 = 64 rank + r.
-template <typename Load>
-__device__ void pulse_forward(cg::cluster_group& cluster, Load load,
-                              float2* y, float2* col, const Tables& t,
-                              const Shape& s) {
-  const int c0 = (int)cluster.block_rank() * s.cols;
-  columns_forward(load, c0, col, t, s);
-  cluster.sync();
-  scatter_columns(cluster, col, y, c0, t, s);
-  cluster.sync();
-  block_fft_dif(y, 7, 128, t.tw_128, false);
-}
-
-// acc[l] (+)= spec x ramp / d for this block's rows; `spec(l)` is the
-// filtered spectrum at acc's position l (k1 bit-reversed in its row).
-template <typename Spectrum>
-__device__ void accumulate_pulse(Spectrum spec, float2* acc, bool first,
-                                 int k2_0, int si, float sf, float car,
-                                 float inv_d, const Shape& s) {
-  each_point(
-      spec,
-      [&](int l, float2 v) {
-        const int f = k2_0 + (l >> 7) + s.b1 * nis::bitrev(l & 127, 7);
-        const float2 r = nis::cscale(
-            nis::cmul(v, ramp(f, s.nfft, si, sf, car)), inv_d);
-        acc[l] = first ? r : cadd(acc[l], r);
-      });
-}
-
-// The inverse of a group's accumulated spectrum (this block's rows in
-// `acc`, k1 bit-reversed) -> band rows n2 in [p0, p1) of x / N at
-// out[(n2 - p0) * 128 + n1]. `col` is this block's column work area.
-// Ends with a cluster barrier: no block leaves while another still reads
-// its rows.
-__device__ void group_inverse(cg::cluster_group& cluster, float2* acc,
-                              float2* col, float2* __restrict__ out, int p0,
-                              int p1, const Tables& t, const Shape& s) {
-  const int rank = (int)cluster.block_rank();
-  const int k2_0 = rank * kRowsPerBlock, c0 = rank * s.cols;
-  __syncthreads();
-  block_fft_dit(acc, 7, 128, t.tw_128, true);
-  each_point(
-      [&](int l) {
-        float2 w = tw_full(t.tw_n, (k2_0 + (l >> 7)) * (l & 127));
-        w.y = -w.y;
-        return nis::cmul(acc[l], w);
-      },
-      [&](int l, float2 v) { acc[l] = v; });
-  cluster.sync();
-  each_point(
-      [&](int l) {
-        const int k2 = l >> s.log2cols;
-        const float2* src = cluster.map_shared_rank(acc, k2 / kRowsPerBlock);
-        return src[(k2 % kRowsPerBlock) * 128 + c0 + (l & (s.cols - 1))];
-      },
-      [&](int l, float2 v) {
-        col[(l & (s.cols - 1)) * (s.b1 + 1) + (l >> s.log2cols)] = v;
-      });
-  __syncthreads();
-  block_fft_dif(col, s.log2b1, s.b1 + 1, t.tw_b1, true);
-  const float inv_n = 1.0f / (float)s.nfft;
-  each_point(
-      [&](int l) {
-        return nis::cscale(
-            col[(l & (s.cols - 1)) * (s.b1 + 1) + (l >> s.log2cols)], inv_n);
-      },
-      [&](int l, float2 v) {
-        const int n2 = nis::bitrev(l >> s.log2cols, s.log2b1);
-        if (n2 >= p0 && n2 < p1)
-          out[(size_t)(n2 - p0) * 128 + c0 + (l & (s.cols - 1))] = v;
-      });
-  cluster.sync();
 }
 
 // Forward spectra. A cluster of CS = B1 / R blocks per pulse; block r owns
@@ -893,66 +555,393 @@ __global__ void __launch_bounds__(Fwd<B1, R>::T, Conv<B1, R>::kBlocksPerSm)
   }
 }
 
-// One cluster per presum group.
-__global__ void __launch_bounds__(kThreads, 1) recentre_spectra_kernel(
-    const float2* __restrict__ spec, const int* __restrict__ si,
-    const float* __restrict__ sf, const float* __restrict__ car, Tables t,
-    float2* __restrict__ out, int num_p, int d, int p0, int p1, Shape s) {
-  cg::cluster_group cluster = cg::this_cluster();
-  float2* acc = reinterpret_cast<float2*>(nis_smem);
-  float2* col = acc + kPoints;
-  const int g = blockIdx.x / (int)cluster.num_blocks();
-  const int k2_0 = (int)cluster.block_rank() * kRowsPerBlock;
-  const int first = g * d, nj = min(d, num_p - first);
-  const float inv_d = 1.0f / (float)d;
-  for (int j = 0; j < nj; ++j) {
-    const float2* sp = spec + (size_t)(first + j) * s.nfft
-                       + (size_t)k2_0 * 128;
-    accumulate_pulse(
-        [&](int l) { return sp[row_natural(l)]; }, acc, j == 0,
-        k2_0, si[first + j], sf[first + j], car[first + j], inv_d, s);
-  }
-  group_inverse(cluster, acc, col, out + (size_t)g * (p1 - p0) * 128, p0, p1,
-                t, s);
+// The recentre kernels' plan: Fwd<B1, R>'s clusters and blocks, a presum
+// group a cluster. Shared memory: Fwd's buffer, the ramp factors (E2, E1) of
+// a pulse (recentre from spectra: of two pulses, so it builds the next
+// pulse's before a barrier that follows the last pulse's reads), and the
+// accumulator, acc[q * T + tid] for the thread's points q = 8 i + ka' (a
+// warp's accesses consecutive): recentre from spectra keeps it in the
+// buffer, which it does not use before its inverse; the fused kernel beside
+// it, 32 KB more, which leaves three blocks an SM at 256 threads (in
+// registers, 32 more a thread, the kernel ran at two and took longer:
+// scripts/probe_torch_fft_phases.py).
+template <int B1, int R, bool FUSED>
+struct Rec {
+  using F = Fwd<B1, R>;
+  static constexpr int kBlocksPerSm = F::T == 256 ? (FUSED ? 3 : 4) : 1;
+  static constexpr int kRamp = R + 128;
+  static constexpr int kAcc = 16 * F::T;
+  static constexpr int kSmem =
+      (R * kFwdPitch + (FUSED ? kRamp + kAcc : 2 * kRamp)) *
+      (int)sizeof(float2);
+  // one thread a ramp factor; recentre from spectra's accumulator fits the
+  // buffer
+  static_assert(F::T >= kRamp && kAcc <= R * kFwdPitch, "");
+  // kBlocksPerSm blocks fit an H100 SM: 228 KB of shared memory (1 KB of it
+  // the runtime's for each block) and 2,048 threads
+  static_assert(kBlocksPerSm * (kSmem + 1024) <= 233472 &&
+                kBlocksPerSm * F::T <= 2048, "");
+};
+
+// The float64 trajectory from which the recentre kernels form each pulse's
+// ramp: pos (P, 3) and ts (P) chronological, vf (3) the focus velocity,
+// t_mean (1) the time it is referred to; c_light, t_ref, fs and car_scale =
+// 2 pi 2 fc / c as the plain version has them. Slot j of a ring of pulses
+// holds pulse (j - ring_offset) mod P (0 for a chronological call).
+struct Traj {
+  const double* pos;
+  const double* ts;
+  const double* vf;
+  const double* t_mean;
+  double c_light, t_ref, fs, car_scale;
+  int ring_offset;
+};
+
+// Slot j's scalars in float64, as the plain version forms them
+// (ops/bp_fast.py::recentre_scalars): d0 = |pos - vf (t - t_mean)|, shift =
+// (2 d0 / c - t_ref) fs, car = car_scale d0; then the exact split of the
+// ramp (the head of the file): si = round(shift) mod N, sf = shift -
+// round(shift), car wrapped mod 2 pi. A ring's scalars are the
+// chronological ones rolled, bit for bit.
+template <int N>
+__device__ __forceinline__ void pulse_scalars(const Traj& tr, int j,
+                                              int num_p, int& si, float& sf,
+                                              float& car) {
+  constexpr double kTwoPiD = 6.283185307179586;
+  int i = (j - tr.ring_offset) % num_p;
+  if (i < 0) i += num_p;
+  const double dt = tr.ts[i] - tr.t_mean[0];
+  const double x = tr.pos[3 * i] - tr.vf[0] * dt;
+  const double y = tr.pos[3 * i + 1] - tr.vf[1] * dt;
+  const double z = tr.pos[3 * i + 2] - tr.vf[2] * dt;
+  const double d0 = sqrt(x * x + y * y + z * z);
+  const double shift = (2.0 * d0 / tr.c_light - tr.t_ref) * tr.fs;
+  const double r = rint(shift);                   // half to even, as torch
+  sf = (float)(shift - r);
+  const long long k = (long long)r % N;
+  si = (int)(k < 0 ? k + N : k);
+  const double cw = tr.car_scale * d0;
+  car = (float)(cw - kTwoPiD * rint(cw / kTwoPiD));
 }
 
-// One cluster per presum group; the group's spectra and its presum
-// accumulator stay in the cluster's shared memory.
-__global__ void __launch_bounds__(kThreads, 1) recenter_presum_kernel(
-    const float2* __restrict__ x, const float2* __restrict__ filt,
-    const int* __restrict__ si, const float* __restrict__ sf,
-    const float* __restrict__ car, Tables t, float2* __restrict__ out,
-    int num_p, int ns, int d, int p0, int p1, Shape s) {
-  cg::cluster_group cluster = cg::this_cluster();
-  float2* y = reinterpret_cast<float2*>(nis_smem);
-  float2* acc = y + kPoints;
-  float2* col = acc + kPoints;
-  const int g = blockIdx.x / (int)cluster.num_blocks();
-  const int k2_0 = (int)cluster.block_rank() * kRowsPerBlock;
-  const int first = g * d, nj = min(d, num_p - first);
-  const float inv_d = 1.0f / (float)d;
-  const float2* f = filt + (size_t)k2_0 * 128;
-  for (int j = 0; j < nj; ++j) {
-    // the barrier inside pulse_forward orders this pulse's DSMEM stores
-    // after every block's reads of `y` for the pulse before
-    pulse_forward(cluster, PulseLoad{x + (size_t)(first + j) * ns, ns}, y,
-                  col, t, s);
-    accumulate_pulse([&](int l) { return nis::cmul(y[l], __ldg(f + l)); },
-                     acc, j == 0, k2_0, si[first + j], sf[first + j],
-                     car[first + j], inv_d, s);
-  }
-  group_inverse(cluster, acc, col, out + (size_t)g * (p1 - p0) * 128, p0, p1,
-                t, s);
+// Ramp factor i < R + 128 of slot j (the head of the file): E2[k2_0 + i]
+// for i < R, else E1[i - R] / d.
+template <int B1, int R>
+__device__ __forceinline__ float2 ramp_factor(int i, int k2_0, const Traj& tr,
+                                              int j, int num_p, float inv_d) {
+  constexpr int N = 128 * B1;
+  int si;
+  float sf, car;
+  pulse_scalars<N>(tr, j, num_p, si, sf, car);
+  const bool row = i < R;
+  const int k = row ? k2_0 + i : B1 * (i - R);          // k2, or B1 k1
+  // (k si) mod N: the low bits of the product, exact mod 2^32
+  const unsigned m = ((unsigned)k * (unsigned)si) & (unsigned)(N - 1);
+  const int ks = row || i - R < 64 ? k : k - N;
+  const float ph =
+      ((float)m + (float)ks * sf) * (kTwoPi / (float)N) + (row ? 0.f : car);
+  float s, c;
+  sincosf(ph, &s, &c);
+  const float g = row ? 1.f : inv_d;
+  return make_float2(c * g, s * g);
 }
 
-Shape shape_of(int nfft) {
-  Shape s;
-  s.nfft = nfft;
-  s.b1 = nfft / 128;
-  s.log2b1 = nis::log2_of(s.b1);
-  s.cols = kPoints / s.b1;
-  s.log2cols = nis::log2_of(s.cols);
-  return s;
+// The fused kernel's rows, second half, and the presum: per (r, kb') the
+// 8-point DFT over a' (k1 = kb' + 16 ka', natural order), each point x
+// E2[k2] E1[k1] / d added to the accumulator at q = 8 i + ka'.
+template <int B1, int R>
+__device__ __forceinline__ void rows_accumulate(const float2* sm,
+                                                const float2* ramp,
+                                                float2* acc, const Tables& t) {
+  using F = Fwd<B1, R>;
+  const int tid = (int)threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * F::T, kb = j % 16, r = j / 16;
+    float2 w[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) w[a] = sm[kb * F::kRowT + r * 8 + a];
+    nis::dft_reg<false, 8>(w, t.tw_128, 16);
+    const float2 e2 = ramp[r];
+#pragma unroll
+    for (int ka = 0; ka < 8; ++ka) {
+      float2* at = acc + (8 * i + ka) * F::T + tid;
+      *at = cadd(*at, nis::cmul(w[ka], nis::cmul(e2, ramp[R + kb + 16 * ka])));
+    }
+  }
+}
+
+// A presum group's inverse, forward spectra's plan backwards as the FFT
+// conv runs it: the thread's accumulated points -> band rows n2 in [p0, p1)
+// of x / nfft at out[(n2 - p0) * 128 + n1]. `sm` is the block's buffer.
+// Ends after the last cluster exchange.
+template <int B1, int R>
+__device__ __forceinline__ void presum_inverse(
+    cg::cluster_group& cluster, float2* sm, const float2* acc,
+    const Tables& t, float2* __restrict__ out, int p0, int p1) {
+  using F = Fwd<B1, R>;
+  constexpr int C = F::C, A = F::A, T = F::T;
+  const int tid = (int)threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int k2_0 = rank * R;
+
+  // Rows, inverse first half: per (r, kb') the inverse 8-point DFT over ka'
+  // and conj W128^(a' kb'), into the rows' transpose once every thread has
+  // read its accumulator (recentre from spectra keeps it in `sm`).
+  float2 u[2][8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * T, kb = j % 16, r = j / 16;
+#pragma unroll
+    for (int ka = 0; ka < 8; ++ka) u[i][ka] = acc[(8 * i + ka) * T + tid];
+    nis::dft_reg<true, 8>(u[i], t.tw_128, 16);
+#pragma unroll
+    for (int a = 1; a < 8; ++a)
+      u[i][a] = nis::cmul(u[i][a],
+                          nis::twiddle_pow<true>(t.tw_128, a * kb, 128));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * T, kb = j % 16, r = j / 16;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) sm[kb * F::kRowT + r * 8 + a] = u[i][a];
+  }
+  __syncthreads();
+
+  // Rows, inverse second half: thread (r, a') the inverse 16-point DFT over
+  // kb' (n1 = a' + 8 b'), x conj WN^(k2 n1), each value pushed to the block
+  // that owns column n1, at [k2][n1 % C], once every block is past its reads
+  // of `sm`. Odd rows take b' ^ 1 at step b' (the same owner), so a warp's
+  // four rows write both halves of the banks.
+  {
+    const int r = tid / 8, a = tid % 8, k2 = k2_0 + r;
+    const bool odd = r & 1;
+    float2 y[16];
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb) y[kb] = sm[kb * F::kRowT + r * 8 + a];
+    cluster_arrive();
+    nis::dft_reg<true, 16>(y, t.tw_128, 8);
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const float2 w = tw_full(t.tw_n, k2 * (a + 8 * b));
+      y[b] = nis::cmul(y[b], make_float2(w.x, -w.y));
+    }
+    cluster_wait();  // every block is past its reads of the rows
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int n1 = a + 8 * (odd ? b ^ 1 : b);
+      float2* to = cluster.map_shared_rank(sm, n1 / C);
+      to[k2 * C + n1 % C] = odd ? y[b ^ 1] : y[b];
+    }
+    cluster_arrive();
+    cluster_wait();  // this block's columns are in
+  }
+
+  // Columns, inverse first half: per (c, kb) the inverse A-point DFT over
+  // ka (k2 = kb + 16 ka), conj WB1^(kb a), into [a][kb][c].
+  if constexpr (A <= 16) {
+    constexpr int kItems = 16 / A;
+    float2 w[kItems][A];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T, c = j % C, kb = j / C;
+#pragma unroll
+      for (int ka = 0; ka < A; ++ka) w[i][ka] = sm[(kb + 16 * ka) * C + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = tid + i * T, c = j % C, kb = j / C;
+      nis::dft_reg<true, A>(w[i], t.tw_b1, 16);
+#pragma unroll
+      for (int n = 0; n < A; ++n)
+        sm[(n * 16 + kb) * C + c] =
+            n == 0 ? w[i][n]
+                   : nis::cmul(w[i][n],
+                               nis::twiddle_pow<true>(t.tw_b1, kb * n, B1));
+    }
+  } else {
+    // A = 32: a lane pair per (c, kb), lane h holding ka = 16 h + n; one
+    // radix-2 step across the pair leaves lane h the 16-point inverse DFT
+    // of a = 2 m + h
+    static_assert(A == 32, "");
+    const int h = tid & 1, item = tid >> 1, c = item % C, kb = item / C;
+    float2 w[16];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) w[n] = sm[(kb + 16 * (16 * h + n)) * C + c];
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float2 o = shfl_xor(w[n], 1);
+      w[n] = h == 0 ? cadd(w[n], o)
+                    : nis::cmul(make_float2(o.x - w[n].x, o.y - w[n].y),
+                                nis::twiddle_pow<true>(t.tw_b1, 16 * n, B1));
+    }
+    nis::dft_reg<true, 16>(w, t.tw_b1, 32);
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int n = 2 * m + h;
+      sm[(n * 16 + kb) * C + c] =
+          n == 0 ? w[m]
+                 : nis::cmul(w[m],
+                             nis::twiddle_pow<true>(t.tw_b1, kb * n, B1));
+    }
+  }
+  __syncthreads();  // [a][kb][c] is in
+
+  // Columns, inverse second half: thread (c, a) the inverse 16-point DFT
+  // over kb (n2 = a + A b); the band rows stored / nfft, a warp's stores
+  // whole 128-byte lines.
+  {
+    const int c = tid % C, a = tid / C;
+    float2 z[16];
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb) z[kb] = sm[(a * 16 + kb) * C + c];
+    nis::dft_reg<true, 16>(z, t.tw_b1, A);
+    const float scale = 1.0f / (float)(128 * B1);
+    float2* o = out + rank * C + c;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int n2 = a + A * b;
+      if (n2 >= p0 && n2 < p1)
+        __stcs(o + (size_t)(n2 - p0) * 128, nis::cscale(z[b], scale));
+    }
+  }
+}
+
+// Recentre from spectra: one cluster a presum group. Per pulse of the group,
+// in order, each thread reads its 16 points of the stored spectrum (k1
+// natural: a warp reads whole 128-byte lines), x E2 E1 / d, into the
+// accumulator; then the inverse.
+template <int B1, int R>
+__global__ void __launch_bounds__(Fwd<B1, R>::T,
+                                  (Rec<B1, R, false>::kBlocksPerSm))
+    recentre_spectra_kernel(const float2* __restrict__ spec, Traj tr,
+                            Tables t, float2* __restrict__ out, int num_p,
+                            int d, int p0, int p1) {
+  using F = Fwd<B1, R>;
+  using P = Rec<B1, R, false>;
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* sm = reinterpret_cast<float2*>(nis_smem);
+  float2* ramps = sm + R * kFwdPitch;
+  const int tid = (int)threadIdx.x;
+  const int g = blockIdx.x / F::CS;
+  const int k2_0 = (int)cluster.block_rank() * R;
+  const int first = g * d, nj = min(d, num_p - first);
+  const float inv_d = 1.0f / (float)d;
+  float2* acc = sm;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) acc[q * F::T + tid] = make_float2(0.f, 0.f);
+#pragma unroll 1
+  for (int jp = 0; jp < nj; ++jp) {
+    const int pulse = first + jp;
+    const float2* sp =
+        spec + (size_t)pulse * (B1 * 128) + (size_t)k2_0 * 128;
+    float2 v[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = tid + i * F::T, kb = j % 16, r = j / 16;
+#pragma unroll
+      for (int ka = 0; ka < 8; ++ka)
+        v[i][ka] = __ldcs(sp + r * 128 + kb + 16 * ka);
+    }
+    // slot jp & 1 was last read for pulse jp - 2, before the barrier of
+    // pulse jp - 1
+    float2* ramp = ramps + (jp & 1) * P::kRamp;
+    if (tid < P::kRamp)
+      ramp[tid] = ramp_factor<B1, R>(tid, k2_0, tr, pulse, num_p, inv_d);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = tid + i * F::T, kb = j % 16, r = j / 16;
+      const float2 e2 = ramp[r];
+#pragma unroll
+      for (int ka = 0; ka < 8; ++ka) {
+        float2* at = acc + (8 * i + ka) * F::T + tid;
+        *at = cadd(*at, nis::cmul(v[i][ka],
+                                  nis::cmul(e2, ramp[R + kb + 16 * ka])));
+      }
+    }
+  }
+  presum_inverse<B1, R>(cluster, sm, acc, t,
+                        out + (size_t)g * (p1 - p0) * 128, p0, p1);
+}
+
+// Recentre + presum: one cluster a presum group. Per pulse of the group, in
+// order, forward spectra's steps up to its rows' 8-point DFTs, then each
+// point x E2 E1 / d into the accumulator; a group's spectra never leave the
+// chip. Then the filter on the sum and the inverse.
+template <int B1, int R>
+__global__ void __launch_bounds__(Fwd<B1, R>::T,
+                                  (Rec<B1, R, true>::kBlocksPerSm))
+    recenter_presum_kernel(const float2* __restrict__ x,
+                           const float2* __restrict__ filt, Traj tr,
+                           Tables t, float2* __restrict__ out, int num_p,
+                           int ns, int d, int p0, int p1) {
+  using F = Fwd<B1, R>;
+  using P = Rec<B1, R, true>;
+  constexpr int C = F::C, A = F::A;
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* sm = reinterpret_cast<float2*>(nis_smem);
+  float2* ramp = sm + R * kFwdPitch;
+  const int tid = (int)threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.x / F::CS;
+  const int k2_0 = rank * R;
+  const int first = g * d, nj = min(d, num_p - first);
+  const float inv_d = 1.0f / (float)d;
+  float2* acc = ramp + P::kRamp;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) acc[q * F::T + tid] = make_float2(0.f, 0.f);
+  const int c = tid % C, a = tid / C, n0 = rank * C + c + 128 * a;
+#pragma unroll 1
+  for (int jp = 0; jp < nj; ++jp) {
+    const int pulse = first + jp;
+    const float2* raw = x + (size_t)pulse * ns;
+    // Columns, first half, as forward spectra's: thread (c, a) reads n2 = a
+    // + A b, b < 16, the 16-point DFT over b, WB1^(a kb), into [a][kb][c]
+    float2 v[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int n = n0 + 128 * A * b;
+      v[b] = n < ns ? __ldcs(raw + n) : make_float2(0.f, 0.f);
+    }
+    nis::dft_reg<false, 16>(v, t.tw_b1, A);
+    float2 e = make_float2(0.f, 0.f);
+    if (tid < P::kRamp)
+      e = ramp_factor<B1, R>(tid, k2_0, tr, pulse, num_p, inv_d);
+    __syncthreads();  // every thread is past the last pulse's rows and ramp
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb)
+      sm[(a * 16 + kb) * C + c] =
+          kb == 0 ? v[0]
+                  : nis::cmul(v[kb],
+                              nis::twiddle_pow<false>(t.tw_b1, a * kb, B1));
+    if (tid < P::kRamp) ramp[tid] = e;
+    __syncthreads();
+    // The columns' second half pushes into the other blocks' buffers after
+    // a cluster barrier that every thread arrives at after its reads of its
+    // own buffer, the last pulse's rows included: so the pulse loop needs no
+    // cluster barrier of its own.
+    columns_second_half<B1, R>(cluster, sm, t);
+    rows_first_half<B1, R>(sm, t);
+    rows_accumulate<B1, R>(sm, ramp, acc, t);
+  }
+  // the filter on the sum: each thread scales its own accumulator points
+  // (r, kb', ka'), so no barrier precedes the inverse's reads of them
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * F::T, kb = j % 16, r = j / 16;
+    const float2* f = filt + (size_t)(k2_0 + r) * 128 + kb;
+#pragma unroll
+    for (int ka = 0; ka < 8; ++ka) {
+      float2* at = acc + (8 * i + ka) * F::T + tid;
+      *at = nis::cmul(*at, __ldg(f + 16 * ka));
+    }
+  }
+  presum_inverse<B1, R>(cluster, sm, acc, t,
+                        out + (size_t)g * (p1 - p0) * 128, p0, p1);
 }
 
 // `items` clusters of `cs` blocks of `threads` each; returns the launch's
@@ -980,9 +969,6 @@ int launch_clusters(void (*kernel)(KArgs...), int items, int cs, int threads,
   return (int)cudaGetLastError();
 }
 
-// The shared kernels' cluster: B1 / 64 blocks of kThreads.
-int cluster_of(int nfft) { return nfft / 128 / kRowsPerBlock; }
-
 // Forward spectra on Fwd<B1, R>'s plan: a cluster of CS blocks a pulse.
 template <int B1, int R>
 int forward_spectra_on(int num_p, void* stream, const float2* x,
@@ -1001,6 +987,28 @@ int fft_conv_on(int num_p, void* stream, const float* xr, const float* xi,
   return launch_clusters(fft_conv_kernel<B1, R>, num_p, F::CS, F::T,
                          F::kSmem, stream, xr, xi, filt, t, out, ns, ld_r,
                          ld_i, p0, p1);
+}
+
+// The recentre kernels on Rec<B1, R, ...>'s plan: a cluster of CS blocks a
+// presum group.
+template <int B1, int R>
+int recentre_spectra_on(int groups, void* stream, const float2* spec,
+                        Traj tr, Tables t, float2* out, int num_p, int d,
+                        int p0, int p1) {
+  using F = Fwd<B1, R>;
+  return launch_clusters(recentre_spectra_kernel<B1, R>, groups, F::CS, F::T,
+                         Rec<B1, R, false>::kSmem, stream, spec, tr, t, out,
+                         num_p, d, p0, p1);
+}
+
+template <int B1, int R>
+int recenter_presum_on(int groups, void* stream, const float2* x,
+                       const float2* filt, Traj tr, Tables t, float2* out,
+                       int num_p, int ns, int d, int p0, int p1) {
+  using F = Fwd<B1, R>;
+  return launch_clusters(recenter_presum_kernel<B1, R>, groups, F::CS, F::T,
+                         Rec<B1, R, true>::kSmem, stream, x, filt, tr, t, out,
+                         num_p, ns, d, p0, p1);
 }
 
 }  // namespace
@@ -1027,28 +1035,57 @@ extern "C" int forward_spectra_launch(
   }
 }
 
-// The other three: clusters of B1 / 64 blocks (2, 4 or 8).
+// The recentre kernels, one cluster a presum group on forward spectra's
+// clusters (the same switch on nfft). Each pulse's ramp comes from the
+// float64 trajectory (Traj): pos (P, 3), ts (P), vf (3) and t_mean (1) on
+// the card, slot j of `spec` holding pulse (j - ring_offset) mod P.
 extern "C" int recentre_spectra_launch(
-    const float2* spec, const int* si, const float* sf, const float* car,
-    const float2* tw_n, const float2* tw_b1, const float2* tw_128,
-    float2* out, int num_p, int d, int nfft, int p0, int p1, void* stream) {
-  return launch_clusters(recentre_spectra_kernel, (num_p + d - 1) / d,
-                         cluster_of(nfft), kThreads,
-                         kSmemOne, stream, spec, si, sf, car,
-                         Tables{tw_n, tw_b1, tw_128}, out, num_p, d, p0, p1,
-                         shape_of(nfft));
+    const float2* spec, const double* pos, const double* ts, const double* vf,
+    const double* t_mean, const float2* tw_n, const float2* tw_b1,
+    const float2* tw_128, float2* out, int num_p, int d, int nfft, int p0,
+    int p1, int ring_offset, double c_light, double t_ref, double fs,
+    double car_scale, void* stream) {
+  const Tables t{tw_n, tw_b1, tw_128};
+  const Traj tr{pos, ts, vf, t_mean, c_light, t_ref, fs, car_scale,
+                ring_offset};
+  const int groups = (num_p + d - 1) / d;
+  switch (nfft) {
+    case 128 * 128:
+      return recentre_spectra_on<128, 32>(groups, stream, spec, tr, t, out,
+                                          num_p, d, p0, p1);
+    case 128 * 256:
+      return recentre_spectra_on<256, 32>(groups, stream, spec, tr, t, out,
+                                          num_p, d, p0, p1);
+    case 128 * 512:
+      return recentre_spectra_on<512, 64>(groups, stream, spec, tr, t, out,
+                                          num_p, d, p0, p1);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int recenter_presum_launch(
-    const float2* x, const float2* filt, const int* si, const float* sf,
-    const float* car, const float2* tw_n, const float2* tw_b1,
-    const float2* tw_128, float2* out, int num_p, int ns, int d, int nfft,
-    int p0, int p1, void* stream) {
-  return launch_clusters(recenter_presum_kernel, (num_p + d - 1) / d,
-                         cluster_of(nfft), kThreads,
-                         kSmemTwo, stream, x, filt, si, sf, car,
-                         Tables{tw_n, tw_b1, tw_128}, out, num_p, ns, d, p0,
-                         p1, shape_of(nfft));
+    const float2* x, const float2* filt, const double* pos, const double* ts,
+    const double* vf, const double* t_mean, const float2* tw_n,
+    const float2* tw_b1, const float2* tw_128, float2* out, int num_p, int ns,
+    int d, int nfft, int p0, int p1, double c_light, double t_ref, double fs,
+    double car_scale, void* stream) {
+  const Tables t{tw_n, tw_b1, tw_128};
+  const Traj tr{pos, ts, vf, t_mean, c_light, t_ref, fs, car_scale, 0};
+  const int groups = (num_p + d - 1) / d;
+  switch (nfft) {
+    case 128 * 128:
+      return recenter_presum_on<128, 32>(groups, stream, x, filt, tr, t, out,
+                                         num_p, ns, d, p0, p1);
+    case 128 * 256:
+      return recenter_presum_on<256, 32>(groups, stream, x, filt, tr, t, out,
+                                         num_p, ns, d, p0, p1);
+    case 128 * 512:
+      return recenter_presum_on<512, 64>(groups, stream, x, filt, tr, t, out,
+                                         num_p, ns, d, p0, p1);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The FFT conv on Conv<B1, R>'s plan (forward spectra's clusters); the

@@ -125,20 +125,23 @@ def stream_handle(dev: torch.device) -> int:
 
 
 def launch(name: str, tensors: Sequence[torch.Tensor],
-           ints: Sequence[int], floats: Sequence[float] = ()) -> None:
+           ints: Sequence[int], floats: Sequence[float] = (),
+           doubles: Sequence[float] = ()) -> None:
     """Call C launcher ``name`` with the tensors' data pointers, the ints,
-    the floats (C ``float``) and the current stream of the tensors' device;
-    raise on a CUDA error."""
+    the floats (C ``float``), the doubles (C ``double``) and the current
+    stream of the tensors' device; raise on a CUDA error."""
     lib = library()
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
                    + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
+                   + [ctypes.c_float] * len(floats)
+                   + [ctypes.c_double] * len(doubles) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = tensors[0].device
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in tensors), *(int(i) for i in ints),
-                 *(float(f) for f in floats), stream_handle(dev))
+                 *(float(f) for f in floats), *(float(f) for f in doubles),
+                 stream_handle(dev))
     if err != 0:
         msg = lib.nis_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -8,10 +8,14 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/fft_kernel.py``
 reach these hand-written CUDA kernels (``csrc/fft_kernel.cu``). Each
 wrapper runs its plain PyTorch version (``*_plain``: torch.fft, and
 ``bp_fast``'s own ``presum_spectra`` / ``recenter_presum``) for CPU
-tensors, and launches its kernel or raises for CUDA tensors. The kernels run one thread-block cluster per pulse or
-presum group, holding its spectrum in the cluster's shared memory. The
-TPU knobs ``mode``, ``groups``, ``impl``, ``unroll`` and ``interpret``
-are not ported; ``filter_compress`` is.
+tensors, and launches its kernel or raises for CUDA tensors. The kernels
+run one thread-block cluster per pulse, row or presum group, holding its
+spectrum in the cluster's shared memory and registers. On the card the two
+recentre kernels form each pulse's scalars (the ramp's integer and
+fractional shift, the wrapped carrier: :func:`kernel_scalars_plain`) from
+the float64 trajectory themselves, where the reference forms them with jnp
+beside its kernels. The TPU knobs ``mode``, ``groups``, ``impl``,
+``unroll`` and ``interpret`` are not ported; ``filter_compress`` is.
 
 Spectra layout: (P, nfft/128, 128) complex64, frequency f = k2 + B1*k1 at
 [k2, k1] (B1 = nfft/128) — the TPU kernel's (k, [m|m]) digit order with
@@ -35,7 +39,6 @@ from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda.csa_kernel import twiddle_table
 
 _LANE = 128
-_BITREV_LANE = torch.tensor([int(f"{q:07b}"[::-1], 2) for q in range(_LANE)])
 C64 = torch.complex64
 
 
@@ -107,19 +110,11 @@ def matched_filter(p: bp_ops.BpParams, nfft: int,
 def _filter_layout(p: bp_ops.BpParams, nfft: int, compress: bool,
                    device: torch.device) -> torch.Tensor:
     """Matched-filter spectrum (ones without compression) in the spectra
-    layout (B1, 128), k1 in natural order: forward spectra's table."""
+    layout (B1, 128), k1 in natural order: the table forward spectra and
+    the fused recentre kernel read."""
     if not compress:
         return torch.ones((nfft // _LANE, _LANE), dtype=C64, device=device)
     return _to_layout(matched_filter(p, nfft, device)[None, :])[0]
-
-
-@functools.lru_cache(maxsize=None)
-def _filter(p: bp_ops.BpParams, nfft: int, compress: bool,
-            device: torch.device) -> torch.Tensor:
-    """The same in the fused kernel's order: k1 bit-reversed within each
-    row, as its row FFTs leave it."""
-    lay = _filter_layout(p, nfft, compress, device)
-    return lay[:, _BITREV_LANE.to(device)].contiguous()
 
 
 def _traj_at(sat_pos, sat_vel, t_slow, num_p: int, d: int):
@@ -129,33 +124,68 @@ def _traj_at(sat_pos, sat_vel, t_slow, num_p: int, d: int):
     return tuple(bp_ops._f64(a, dev)[ci] for a in (sat_pos, sat_vel, t_slow))
 
 
+def _ring_offset(num_p: int, d: int, ring_offset) -> int:
+    """``ring_offset`` as an int (0 for None), checked."""
+    if ring_offset is None:
+        return 0
+    off = int(ring_offset)
+    if num_p % d or off % d:
+        raise ValueError(
+            "ring_offset needs P % d == 0 and ring_offset % d == 0 (no "
+            f"presum group may straddle the ring seam): P={num_p}, "
+            f"d={d}, ring_offset={off}")
+    return off
+
+
 def _recentre_inputs(sat_pos, t_slow, vel_focus, p, t_ref, t_mean, num_p, d,
                      ring_offset):
     """Chronological float64 (shift, car), checked and rolled into ring
     order (roll(x, off)[j] = x[(j - off) % P]) when ``ring_offset`` is
     given."""
+    off = _ring_offset(num_p, d, ring_offset)
     shift, car = bp_fast.recentre_scalars(sat_pos, t_slow, vel_focus, p,
                                           t_ref, t_mean)
     if ring_offset is not None:
-        off = int(ring_offset)
-        if num_p % d or off % d:
-            raise ValueError(
-                "ring_offset needs P % d == 0 and ring_offset % d == 0 (no "
-                f"presum group may straddle the ring seam): P={num_p}, "
-                f"d={d}, ring_offset={off}")
         shift, car = torch.roll(shift, off), torch.roll(car, off)
     return shift, car
 
 
-def _kernel_scalars(shift, car, nfft, device):
-    """The exact split: si = round(shift) mod nfft (int32), sf = shift -
-    round(shift), car wrapped mod 2 pi (float32), on ``device``."""
+def kernel_scalars_plain(sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
+                         t_ref: float, nfft: int, t_mean=None,
+                         ring_offset=None):
+    """What the recentre kernels form for each pulse from the float64
+    trajectory (``csrc/fft_kernel.cu::pulse_scalars``), in plain PyTorch:
+    si = round(shift) mod nfft (int32), sf = shift - round(shift) and the
+    carrier wrapped mod 2 pi (float32), in ring order (slot j holds pulse
+    (j - ring_offset) mod P) when ``ring_offset`` is given; then the float64
+    trajectory at each presum group's centre pulse (pos2, vel2, t2)."""
+    num_p = len(t_slow)
+    shift, car = _recentre_inputs(sat_pos, t_slow, vel_focus, p, t_ref,
+                                  t_mean, num_p, d, ring_offset)
     si = torch.round(shift)
     sf = (shift - si).to(torch.float32)
     si = torch.remainder(si, nfft).to(torch.int32)
     car = bp_ops._wrap(car).to(torch.float32)
-    return (si.to(device).contiguous(), sf.to(device).contiguous(),
-            car.to(device).contiguous())
+    return (si, sf, car, *_traj_at(sat_pos, sat_vel, t_slow, num_p, d))
+
+
+def _kernel_trajectory(name, sat_pos, t_slow, vel_focus, p, t_ref, t_mean,
+                       device):
+    """The recentre launchers' trajectory operands on ``device``: float64
+    pos (P, 3), ts (P), vf (3) and t_mean (1) (the mean of ts when None),
+    checked; and the doubles (c, t_ref, fs, 2 pi 2 fc / c)."""
+    pos, ts, vf = (bp_ops._f64(a, device).contiguous()
+                   for a in (sat_pos, t_slow, vel_focus))
+    num_p = ts.shape[0]
+    t_m = (ts.mean() if t_mean is None
+           else bp_ops._f64(t_mean, device)).reshape(1)
+    f64 = torch.float64
+    _build.check(name, (pos,), (num_p, 3), device, f64)
+    _build.check(name, (ts,), (num_p,), device, f64)
+    _build.check(name, (vf,), (3,), device, f64)
+    return ((pos, ts, vf, t_m),
+            (bp_fast._C, t_ref, p.fs_hz,
+             bp_fast._TWO_PI * (2.0 * p.fc_hz / bp_fast._C)))
 
 
 # --------------------------------------------------------------------------
@@ -245,17 +275,17 @@ def recentre_from_spectra(spec, sat_pos, sat_vel, t_slow, vel_focus, p,
     _build.check("recentre_from_spectra", (spec,), (num_p, b1, _LANE), dev,
                  C64)
     p0, p1 = _band(out_rows, b1)
-    shift, car = _recentre_inputs(sat_pos, t_slow, vel_focus, p, t_ref,
-                                  t_mean, num_p, d, ring_offset)
-    si, sf, carf = _kernel_scalars(shift, car, nfft, dev)
+    off = _ring_offset(num_p, d, ring_offset)
+    tr, doubles = _kernel_trajectory("recentre_from_spectra", sat_pos, t_slow,
+                                     vel_focus, p, t_ref, t_mean, dev)
     out = torch.empty((-(-num_p // d), (p1 - p0) * _LANE), dtype=C64,
                       device=dev)
     _build.launch("recentre_spectra_launch",
-                  (spec, si, sf, carf, *_tables(nfft, dev), out),
-                  (num_p, d, nfft, p0, p1))
+                  (spec, *tr, *_tables(nfft, dev), out),
+                  (num_p, d, nfft, p0, p1, off % num_p), doubles=doubles)
     recentre_from_spectra.launches += 1
     if ring_offset is not None:
-        out = torch.roll(out, -(int(ring_offset) // d), dims=0)
+        out = torch.roll(out, -(off // d), dims=0)
     return (out, *_traj_at(sat_pos, sat_vel, t_slow, num_p, d))
 
 
@@ -285,10 +315,12 @@ def recenter_presum(rc, sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
                     out_rows=None):
     """Raw pulses (P, ns) complex64 -> forward DFT x matched filter x
     recentre ramp and carrier -> presum by ``d`` in the frequency domain ->
-    band-limited inverse, in one kernel: a group's spectra stay in the
-    shared memory of the thread-block cluster that serves it, so device
-    memory sees only the raw pulses and the band rows. Same return as
-    :func:`recentre_from_spectra`."""
+    band-limited inverse, in one kernel: a group's spectra stay on the
+    thread-block cluster that serves it, so device memory sees only the
+    raw pulses and the band rows. A group's rows depend on its own pulses
+    alone: ``recenter_presum(rc[a:b])`` with a and b multiples of ``d``
+    (and the same ``t_mean``) is rows [a/d, b/d) of ``recenter_presum(rc)``
+    bit for bit. Same return as :func:`recentre_from_spectra`."""
     num_p, ns = rc.shape
     nfft = _nfft_of(ns)
     if not supported(nfft):
@@ -300,15 +332,14 @@ def recenter_presum(rc, sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
     dev = rc.device
     _build.check("recenter_presum", (rc,), (num_p, ns), dev, C64)
     p0, p1 = _band(out_rows, nfft // _LANE)
-    shift, car = _recentre_inputs(sat_pos, t_slow, vel_focus, p, t_ref,
-                                  t_mean, num_p, d, None)
-    si, sf, carf = _kernel_scalars(shift, car, nfft, dev)
+    tr, doubles = _kernel_trajectory("recenter_presum", sat_pos, t_slow,
+                                     vel_focus, p, t_ref, t_mean, dev)
     out = torch.empty((-(-num_p // d), (p1 - p0) * _LANE), dtype=C64,
                       device=dev)
     _build.launch("recenter_presum_launch",
-                  (rc, _filter(p, nfft, filter_compress, dev), si, sf, carf,
+                  (rc, _filter_layout(p, nfft, filter_compress, dev), *tr,
                    *_tables(nfft, dev), out),
-                  (num_p, ns, d, nfft, p0, p1))
+                  (num_p, ns, d, nfft, p0, p1), doubles=doubles)
     recenter_presum.launches += 1
     return (out, *_traj_at(sat_pos, sat_vel, t_slow, num_p, d))
 

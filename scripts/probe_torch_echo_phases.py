@@ -37,13 +37,14 @@ rank / gather and store; the conv's loads / column FFT / scatter / row FFT
 band store), times DIR's launchers on the same operands (its conv on
 contiguous copies of the field, the copies the sim pass made before, timed
 apart) and prints whether this tree's spread windows equal DIR's bit for
-bit (``torch.equal``) in both orders, and compares the SASS of the kernels
-that share ``fft_kernel.cu`` with the conv (forward spectra and the two
-recentre kernels: ``cuobjdump -sass`` of the package's library and of DIR's
-build, each instantiation's instructions with the addresses, encodings and
-label numbers left out): identical, or how many lines differ (the diffs
-under ``build/probe_echo_phases/``). The card's name and power limit head
-the output. Imports neither JAX nor the JAX package.
+bit (``torch.equal``) in both orders, and compares the SASS of forward
+spectra and the conv (``cuobjdump -sass`` of the package's library and of
+DIR's build, each instantiation's instructions with the addresses,
+encodings and label numbers left out): identical, or how many lines differ
+(the diffs under ``build/probe_echo_phases/``). A DIR whose spread or conv
+is already this tree's design is marked with this tree's marks and its
+conv launched through the package's wrapper. The card's name and power
+limit head the output. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (  # noqa: E402
 from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (  # noqa: E402
     median_ms)
 from probe_torch_fft_phases import (  # noqa: E402
-    HEADER, MARK, PHASE_TIMES, SHIM, _replace, phases)
+    BITREV_LANE, HEADER, MARK, PHASE_TIMES, SHIM, _replace, phases, through)
 
 OUT = ROOT / "build" / "probe_echo_phases"
 END = MARK + "  ts_end();\n"          # the last phase's mark, then the end
@@ -232,10 +233,12 @@ def build(parent) -> dict:
         sources.update({
             "parent spread": (there, "spread_kernel.cu", spread),
             "parent conv": (there, "fft_kernel.cu", conv),
-            "parent spread marked": (there, "spread_kernel.cu",
-                                     _mark(spread, PARENT_SPREAD_MARKS)),
-            "parent conv marked": (there, "fft_kernel.cu",
-                                   _mark(conv, PARENT_CONV_MARKS))})
+            "parent spread marked": (there, "spread_kernel.cu", _mark(
+                spread, SPREAD_MARKS if spread_redesigned(spread)
+                else PARENT_SPREAD_MARKS)),
+            "parent conv marked": (there, "fft_kernel.cu", _mark(
+                conv, CONV_MARKS if conv_redesigned(conv)
+                else PARENT_CONV_MARKS))})
     jobs = {}
     for i, (name, (headers, fname, text)) in enumerate(sources.items()):
         where = OUT / f"lib{i}"
@@ -271,18 +274,6 @@ def build(parent) -> dict:
     return libs
 
 
-def through(lib, fn):
-    """``fn`` with the package's wrappers launching ``lib``."""
-    def run(*a, **k):
-        package = _build.library
-        _build.library = lambda: lib
-        try:
-            return fn(*a, **k)
-        finally:
-            _build.library = package
-    return run
-
-
 def _call(lib, name, tensors, ints):
     f = getattr(lib, name)
     f.argtypes = ([ctypes.c_void_p] * len(tensors)
@@ -303,12 +294,23 @@ def parent_spread(lib, c, v, win, qr):
     return out
 
 
+def spread_redesigned(src: str) -> bool:
+    """Whether a spread_kernel.cu is the occupancy-bit design (this tree's
+    marks apply), not the first design."""
+    return "__match_any_sync" in src
+
+
+def conv_redesigned(src: str) -> bool:
+    """Whether a fft_kernel.cu has the conv on forward spectra's plan (its
+    launcher takes the field's row strides), not the first design's."""
+    return "rows_first_half<B1, R>(buf, t);" in src
+
+
 def parent_conv(lib, fr, fi, filt, nfft, rows):
-    """DIR's conv launcher: contiguous planes, the filter with k1
-    bit-reversed in each row."""
+    """DIR's first-design conv launcher: contiguous planes, the filter with
+    k1 bit-reversed in each row."""
     dev = fr.device
-    lay = fft_kernel._to_layout(filt[None])[0][
-        :, fft_kernel._BITREV_LANE.to(dev)].contiguous()
+    lay = fft_kernel._to_layout(filt[None])[0][:, BITREV_LANE].contiguous()
     out = torch.empty((fr.shape[0], (rows[1] - rows[0]) * 128),
                       dtype=torch.complex64, device=dev)
     _call(lib, "fft_conv_launch",
@@ -349,10 +351,9 @@ def sass_functions(so: str, patterns) -> dict:
 
 
 def compare_sass(parent_so: str) -> None:
-    """The SASS of the kernels beside the conv in fft_kernel.cu, the
+    """The SASS of forward spectra and the conv (fft_kernel.cu), the
     package's library against DIR's build."""
-    patterns = ("forward_spectra_kernel", "recentre_spectra_kernel",
-                "recenter_presum_kernel")
+    patterns = ("forward_spectra_kernel", "fft_conv_kernel")
     here = sass_functions(str(_build.library_path()), patterns)
     there = sass_functions(parent_so, patterns)
     for i, fn in enumerate(sorted(set(here) | set(there))):
@@ -419,15 +420,24 @@ def main():
     frc, fic = fr.contiguous(), fi.contiguous()
     if parent is not None:
         print(f"[phases] parent {parent}")
+        there = Path(parent) / _build.SOURCE_DIR.relative_to(ROOT)
         show_phases(libs["parent spread marked"],
                     [(f"spread {p}", lambda c=c, v=v, w=w: parent_spread(
                         libs["parent spread marked"], c, v, w, False))
                      for p, (c, v, w) in spreads.items()],
-                    PARENT_SPREAD_PHASES)
-        show_phases(libs["parent conv marked"],
-                    [("conv", lambda: parent_conv(
-                        libs["parent conv marked"], frc, fic, filt, nfft,
-                        rows))], PARENT_CONV_PHASES)
+                    SPREAD_PHASES if spread_redesigned(
+                        (there / "spread_kernel.cu").read_text())
+                    else PARENT_SPREAD_PHASES)
+        if conv_redesigned((there / "fft_kernel.cu").read_text()):
+            show_phases(libs["parent conv marked"], [("conv", lambda: through(
+                libs["parent conv marked"], conv)(fr, fi, filt, nfft,
+                                                  out_rows=rows))],
+                        CONV_PHASES)
+        else:
+            show_phases(libs["parent conv marked"],
+                        [("conv", lambda: parent_conv(
+                            libs["parent conv marked"], frc, fic, filt, nfft,
+                            rows))], PARENT_CONV_PHASES)
 
     for p, (c, v, w) in spreads.items():
         b, _ = chip_smoke.spread_work(c, v, w)
@@ -476,7 +486,16 @@ def main():
                        reps=20)
         line.append(f"{name} {ms:.4f} ms ({ms / lib_ms:.2f}x the library, "
                     f"{bound / ms:.1%} of the bound, rel err {err:.2e})")
-    if parent is not None:
+    if parent is not None and conv_redesigned(
+            (Path(parent) / _build.SOURCE_DIR.relative_to(ROOT)
+             / "fft_kernel.cu").read_text()):
+        fn = through(libs["parent conv"], conv)
+        got = fn(fr, fi, filt, nfft, out_rows=rows)
+        err = float((got - want).abs().max() / want.abs().max())
+        ms = median_ms(lambda: fn(fr, fi, filt, nfft, out_rows=rows),
+                       reps=20)
+        line.append(f"parent {ms:.4f} ms (rel err {err:.2e})")
+    elif parent is not None:
         lib = libs["parent conv"]
         got = parent_conv(lib, frc, fic, filt, nfft, rows)
         err = float((got - want).abs().max() / want.abs().max())

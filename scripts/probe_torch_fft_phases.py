@@ -15,23 +15,35 @@ mean SM cycles of each phase. The phases follow the kernel source. Forward
 spectra: column loads and 16-point DFTs / column transpose, A-point DFTs
 and the wait for the cluster / DSMEM pushes / cluster barrier / row
 16-point DFTs and transpose / row 8-point DFTs, filter and stores. The
-fused kernel, per pulse: column load and FFT / cluster barrier / DSMEM
-scatter / cluster barrier / row FFT / ramp and accumulate; per group (both
-recentre kernels): the inverse row FFT / twiddle / cluster barrier / DSMEM
-gather and column FFT / band store and final barrier. Each mark costs a few
-cycles.
+recentre kernels, per pulse (the mean over a group's pulses), the fused
+kernel: column loads, 16-point DFTs and the ramp factors / the columns'
+A-point DFTs, the push and the cluster barrier / the rows' 16-point DFTs
+and transpose / the rows' 8-point DFTs and the accumulate; recentre from
+spectra: loads, ramp factors and accumulate; then per group (both): the
+inverse rows' 8-point DFTs (the fused kernel's filter) / their inverse
+16-point DFTs and the wait for the cluster / the exchange to the column
+owners / the columns' inverse DFTs / the band stores. Each mark costs a few
+cycles. ptxas's registers and spills head the output.
 
-Then the wrapper's forward spectra (the unmarked build) at 2,500 and 500
-pulses: error against the plain version, time (CUDA events, median of 20
-after a warm-up) beside ``torch.fft.fft(rc, n=nfft, dim=-1)`` and the byte
-bound; and the cost of the 500-pulse launch's last, partial wave: its time
-against the time at the most pulses that fill whole waves (the clusters
-resident at once, from the marked run, times the whole waves in 500),
-scaled to 500. With ``--parent DIR`` (a checkout of another commit of the
-port), it also builds DIR's sources and times DIR's forward spectra
-launcher on the same inputs, with the filter table in the order that
-launcher reads (k1 natural for a source with the register-DFT kernel, else
-bit-reversed). The card's name and power limit head the output. Imports
+Then the times (CUDA events, median of 20 after a warm-up): the wrapper's
+forward spectra (the unmarked build) at 2,500 and 500 pulses, its error
+against the plain version, beside ``torch.fft.fft(rc, n=nfft, dim=-1)`` and
+the byte bound; the two recentre kernels through their wrappers beside
+their plain versions' errors and their byte bounds; and the cost of the
+500-pulse forward launch's last, partial wave: its time against the time
+at the most pulses that fill whole waves (the clusters resident at once,
+from the marked run, times the whole waves in 500), scaled to 500. Each of
+``VARIANTS`` (text substitutions on copies of the source: forward spectra
+on fewer blocks an SM, with plain loads and stores, on clusters of 4; the
+recentre kernels' accumulators in registers or shared memory at two to four
+blocks an SM, and their ramp per point, the first design's, in place of the
+factored one) is timed beside this tree, and marked too where the marks'
+anchors survive. With ``--parent DIR`` (a checkout of another commit of
+the port, e.g. a ``git archive`` unpacked under ``build/``), it also builds
+DIR's source as it is and marked (the first recentre design's phases, where
+DIR has it) and times DIR's launchers on the same inputs, with the filter
+tables in the order they read (k1 natural, or bit-reversed for the first
+design's kernels). The card's name and power limit head the output. Imports
 neither JAX nor the JAX package.
 """
 
@@ -92,6 +104,11 @@ __device__ __forceinline__ void ts_end() {
 # (anchor in the kernel source, text put after it); each anchor must occur
 # exactly as often as given
 MARK = "  ts_mark();\n"
+END = MARK + "  ts_end();\n"
+# recentre from spectra's accumulate: the indent of its E1 factor's line,
+# and its head comment's first line
+_E1 = " " * 34
+_SPECTRA = "// Recentre from spectra: one cluster a presum group."
 MARKS = [
     ("namespace {\n", HEADER, 1),
     ("  cg::cluster_group cluster = cg::this_cluster();\n",
@@ -104,13 +121,46 @@ MARKS = [
      "t.tw_n);\n    }\n", MARK, 1),
     ("    push_column<B1, R>(cluster, buf, u, c0 + c, kb, h, 2, t.tw_n);\n",
      MARK, 1),
+    ("  cluster.sync();\n", MARK, 1),
     ("    for (int kb = 0; kb < 16; ++kb) buf[kb * F::kRowT + r * 8 + a] = "
      "v[kb];\n  }\n  __syncthreads();\n", MARK, 1),
     ("      __stcs(o + 16 * ka, nis::cmul(w[ka], __ldg(f + 16 * ka)));\n  }\n",
-     MARK + "  ts_end();\n", 1),
-    # every cluster barrier (forward spectra's, and the others' kernels')
+     END, 1),
+    # the fused kernel, per pulse
+    ("    if (tid < P::kRamp) ramp[tid] = e;\n    __syncthreads();\n", MARK,
+     1),
+    ("    columns_second_half<B1, R>(cluster, sm, t);\n", MARK, 1),
+    ("    rows_first_half<B1, R>(sm, t);\n", MARK, 1),
+    ("    rows_accumulate<B1, R>(sm, ramp, acc, t);\n", MARK, 1),
+    # recentre from spectra, per pulse
+    (_E1 + "nis::cmul(e2, ramp[R + kb + 16 * ka])));\n      }\n    }\n",
+     MARK, 1),
+    # both recentre kernels, per group (presum_inverse)
+    ("    for (int a = 0; a < 8; ++a) sm[kb * F::kRowT + r * 8 + a] = u[i][a];"
+     "\n  }\n  __syncthreads();\n", MARK, 1),
+    ("    cluster_wait();  // every block is past its reads of the rows\n",
+     MARK, 1),
+    ("    cluster_wait();  // this block's columns are in\n", MARK, 1),
+    ("    nis::dft_reg<true, 16>(z, t.tw_b1, A);\n", MARK, 1),
+    ("        __stcs(o + (size_t)(n2 - p0) * 128, nis::cscale(z[b], scale));\n"
+     "    }\n", END, 1),
+]
+FUSED_PHASES = ["column loads, DFT16, ramp factors",
+                "column DFT-A, push, cluster barrier", "row DFT16",
+                "row DFT8, accumulate"]
+SPECTRA_PHASES = ["loads, ramp factors, accumulate"]
+INVERSE_PHASES = ["inverse row DFT8", "inverse row DFT16, wait",
+                  "exchange", "inverse column DFTs", "band store"]
+# the first recentre design's phases (a parent that has it): per pulse of
+# the fused kernel, column load and FFT / cluster barrier / DSMEM scatter /
+# cluster barrier / row FFT / ramp and accumulate; per group (both recentre
+# kernels), the inverse row FFT / twiddle / cluster barrier / DSMEM gather
+# and column FFT / band store and final barrier
+PARENT_MARKS = [
+    ("namespace {\n", HEADER, 1),
+    ("  cg::cluster_group cluster = cg::this_cluster();\n",
+     "  ts_reset();\n", 4),
     ("  cluster.sync();\n", MARK, 5),
-    # the fused kernel's per-pulse transform and both recentre kernels
     ("  columns_forward(load, c0, col, t, s);\n", MARK, 1),
     ("  scatter_columns(cluster, col, y, c0, t, s);\n", MARK, 1),
     ("  block_fft_dif(y, 7, 128, t.tw_128, false);\n", MARK, 1),
@@ -123,11 +173,56 @@ MARKS = [
 ]
 # variants of this checkout's fft_kernel.cu, each a copy with the listed
 # text replaced (each text must occur once), timed beside it, and marked
-# too where the marks' anchors survive: forward spectra at nfft 32,768 with
+# too where the marks' anchors survive. Forward spectra at nfft 32,768 with
 # three or two blocks an SM in place of four; with plain loads and stores
 # in place of streaming ones; on clusters of 4 blocks of 64 rows (512
-# threads, two an SM) in place of 8 of 32 (256, four)
+# threads, two an SM) in place of 8 of 32 (256, four). The recentre
+# kernels' plans (Rec): the fused kernel at two blocks an SM in place of
+# three, recentre from spectra at three in place of four; and both with the
+# first design's ramp, one sincosf a point, in place of the factored one
 _BLOCKS_PER_SM = "  static constexpr int kBlocksPerSm = T == 256 ? 4 : 1;"
+_REC_BLOCKS = ("  static constexpr int kBlocksPerSm = F::T == 256 ? "
+               "(FUSED ? 3 : 4) : 1;")
+_POINT_RAMP = r"""// the first design's ramp: one sincosf a point
+template <int B1>
+__device__ __forceinline__ float2 point_ramp(int f, int si, float sf,
+                                             float car, float inv_d) {
+  constexpr int N = 128 * B1;
+  const unsigned m = ((unsigned)f * (unsigned)si) & (unsigned)(N - 1);
+  const int fs = f >= N / 2 ? f - N : f;
+  const float ph = ((float)m + (float)fs * sf) * (kTwoPi / (float)N) + car;
+  float s, c;
+  sincosf(ph, &s, &c);
+  return make_float2(c * inv_d, s * inv_d);
+}
+
+template <int B1, int R>
+__device__ __forceinline__ void rows_accumulate_pp(
+    const float2* sm, float2* acc, const Tables& t, int k2_0, int si,
+    float sf, float car, float inv_d) {
+  using F = Fwd<B1, R>;
+  const int tid = (int)threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = tid + i * F::T, kb = j % 16, r = j / 16;
+    float2 w[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) w[a] = sm[kb * F::kRowT + r * 8 + a];
+    nis::dft_reg<false, 8>(w, t.tw_128, 16);
+#pragma unroll
+    for (int ka = 0; ka < 8; ++ka) {
+      float2* at = acc + (8 * i + ka) * F::T + tid;
+      *at = cadd(*at, nis::cmul(w[ka], point_ramp<B1>(
+          k2_0 + r + B1 * (kb + 16 * ka), si, sf, car, inv_d)));
+    }
+  }
+}
+
+"""
+# the per-point ramp's scalars: each thread forms the pulse's itself
+_RING_SLOT = "    float2* ramp = ramps + (jp & 1) * P::kRamp;\n"
+_SCALARS = ("    int si_;\n    float sf_, car_;\n"
+            "    pulse_scalars<128 * B1>(tr, pulse, num_p, si_, sf_, car_);\n")
 VARIANTS = {
     "three an SM": [(_BLOCKS_PER_SM, _BLOCKS_PER_SM.replace("4", "3"))],
     "two an SM": [(_BLOCKS_PER_SM, _BLOCKS_PER_SM.replace("4", "2"))],
@@ -141,7 +236,27 @@ VARIANTS = {
          "      return forward_spectra_on<256, 64>(num_p"),
         (_BLOCKS_PER_SM, _BLOCKS_PER_SM.replace(": 1", ": B1 == 256 ? 2 : 1")),
     ],
+    "fused, two an SM": [
+        (_REC_BLOCKS, _REC_BLOCKS.replace("FUSED ? 3", "FUSED ? 2"))],
+    "from spectra, three an SM": [
+        (_REC_BLOCKS, _REC_BLOCKS.replace(": 4)", ": 3)"))],
+    "ramp per point": [
+        (_SPECTRA, _POINT_RAMP + _SPECTRA),
+        (_RING_SLOT, _RING_SLOT + _SCALARS),
+        (_E1 + "nis::cmul(e2, ramp[R + kb + 16 * ka])));",
+         _E1 + "point_ramp<B1>(k2_0 + r + B1 * (kb + 16 * ka), si_, sf_, "
+         "car_, inv_d)));"),
+        ("    rows_accumulate<B1, R>(sm, ramp, acc, t);",
+         _SCALARS + "    rows_accumulate_pp<B1, R>(sm, acc, t, k2_0, si_, "
+         "sf_, car_, inv_d);")],
 }
+# the variants that change the recentre kernels (the others change forward
+# spectra)
+RECENTRE_VARIANTS = ["fused, two an SM", "from spectra, three an SM",
+                     "ramp per point"]
+# k1 bit-reversed within a 128-point row: the first recentre design's
+# filter order
+BITREV_LANE = [int(f"{q:07b}"[::-1], 2) for q in range(128)]
 # the error strings of a library built from fft_kernel.cu alone
 SHIM = ('extern "C" const char* nis_error_string(int code) {\n'
         "  return cudaGetErrorString((cudaError_t)code);\n}\n")
@@ -154,6 +269,14 @@ PHASE_TIMES = ('extern "C" int get_phase_times(void* dst) {\n'
                "  return err ? err : (int)cudaMemset(p, 0, sizeof(g_ts));\n"
                "}\n")
 HBM_BYTES_PER_S = 3.35e12
+KERNELS = ("forward_spectra_kernel", "recentre_spectra_kernel",
+           "recenter_presum_kernel")
+
+
+def first_design(src: str) -> bool:
+    """Whether a source's recentre kernels are the first design (radix-2
+    shared-memory helpers, filter with k1 bit-reversed in each row)."""
+    return "group_inverse(" in src
 
 
 def _replace(src: str, pairs, what: str) -> str:
@@ -165,8 +288,8 @@ def _replace(src: str, pairs, what: str) -> str:
     return src
 
 
-def _mark(src: str) -> str:
-    for anchor, text, count in MARKS:
+def _mark(src: str, marks=MARKS) -> str:
+    for anchor, text, count in marks:
         if src.count(anchor) != count:
             raise RuntimeError(f"anchor found {src.count(anchor)} times, "
                                f"expected {count}: {anchor!r}")
@@ -180,8 +303,9 @@ def build(parent) -> dict:
     the phase marks), "<variant>" for each of VARIANTS and "marked
     <variant>" where the marks apply to it, and "parent" (DIR's source as
     it is, with --parent). Prints what ptxas reports for the forward
-    spectra kernels; a variant that does not build is reported and left
-    out."""
+    spectra and recentre kernels; a variant that does not build is
+    reported and left out. With ``parent``, also "parent marked" where DIR
+    has the first recentre design."""
     shutil.rmtree(OUT, ignore_errors=True)
     src = (_build.SOURCE_DIR / "fft_kernel.cu").read_text()
     sources = {"marked": (_build.SOURCE_DIR, _mark(src))}
@@ -194,7 +318,10 @@ def build(parent) -> dict:
             pass                          # timed, not marked
     if parent is not None:
         where = Path(parent) / _build.SOURCE_DIR.relative_to(ROOT)
-        sources["parent"] = (where, (where / "fft_kernel.cu").read_text())
+        text = (where / "fft_kernel.cu").read_text()
+        sources["parent"] = (where, text)
+        if first_design(text):
+            sources["parent marked"] = (where, _mark(text, PARENT_MARKS))
     jobs = {}
     for i, (name, (headers, text)) in enumerate(sources.items()):
         where = OUT / f"lib{i}"
@@ -219,8 +346,8 @@ def build(parent) -> dict:
         entry = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                entry = (line.split("'")[1] if "forward_spectra_kernel"
-                         in line else None)
+                entry = (line.split("'")[1] if any(
+                    k in line for k in KERNELS) else None)
             elif entry and ("registers" in line or "stack frame" in line):
                 info = line.split("info", 1)[-1].lstrip(" :")
                 print(f"[ptxas] {name}: {entry}: {info}")
@@ -239,8 +366,9 @@ def parent_forward(lib, natural: bool, rc, p):
     bit-reversed)."""
     nfft = 1 << (rc.shape[1] - 1).bit_length()
     dev = rc.device
-    filt = (fft_kernel._filter_layout(p, nfft, True, dev) if natural
-            else fft_kernel._filter(p, nfft, True, dev))
+    filt = fft_kernel._filter_layout(p, nfft, True, dev)
+    if not natural:
+        filt = filt[:, BITREV_LANE].contiguous()
     ints = [rc.shape[0], rc.shape[1], nfft]
     fn = lib.forward_spectra_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * len(ints) + [
@@ -258,6 +386,54 @@ def parent_forward(lib, natural: bool, rc, p):
                                f"{lib.nis_error_string(err).decode()}")
         return out
     return run
+
+
+def launchers(lib, src: str, rc, spec, args, rows):
+    """Callables launching ``lib``'s two recentre launchers (built from
+    ``src``; the C signatures its wrappers use) on ``rc`` and its spectra
+    ``spec`` into new outputs: with the float64 trajectory where the kernels
+    form each pulse's scalars themselves, else with the per-pulse scalars
+    (made once by the plain version, not timed); the fused kernel's filter
+    in the order ``lib`` reads (k1 bit-reversed for the first design):
+    (recentre from spectra, recentre + presum)."""
+    p, d, t_ref = args[4], args[5], args[6]
+    num_p, ns = rc.shape
+    nfft = 1 << (ns - 1).bit_length()
+    dev = rc.device
+    filt = fft_kernel._filter_layout(p, nfft, True, dev)
+    if first_design(src):
+        filt = filt[:, BITREV_LANE].contiguous()
+    tabs = fft_kernel._tables(nfft, dev)
+    p0, p1 = rows
+    shape = (-(-num_p // d), (p1 - p0) * 128)
+    if "Traj tr" in src:
+        tr, doubles = fft_kernel._kernel_trajectory(
+            "probe", args[0], args[2], args[3], p, t_ref, None, dev)
+        ring = (0,)
+    else:
+        tr, doubles = fft_kernel.kernel_scalars_plain(*args, nfft)[:3], ()
+        ring = ()
+
+    def call(name, tensors, ints):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        out = torch.empty(shape, dtype=torch.complex64, device=dev)
+        fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1)
+                       + [ctypes.c_int] * len(ints)
+                       + [ctypes.c_double] * len(doubles)
+                       + [ctypes.c_void_p])
+        err = fn(*(t.data_ptr() for t in (*tensors, out)), *ints, *doubles,
+                 _build.stream_handle(dev))
+        if err:
+            raise RuntimeError(f"{name}: {lib.nis_error_string(err).decode()}")
+        return out
+
+    return (lambda: call("recentre_spectra_launch",
+                         (spec, *tr, *tabs),
+                         (num_p, d, nfft, p0, p1, *ring)),
+            lambda: call("recenter_presum_launch",
+                         (rc, filt, *tr, *tabs),
+                         (num_p, ns, d, nfft, p0, p1)))
 
 
 def report(name: str, ts: np.ndarray) -> int:
@@ -285,10 +461,31 @@ def report(name: str, ts: np.ndarray) -> int:
     return most
 
 
+def named_phases(ts: np.ndarray, per_pulse, d: int) -> None:
+    """A recentre kernel's phase cycles by name: each per-pulse phase the
+    mean over the group's d pulses, then the group's inverse (blocks of
+    whole groups only)."""
+    k = int(ts[:, 61].max())
+    full = ts[ts[:, 61] == k]
+    cyc = np.diff(full[:, 1:k + 1], axis=1).mean(axis=0)
+    n = len(per_pulse)
+    if len(cyc) != n * d + len(INVERSE_PHASES):
+        raise RuntimeError(f"{len(cyc)} phases, expected "
+                           f"{n * d + len(INVERSE_PHASES)}")
+    pulse = cyc[:n * d].reshape(d, n).mean(axis=0)
+    print("  a pulse: " + "; ".join(f"{a} {c:.0f}" for a, c in
+                                    zip(per_pulse, pulse))
+          + f" (sum {pulse.sum():.0f}); the group's inverse: "
+          + "; ".join(f"{a} {c:.0f}" for a, c in
+                      zip(INVERSE_PHASES, cyc[n * d:]))
+          + f" (sum {cyc[n * d:].sum():.0f}); a block {cyc.sum():.0f} "
+          "cycles")
+
+
 def phases(lib, runs) -> dict:
     """Run each (name, fn) of ``runs`` twice on the marked library ``lib``
     and report the second launch's blocks; name -> (blocks recorded, most
-    at once)."""
+    at once, the blocks' records)."""
     package = _build.library
     _build.library = lambda: lib          # the wrappers launch the copy
     buf = np.zeros(MAX_BLOCKS * 64, np.uint64)
@@ -305,10 +502,26 @@ def phases(lib, runs) -> dict:
                 raise RuntimeError("reading the phase times failed")
             ts = buf.reshape(MAX_BLOCKS, 64).astype(np.int64)
             ts = ts[ts[:, 63] != 0]           # the blocks this launch ran
-            seen[name] = (len(ts), report(name, ts))
+            seen[name] = (len(ts), report(name, ts), ts)
     finally:
         _build.library = package
     return seen
+
+
+def through(lib, fn):
+    """``fn`` with the package's wrappers launching ``lib`` (None: the
+    package's own build)."""
+    if lib is None:
+        return fn
+
+    def run(*a, **k):
+        package = _build.library
+        _build.library = lambda: lib
+        try:
+            return fn(*a, **k)
+        finally:
+            _build.library = package
+    return run
 
 
 def main():
@@ -316,14 +529,19 @@ def main():
         raise SystemExit("probe_torch_fft_phases: needs a CUDA device")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of another commit whose "
-                    "forward spectra to time beside")
+                    "forward spectra and recentre kernels to time beside")
     parent = ap.parse_args().parent
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
     libs = build(parent)
+    src = (_build.SOURCE_DIR / "fft_kernel.cu").read_text()
+    parent_src = None if parent is None else (
+        Path(parent) / _build.SOURCE_DIR.relative_to(ROOT)
+        / "fft_kernel.cu").read_text()
     variants = [v for v in VARIANTS if v in libs]
+    forward_variants = [v for v in variants if v not in RECENTRE_VARIANTS]
     dev = torch.device("cuda", 0)
     sc, opts, _, p, d, traj, plan = chip_smoke.videosar_setup()
     cpi, ns = sc.video.cpi_pulses(sc.radar.prf_hz), opts.num_samples
@@ -341,47 +559,47 @@ def main():
     forward = [("forward_spectra", lambda: fft_kernel.forward_spectra(rc, p)),
                (f"forward_spectra {step} pulses",
                 lambda: fft_kernel.forward_spectra(seg, p))]
+    recentre = {
+        "recentre_from_spectra": lambda: fft_kernel.recentre_from_spectra(
+            spec, *args, out_rows=rows)[0],
+        "recenter_presum": lambda: fft_kernel.recenter_presum(
+            rc, *args, out_rows=rows)[0]}
+    named = {"recentre_from_spectra": SPECTRA_PHASES,
+             "recenter_presum": FUSED_PHASES}
     # the 500-pulse launch's whole waves for each build: the clusters
     # resident at once, and the most pulses they take in whole waves
     waves = {}
     for build_name, lib, runs in (
-            ("this tree", libs["marked"], forward + [
-                ("recentre_from_spectra",
-                 lambda: fft_kernel.recentre_from_spectra(spec, *args,
-                                                          out_rows=rows)),
-                ("recenter_presum",
-                 lambda: fft_kernel.recenter_presum(rc, *args,
-                                                    out_rows=rows))]),
-            *((v, libs[f"marked {v}"], forward) for v in variants
-              if f"marked {v}" in libs)):
+            ("this tree", libs["marked"], forward + list(recentre.items())),
+            *((v, libs[f"marked {v}"],
+               list(recentre.items()) if v in RECENTRE_VARIANTS else forward)
+              for v in variants if f"marked {v}" in libs)):
         print(f"[phases] {build_name}")
-        blocks, at_once = phases(lib, runs)[forward[1][0]]
-        clusters = at_once // (blocks // step)
-        waves[build_name] = (clusters, clusters * (step // clusters))
-    del spec
+        seen = phases(lib, runs)
+        for name, (_, _, ts) in seen.items():
+            if name in named:
+                named_phases(ts, named[name], d)
+        if forward[1][0] in seen:
+            blocks, at_once, _ = seen[forward[1][0]]
+            clusters = at_once // (blocks // step)
+            waves[build_name] = (clusters, clusters * (step // clusters))
+    if "parent marked" in libs:
+        print(f"[phases] parent {parent} (the first recentre design)")
+        lib = libs["parent marked"]
+        split, fused = launchers(lib, parent_src, rc, spec, args, rows)
+        phases(lib, [("recentre_from_spectra", split),
+                     ("recenter_presum", fused)])
 
-    def through(lib):
-        """forward_spectra on ``lib`` (None: the package's own build)."""
-        def run(x):
-            if lib is None:
-                return fft_kernel.forward_spectra(x, p)
-            package = _build.library
-            _build.library = lambda: lib
-            try:
-                return fft_kernel.forward_spectra(x, p)
-            finally:
-                _build.library = package
-        return run
-
-    builds = [("this tree", through(None))]
-    builds += [(v, through(libs[v])) for v in variants]
+    builds = [("this tree", None)] + [(v, libs[v]) for v in forward_variants]
     for x in (rc, seg):
         n_p = x.shape[0]
         want = fft_kernel.forward_spectra_plain(x, p)
         bound = 8.0 * n_p * (ns + plan.nfft) / HBM_BYTES_PER_S * 1e3
         lib_ms = median_ms(lambda: torch.fft.fft(x, n=plan.nfft, dim=-1),
                            reps=20)
-        runs = [(name, functools.partial(fn, x)) for name, fn in builds]
+        runs = [(name, functools.partial(
+            through(lib, fft_kernel.forward_spectra), x, p))
+            for name, lib in builds]
         if "parent" in libs:
             natural = "kFwdPitch" in (
                 Path(parent) / _build.SOURCE_DIR.relative_to(ROOT)
@@ -400,9 +618,49 @@ def main():
                         f"{err:.2e})")
         print(f"[time] {n_p} pulses: " + "; ".join(line) + f"; torch.fft.fft "
               f"{lib_ms:.4f} ms; byte bound {bound:.4f} ms")
-    for name, fn in builds:
+
+    # the recentre kernels: this tree's wrappers and launchers, the
+    # recentre variants through the wrappers, DIR's launchers
+    n_out, band = -(-cpi // d), (rows[1] - rows[0]) * 128
+    n_bytes = {"recentre_from_spectra": 8.0 * (cpi * plan.nfft + n_out * band),
+               "recenter_presum": 8.0 * (cpi * ns + n_out * band)}
+    here = dict(zip(recentre, launchers(_build.library(), src, rc, spec,
+                                        args, rows)))
+    there = {}
+    if "parent" in libs:
+        there = dict(zip(recentre, launchers(
+            libs["parent"], parent_src, rc, spec, args, rows)))
+    for name, fn in recentre.items():
+        want = (fft_kernel.recentre_from_spectra_plain(spec, *args,
+                                                       out_rows=rows)[0]
+                if name == "recentre_from_spectra" else
+                fft_kernel.recenter_presum_plain(rc, *args,
+                                                 out_rows=rows)[0])
+        bound = n_bytes[name] / HBM_BYTES_PER_S * 1e3
+        runs = [("this tree", fn), ("this tree's launcher", here[name])]
+        runs += [(f"{v}'s launcher", dict(zip(recentre, launchers(
+            libs[v], src, rc, spec, args, rows)))[name])
+            for v in RECENTRE_VARIANTS if v in libs]
+        if name in there:
+            runs.append((f"parent {parent}'s launcher", there[name]))
+        line = []
+        for run_name, run in runs:
+            got = run()
+            err = float((got - want).abs().max() / want.abs().max())
+            if err > 1e-4:
+                raise RuntimeError(f"{run_name} {name}: rel err {err}")
+            ms = median_ms(run, reps=20)
+            line.append(f"{run_name} {ms:.4f} ms ({bound / ms:.1%} of the "
+                        f"bound, rel err {err:.2e})")
+        print(f"[time] {name}: " + "; ".join(line) + f"; byte bound "
+              f"{bound:.4f} ms ({n_bytes[name] / 1e6:.0f} MB)")
+    del spec
+
+    for name, lib in builds:
         if name not in waves:
             continue
+        fn = functools.partial(through(lib, fft_kernel.forward_spectra),
+                               p=p)
         clusters, full = waves[name]
         whole = rc[:full].contiguous()
         seg_ms = median_ms(lambda: fn(seg), reps=20)

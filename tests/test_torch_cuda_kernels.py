@@ -3,8 +3,9 @@ on the card: the GMTI and CSA kernels (K1g, K2 pair, K3g, K4, the raw
 balance; K1, K2 single and K3, also bit for bit against their two-channel
 twins) at 256^2 and at the slice's 4096^2, K3 and K3g also on rectangular
 planes, twice for the same bits and at their columns' edges, the fast-BP
-recentre kernels at nfft 16,384 and at the VideoSAR reference shape
-(2,500 x 22,004 samples, nfft 32,768, presum 4), the fast-BP accumulate
+recentre kernels at nfft 16,384 and 65,536 and at the VideoSAR reference
+shape (2,500 x 22,004 samples, nfft 32,768, presum 4; also each presum
+group's rows from its own pulses alone, bit for bit), the fast-BP accumulate
 kernels on synthetic operands (also on more tiles than the card holds at
 once, twice for the same bits) and at the VideoSAR full width, and the
 NUFFT echo's spread (both orders; cells sorted, reversed, nearly sorted,
@@ -481,6 +482,32 @@ def test_ring_is_bit_identical(dev, case):
             torch.roll(spec, off, 0), *traj, vf, p, d, t_ref, out_rows=rows,
             ring_offset=off)[0]
         assert torch.equal(got, want), off
+
+
+@pytest.mark.parametrize("case", sorted(BP_CASES))
+def test_recentre_groups_are_local(dev, case):
+    """A presum group's rows depend on its own pulses alone: the pulses
+    [a, b) of whole groups (with the whole launch's t_mean, on which the
+    ramps depend) give rows [a/d, b/d) of the whole launch bit for bit,
+    through both recentre kernels."""
+    rc, traj, vf, p, t_ref, d, rows = _bp_case(case, dev)
+    t_mean = traj[2].mean()
+    spec = fft_kernel.forward_spectra(rc, p)
+    fused = fft_kernel.recenter_presum(rc, *traj, vf, p, d, t_ref,
+                                       out_rows=rows)[0]
+    split = fft_kernel.recentre_from_spectra(spec, *traj, vf, p, d, t_ref,
+                                             out_rows=rows)[0]
+    n_g = rc.shape[0] // d
+    for ga, gb in ((0, 1), (1, n_g - 1), (n_g // 2, n_g)):
+        a, b = ga * d, gb * d
+        sub = [t[a:b] for t in traj]
+        got = fft_kernel.recenter_presum(rc[a:b], *sub, vf, p, d, t_ref,
+                                         t_mean=t_mean, out_rows=rows)[0]
+        assert torch.equal(got, fused[ga:gb]), (a, b)
+        got = fft_kernel.recentre_from_spectra(spec[a:b], *sub, vf, p, d,
+                                               t_ref, t_mean=t_mean,
+                                               out_rows=rows)[0]
+        assert torch.equal(got, split[ga:gb]), (a, b)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Forward spectra's and the raw balance's host-side plans without a GPU:
-the natural-order filter table the forward kernel reads, and the fused
-kernel's bit-reversed one; forward spectra's batch independence through the
+the natural-order filter table the forward kernel reads (the fused recentre
+kernel reads the same: tests/test_torch_recentre_plan.py); forward spectra's batch independence through the
 wrapper on CPU tensors (its plain version); the balance kernel's grid
 (``ops/cuda/gmti_kernel.py::balance_grid``) as a function of the shape and
 the card's limits; and the balance wrapper on rectangular CPU planes (its
@@ -34,8 +34,7 @@ def params():
 @pytest.mark.parametrize("compress", [True, False])
 @pytest.mark.parametrize("nfft", NFFTS)
 def test_forward_filter_is_natural_layout(params, nfft, compress):
-    """Forward spectra's filter is the spectra layout, k1 natural; the
-    fused kernel's is the same with k1 bit-reversed within each row."""
+    """Forward spectra's filter is the spectra layout, k1 natural."""
     cpu = torch.device("cpu")
     got = fft_kernel._filter_layout(params, nfft, compress, cpu)
     if compress:
@@ -45,9 +44,6 @@ def test_forward_filter_is_natural_layout(params, nfft, compress):
         want = torch.ones((nfft // 128, 128), dtype=torch.complex64)
     assert got.shape == (nfft // 128, 128) and got.is_contiguous()
     assert torch.equal(got, want)
-    fused = fft_kernel._filter(params, nfft, compress, cpu)
-    rev = [int(f"{q:07b}"[::-1], 2) for q in range(128)]
-    assert torch.equal(fused, want[:, rev])
 
 
 @pytest.mark.parametrize("compress", [True, False])
