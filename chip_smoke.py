@@ -18,17 +18,23 @@ raises and the exit code is non-zero:
               seeded 4096^2 planes with the slice scenario's factors: error
               and time (CUDA events, median of 5 after a warm-up) of both;
               K1g's time as a multiple of torch.fft.fft's over both
-              channels' azimuth axis; K1g's and K3g's shares of their byte
-              bounds and their column_plans
+              channels' azimuth axis, the K2 pair's as a multiple of the
+              composed torch.fft range pass's (fft, x Phi2, ifft, x Phi3 on
+              both channels as a stack, the phases built outside the
+              timing); K1g's, the K2 pair's and K3g's shares of their byte
+              bounds, K1g's and K3g's column_plans and K2's k2_plan
   3b. csa     K1, K2 single, K3 and the raw balance on the same inputs vs
               their plain versions (<= 1e-4 of the peak, balance angle
               <= 1e-5 rad); K1, K2 single and K3 bit for bit against K1g, K2
               pair and K3g on channel 1; two balance launches bit for bit;
               times of each, its plain version and (K1, K3, balance) the
-              one PyTorch call computing the same function; K1's and K3's
-              times as multiples of torch.fft.fft's / torch.fft.ifft's and
-              their shares of their byte bounds and their column_plans; the
-              balance's as a multiple of torch.vdot's and its share
+              one PyTorch call computing the same function, (K2 single)
+              the composed torch.fft range pass on channel 1; K1's and
+              K3's times as multiples of torch.fft.fft's / torch.fft.ifft's
+              and their shares of their byte bounds and their column_plans,
+              K2 single's as a multiple of the composed pass's and its
+              share; the balance's as a multiple of torch.vdot's and its
+              share
   4. main     models.gmti.run(path='kernel_fused') on the card: every launch
               counter must rise, every product plane be finite, and the
               products agree with path='composed' on the same raw; the CPI
@@ -282,6 +288,12 @@ def slice_scenario(n_pulses: int, n_samples: int):
     raise RuntimeError(f"cannot reach {(n_pulses, n_samples)}: got {got}")
 
 
+def composed_range_pass(z, phi2, phi3):
+    """One PyTorch composition of K2's function on complex rows: range FFT,
+    x Phi2, range IFFT, x Phi3 (the library yardstick beside K2)."""
+    return torch.fft.ifft(torch.fft.fft(z, dim=-1) * phi2, dim=-1) * phi3
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want|."""
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
@@ -376,9 +388,21 @@ def phase_kernels(dev) -> dict:
                                           for a, b in zip(got, ref)))
     timed("K2 pair", lambda: csa_kernel.k2_pair_call(*z, f, twiddles=tw),
           lambda: csa_kernel.k2_pair_plain(*z, f))
-    print(f"[3 kernels] K2 pair rel err {err:.2e}; "
-          f"{rec['K2 pair']['ms']:.3f} ms vs plain "
-          f"{rec['K2 pair']['plain_ms']:.3f} ms")
+    # the composed torch.fft range pass of both channels as a stack, the
+    # phases built outside the timing
+    phi2, phi3 = csa_kernel._k2_phases(f)
+    zc = torch.stack([torch.complex(z[0], z[1]), torch.complex(z[2], z[3])])
+    rec["K2 pair"]["library_ms"] = median_ms(
+        lambda: composed_range_pass(zc, phi2, phi3))
+    del zc, phi2, phi3
+    r = rec["K2 pair"]
+    share = bound(GMTI_PLANES["K2 pair"] * 4.0 * N * N, 0.0)["bound_ms"] \
+        / r["ms"]
+    print(f"[3 kernels] K2 pair rel err {err:.2e}; {r['ms']:.3f} ms vs plain "
+          f"{r['plain_ms']:.3f} ms, the composed torch.fft pass "
+          f"{r['library_ms']:.3f} ms; {r['ms'] / r['library_ms']:.2f}x its "
+          f"time, {share:.1%} of its byte bound; plan "
+          f"{csa_kernel.k2_plan(N)}")
     z = ref
     del got
 
@@ -483,15 +507,23 @@ def phase_csa_kernels(dev) -> dict:
     z = gmti_kernel.k1_gmti_plain(*x, f)[:4]
     del pair, xc
 
-    # K2 single (channel 1) against the K2 pair's channel 1
+    # K2 single (channel 1) against the K2 pair's channel 1; the composed
+    # torch.fft range pass of channel 1 beside it
     pair = csa_kernel.k2_pair_call(*z, f, twiddles=tw)
+    phi2, phi3 = csa_kernel._k2_phases(f)
+    zc = torch.complex(z[0], z[1])
     record("K2 single", csa_kernel.k2_call(z[0], z[1], f, twiddles=tw),
            csa_kernel.k2_plain(z[0], z[1], f), pair[:2],
            lambda: csa_kernel.k2_call(z[0], z[1], f, twiddles=tw),
            lambda: csa_kernel.k2_plain(z[0], z[1], f),
-           4 * plane_bytes, 2 * fft_ops + 20.0 * N * N)
+           4 * plane_bytes, 2 * fft_ops + 20.0 * N * N,
+           lib=lambda: composed_range_pass(zc, phi2, phi3))
+    r = rec["K2 single"]
+    print(f"[3b csa] K2 single {r['ms'] / r['library_ms']:.2f}x the composed "
+          f"torch.fft pass's time, {r['bound_ms'] / r['ms']:.1%} of its "
+          f"byte bound; plan {csa_kernel.k2_plan(N)}")
     y = csa_kernel.k2_pair_plain(*z, f)
-    del pair, z
+    del pair, z, zc, phi2, phi3
 
     # K3 (channel 1) against K3g's s1 (which neither cal nor the box
     # half-widths touch); cuFFT's azimuth ifft beside it

@@ -1,110 +1,360 @@
 // K2: the range pass of CSA focusing, for one channel or both GMTI channels.
 //
 // Replaces the TPU kernels nis_sar_amtigmti_video_tpu/ops/pallas/csa_kernel.py
-// :: _k2_call / _k2_body (one channel, k2_kernel<1>) and k2_pair_call /
-// _k2g_body (both channels, k2_kernel<2>). Per azimuth row a:
+// :: _k2_call / _k2_body (one channel, k2_launch) and k2_pair_call /
+// _k2g_body (both channels, k2_pair_launch). Per azimuth row a:
 //
 //   range FFT -> x Phi2 = exp(j (alpha(a) fr + beta(a)) fr)
 //             -> range IFFT (1/N) -> x Phi3 = exp(j (rphase(a) + cphase(r)
 //                                       + g(a) dr(r) - c3(a) u(r)^2))
 //
-// Phi2 and Phi3 do not depend on the data, so each is evaluated once per
-// element and applied to every channel (as _k2g_body shares its trig). The
-// two instances run the same code per channel, so K2 on one channel gives
-// the pair's bits for it.
+// What bounds it on the H100: by bytes, one read and one write of the
+// planes (2 or 4 x 64 MB each way at 4096^2, 0.080 / 0.160 ms at 3.35
+// TB/s); by operations, ~2 x 5 N log2 N flops a row and channel and 2
+// accurate sincosf a point, less. What holds it above that
+// (scripts/probe_torch_k2_phases.py, SM cycles by phase): the two sincosf
+// take about half of a block's cycles, the transforms most of the rest.
 //
-// What bounds it on the H100: one read and one write of the planes (2 or 4 x
-// 64 MB each way at 4096^2) against ~2 x 5 N log2 N flops per row and channel
-// and 2 sincosf per element — memory and shared-memory traffic, not math.
-// Design: one block owns one azimuth row of each channel (N complex in
-// shared memory per channel, 32 KB at N = 4096), so the row is read and
-// written once, contiguously; the FFTs run in shared memory. The forward
-// transform is decimation in frequency (natural in, bit-reversed out) and the
-// inverse decimation in time (bit-reversed in, natural out), so Phi2 is
-// applied in bit-reversed order by indexing fr with the reversed index and no
-// permutation pass is needed. sincosf is the accurate library routine (no
-// fast math): Phi2 reaches hundreds of rad at the slice's shape.
+// The plan (K2Plan<N>, one instantiation per row length N, a power of two
+// in [64, 4096]). A thread holds 16 points of a row in registers, v[m] =
+// x[tau + T m] (T = N / 16 threads a row, tau < T), so a warp's load of one
+// m reads whole 128-byte lines of the real and the imaginary plane (at N <
+// 512 a warp spans several rows, and its 16 loads still cover whole lines).
+// The N-point DFT splits into passes of at most 16 points, each run in
+// registers: R1 x 16 x ... x 16 with R1 = 2^(log2 N mod 4) (16 when that is
+// 0): 16 x 16 x 16 at 4096, 8 x 16 x 16 at 2048, 4 x 16 at 64; dft16 (4 x 4,
+// constant twiddles) at 16 points, nis::dft_reg below. Each pass is a
+// decimation-in-frequency step: it splits the sequence of length L it works
+// on as t = s + (L / R) j, takes the R-point DFT over j, multiplies by
+// W_L^(s k) (twiddle_row) and leaves R sequences of length L / R, one per
+// output digit k. Shared memory only transposes between passes, a buffer
+// of 17 N / 16 complex slots a row (pitch L between the wide passes, 17
+// before the last, so no two threads of a half-warp meet in a bank): two
+// transposes a direction at 4096, one at 256 and below. The thread that
+// made the last pass holds X[tau + T m] in v[m], the input's own layout: the
+// output digits come out in natural order by the choice of which thread
+// takes which item, so Phi2 reads fr[tau + T m] in whole lines and no
+// permutation pass exists. The inverse is the same plan on conjugate
+// twiddles, from that layout back to x[tau + T m]; 1/N is folded into the
+// Phi3 multiply. Barriers: one after each transpose's writes, one before
+// each transpose's writes but the forward's first (one buffer): 7 a row at
+// 4096, 3 at 256 and below, against the radix-2 design's 24. 256 threads a
+// block (4096 / N rows), 34 KB of shared memory, at most 80 registers and
+// no spills: three blocks an SM, so one block's loads and stores overlap
+// the others' transforms (at four, 64 registers, it spilled and ran 2-5 %
+// slower).
+//
+// The pair is the single on a grid twice as tall: blockIdx.y picks the
+// channel, and each block runs the one channel's pass (row_pass) with its
+// own trig. So K2 on one channel gives the pair's bits for it by
+// construction (the same instructions), and Phi2 / Phi3 are evaluated once
+// per channel, by sincosf's accurate routine (no fast math) on the radix-2
+// design's argument expressions: Phi2 reaches ~1.1e4 rad at the 600 MHz
+// waveform. Evaluating the trig once for the two lost to this in the
+// probe, both with each thread holding both channels' points (128
+// registers, two blocks an SM) and with the pair's 512 threads split by
+// channel and the row's phases staged in shared memory.
 #include "fft_smem.cuh"
 
 namespace {
 
-// x2*, o2* unused when NCH == 1.
-template <int NCH>
-__global__ void k2_kernel(
-    const float* __restrict__ x1r, const float* __restrict__ x1i,
-    const float* __restrict__ x2r, const float* __restrict__ x2i,
-    const float* __restrict__ fr, const float* __restrict__ alpha,
-    const float* __restrict__ beta, const float* __restrict__ cphase,
-    const float* __restrict__ dr, const float* __restrict__ usq,
-    const float* __restrict__ rphase, const float* __restrict__ g,
-    const float* __restrict__ c3, const float2* __restrict__ tw,
-    float* __restrict__ o1r, float* __restrict__ o1i,
-    float* __restrict__ o2r, float* __restrict__ o2i, int n, int log2n) {
-  float2* a = reinterpret_cast<float2*>(nis_smem);
-  float2* b = a + n;
-  const int row = blockIdx.x;
-  const size_t base = (size_t)row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    a[i] = make_float2(x1r[base + i], x1i[base + i]);
-    if constexpr (NCH == 2) b[i] = make_float2(x2r[base + i], x2i[base + i]);
+template <int N>
+struct K2Plan {
+  static constexpr int kLog = nis::log2_const(N);
+  // the first pass's radix; every later pass takes 16
+  static constexpr int R1 = kLog % 4 ? 1 << (kLog % 4) : 16;
+  static constexpr int kPasses = 1 + (kLog - nis::log2_const(R1)) / 4;
+  static constexpr int T = N / 16;                // threads a row
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = kThreads / T;      // rows a block
+  static constexpr int kRowSlots = 17 * N / 16;   // a row's buffer, float2
+  static constexpr int kSmem = kRows * kRowSlots * (int)sizeof(float2);
+  static constexpr int kBlocksPerSm = 3;
+  static_assert(N >= 64 && N <= 4096 && (N & (N - 1)) == 0, "");
+  // kBlocksPerSm blocks fit an H100 SM: 228 KB of shared memory (1 KB of it
+  // the runtime's for each block) and 2,048 threads
+  static_assert(kBlocksPerSm * (kSmem + 1024) <= 233472 &&
+                kBlocksPerSm * kThreads <= 2048, "");
+  // length of the sequences pass p (from 1) transforms, and the pitch of
+  // the buffer it reads them from (p >= 2)
+  static __host__ __device__ constexpr int len(int p) {
+    return p == 1 ? N : (N / R1) >> (4 * (p - 2));
   }
-  __syncthreads();
-  nis::fft_dif(a, NCH, n, log2n, tw, false);
-
-  const float al = alpha[row];
-  const float be = beta[row];
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    const float f = fr[nis::bitrev(p, log2n)];
-    float sn, cs;
-    sincosf((al * f + be) * f, &sn, &cs);
-    const float2 phi = make_float2(cs, sn);
-    a[p] = nis::cmul(a[p], phi);
-    if constexpr (NCH == 2) b[p] = nis::cmul(b[p], phi);
+  static __host__ __device__ constexpr int pitch(int p) {
+    return p == kPasses ? 17 : len(p);
   }
-  __syncthreads();
-  nis::fft_dit(a, NCH, n, log2n, tw, true);
+};
 
-  const float rp = rphase[row];
-  const float gg = g[row];
-  const float cc = c3[row];
-  const float inv_n = 1.0f / (float)n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float sn, cs;
-    sincosf(rp + cphase[i] + gg * dr[i] - cc * usq[i], &sn, &cs);
-    const float2 phi = make_float2(cs, sn);
-    const float2 y1 = nis::cmul(nis::cscale(a[i], inv_n), phi);
-    o1r[base + i] = y1.x;
-    o1i[base + i] = y1.y;
-    if constexpr (NCH == 2) {
-      const float2 y2 = nis::cmul(nis::cscale(b[i], inv_n), phi);
-      o2r[base + i] = y2.x;
-      o2i[base + i] = y2.y;
-    }
+struct K2Args {
+  const float *x1r, *x1i, *x2r, *x2i;   // x2*, o2*: the pair's second channel
+  const float *fr, *alpha, *beta, *cphase, *dr, *usq, *rphase, *g, *c3;
+  const float2* tw;                     // exp(-2 pi i k / N), k < N / 2
+  float *o1r, *o1i, *o2r, *o2i;
+};
+
+// cos and sin of 2 pi e / 16 rounded to float32: the 16-point DFT's
+// twiddles as constants
+__host__ __device__ constexpr float cos16(int e) {
+  switch (e % 16) {
+    case 0: return 1.0f;
+    case 1: case 15: return 0.923879533f;
+    case 2: case 14: return 0.707106781f;
+    case 3: case 13: return 0.382683432f;
+    case 4: case 12: return 0.0f;
+    case 5: case 11: return -0.382683432f;
+    case 6: case 10: return -0.707106781f;
+    case 7: case 9: return -0.923879533f;
+    default: return -1.0f;
+  }
+}
+__host__ __device__ constexpr float sin16(int e) { return cos16(e + 12); }
+
+// x W_4 of the direction: x (-j) forward, x (+j) inverse
+template <bool INV>
+__device__ __forceinline__ float2 rot4(float2 x) {
+  return INV ? make_float2(-x.y, x.x) : make_float2(x.y, -x.x);
+}
+
+// x W_16^E of the direction (E < 16, E != 0)
+template <bool INV, int E>
+__device__ __forceinline__ float2 rot16(float2 x) {
+  if constexpr (E == 4) {
+    return rot4<INV>(x);
+  } else {
+    constexpr float c = cos16(E), s = INV ? sin16(E) : -sin16(E);
+    return make_float2(x.x * c - x.y * s, x.x * s + x.y * c);
   }
 }
 
-template <int NCH>
-int k2_run(const float* x1r, const float* x1i, const float* x2r,
-           const float* x2i, const float* fr, const float* alpha,
-           const float* beta, const float* cphase, const float* dr,
-           const float* usq, const float* rphase, const float* g,
-           const float* c3, const float2* tw, float* o1r, float* o1i,
-           float* o2r, float* o2i, int n_az, int n_rg, void* stream) {
-  const int smem = NCH * n_rg * (int)sizeof(float2);
+template <bool INV>
+__device__ __forceinline__ void dft4(float2& x0, float2& x1, float2& x2,
+                                     float2& x3) {
+  const float2 a0 = make_float2(x0.x + x2.x, x0.y + x2.y);
+  const float2 a1 = make_float2(x0.x - x2.x, x0.y - x2.y);
+  const float2 b0 = make_float2(x1.x + x3.x, x1.y + x3.y);
+  const float2 b1 = rot4<INV>(make_float2(x1.x - x3.x, x1.y - x3.y));
+  x0 = make_float2(a0.x + b0.x, a0.y + b0.y);
+  x2 = make_float2(a0.x - b0.x, a0.y - b0.y);
+  x1 = make_float2(a1.x + b1.x, a1.y + b1.y);
+  x3 = make_float2(a1.x - b1.x, a1.y - b1.y);
+}
+
+// Unnormalised 16-point DFT of u (INV: inverse), natural order in and out,
+// as 4 x 4: the 4-point DFTs over n2 of n = n1 + 4 n2, W_16^(n1 k1) as
+// constants, the 4-point DFTs over n1, the output k1 + 4 k2 a renaming.
+template <bool INV>
+__device__ __forceinline__ void dft16(float2 (&u)[16]) {
+#pragma unroll
+  for (int n1 = 0; n1 < 4; ++n1)
+    dft4<INV>(u[n1], u[n1 + 4], u[n1 + 8], u[n1 + 12]);
+  u[5] = rot16<INV, 1>(u[5]);
+  u[6] = rot16<INV, 2>(u[6]);
+  u[7] = rot16<INV, 3>(u[7]);
+  u[9] = rot16<INV, 2>(u[9]);
+  u[10] = rot16<INV, 4>(u[10]);
+  u[11] = rot16<INV, 6>(u[11]);
+  u[13] = rot16<INV, 3>(u[13]);
+  u[14] = rot16<INV, 6>(u[14]);
+  u[15] = rot16<INV, 9>(u[15]);
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1)
+    dft4<INV>(u[4 * k1], u[4 * k1 + 1], u[4 * k1 + 2], u[4 * k1 + 3]);
+  float2 t[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) t[k] = u[4 * (k % 4) + k / 4];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) u[k] = t[k];
+}
+
+// The R-point DFT of a pass: the constant-twiddle dft16 at 16 points, the
+// table's radix-2 nis::dft_reg below
+template <int N, bool INV, int R>
+__device__ __forceinline__ void pass_dft(float2 (&u)[R],
+                                         const float2* __restrict__ tw) {
+  if constexpr (R == 16) dft16<INV>(u);
+  else nis::dft_reg<INV, R>(u, tw, N / R);
+}
+
+// u[k] x W_N^(m k) of the direction for 0 < k < R, with 4 m < N. With k =
+// a + 4 b, W^(m k) = W^(m a) W^(4 m b): two loads of the table
+// (nis::twiddle_pow: W^m and W^(4 m)) and products for the other powers, at
+// most five roundings a twiddle. A warp's load of W^(m k) spreads over ~2k
+// 128-byte lines as m runs over its threads, so loads cost more than the
+// products: with six loads a pass the kernel took 11 % longer, with fifteen
+// twice as long (scripts/probe_torch_k2_phases.py).
+template <int N, bool INV, int R>
+__device__ __forceinline__ void twiddle_row(float2 (&u)[R],
+                                            const float2* __restrict__ tw,
+                                            int m) {
+  constexpr int A = R < 4 ? R : 4, B = R / 4;
+  float2 wa[4], wb[4];
+  wa[1] = nis::twiddle_pow<INV>(tw, m, N);
+#pragma unroll
+  for (int a = 2; a < A; ++a) wa[a] = nis::cmul(wa[a - 1], wa[1]);
+  if constexpr (B > 1) wb[1] = nis::twiddle_pow<INV>(tw, 4 * m, N);
+#pragma unroll
+  for (int b = 2; b < B; ++b) wb[b] = nis::cmul(wb[b - 1], wb[1]);
+#pragma unroll
+  for (int k = 1; k < R; ++k) {
+    const int a = k % 4, b = k / 4;
+    const float2 w = b == 0 ? wa[a] : a == 0 ? wb[b] : nis::cmul(wa[a], wb[b]);
+    u[k] = nis::cmul(u[k], w);
+  }
+}
+
+// Passes PASS.. (PASS >= 2) of a row's transform: the 16-point DFT of item
+// (prefix, s) over j from the buffer (pitch(PASS)); then, before the last
+// pass, x W_L^(s k) into the buffer as sequence prefix + Q k; the last pass
+// leaves X[tau + T k] in v[k].
+template <int N, bool INV, int PASS>
+__device__ __forceinline__ void passes_from(float2 (&v)[16], float2* buf,
+                                            const float2* __restrict__ tw,
+                                            int tau) {
+  using P = K2Plan<N>;
+  constexpr int L = P::len(PASS), S = L / 16, Q = N / L;
+  constexpr int kPitch = P::pitch(PASS);
+  const int prefix = tau / S, s = tau % S;
+  float2 u[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) u[j] = buf[prefix * kPitch + s + S * j];
+  pass_dft<N, INV, 16>(u, tw);
+  if constexpr (PASS == P::kPasses) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = u[k];
+  } else {
+    constexpr int kNext = P::pitch(PASS + 1);
+    twiddle_row<N, INV, 16>(u, tw, Q * s);
+    __syncthreads();  // every thread is past its reads of the buffer
+#pragma unroll
+    for (int k = 0; k < 16; ++k) buf[(prefix + Q * k) * kNext + s] = u[k];
+    __syncthreads();
+    passes_from<N, INV, PASS + 1>(v, buf, tw, tau);
+  }
+}
+
+// The N-point DFT (forward, or inverse unnormalised: INV) of the row whose
+// points x[tau + T m] this thread and its T - 1 neighbours hold in v[m];
+// leaves X[tau + T m] in v[m]. Pass 1 takes the thread's 16 / R1 items s =
+// tau + T i, whose points s + (N / R1) j are v[i + (16 / R1) j]. The
+// inverse follows the forward's reads of the buffer, so it waits first.
+template <int N, bool INV>
+__device__ __forceinline__ void transform(float2 (&v)[16], float2* buf,
+                                          const float2* __restrict__ tw,
+                                          int tau) {
+  using P = K2Plan<N>;
+  constexpr int R = P::R1, G = 16 / R, kPitch = P::pitch(2);
+  if constexpr (INV) __syncthreads();
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    float2 u[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) u[j] = v[i + G * j];
+    pass_dft<N, INV, R>(u, tw);
+    const int s = tau + P::T * i;
+    twiddle_row<N, INV, R>(u, tw, s);
+#pragma unroll
+    for (int k = 0; k < R; ++k) buf[k * kPitch + s] = u[k];
+  }
+  __syncthreads();
+  passes_from<N, INV, 2>(v, buf, tw, tau);
+}
+
+// A row's pass from its points v[m] = x[tau + T m] (this thread's) to its
+// output: forward transform, x Phi2, inverse transform, x Phi3 / N, stores
+// to o_re / o_im at row n + tau + T m. The one channel's arithmetic, the
+// same instructions for each channel of the pair.
+template <int N>
+__device__ __forceinline__ void row_pass(float2 (&v)[16], float2* buf,
+                                         const K2Args& a, int row, int tau,
+                                         float* o_re, float* o_im) {
+  constexpr int T = K2Plan<N>::T;
+  transform<N, false>(v, buf, a.tw, tau);
+
+  const float al = a.alpha[row];
+  const float be = a.beta[row];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const float f = __ldg(a.fr + tau + T * m);
+    float sn, cs;
+    sincosf((al * f + be) * f, &sn, &cs);
+    v[m] = nis::cmul(v[m], make_float2(cs, sn));
+  }
+  transform<N, true>(v, buf, a.tw, tau);
+
+  const float rp = a.rphase[row];
+  const float gg = a.g[row];
+  const float cc = a.c3[row];
+  const float inv_n = 1.0f / (float)N;
+  const size_t at = (size_t)row * N + tau;
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int i = tau + T * m;
+    float sn, cs;
+    sincosf(rp + __ldg(a.cphase + i) + gg * __ldg(a.dr + i) -
+                cc * __ldg(a.usq + i),
+            &sn, &cs);
+    const float2 y = nis::cmul(nis::cscale(v[m], inv_n), make_float2(cs, sn));
+    __stcs(o_re + at + T * m, y.x);
+    __stcs(o_im + at + T * m, y.y);
+  }
+}
+
+// One block: K2Plan<N>::kRows rows of channel blockIdx.y (0: x1 -> o1, 1: x2
+// -> o2), T threads a row.
+template <int N>
+__global__ void __launch_bounds__(K2Plan<N>::kThreads,
+                                  K2Plan<N>::kBlocksPerSm)
+    k2_kernel(K2Args a) {
+  using P = K2Plan<N>;
+  constexpr int T = P::T;
+  const bool second = blockIdx.y != 0;
+  const float* xr = second ? a.x2r : a.x1r;
+  const float* xi = second ? a.x2i : a.x1i;
+  const int tid = (int)threadIdx.x, tau = tid % T;
+  const int row = (int)blockIdx.x * P::kRows + tid / T;
+  const size_t at = (size_t)row * N + tau;
+  float2 v[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m)
+    v[m] = make_float2(__ldcs(xr + at + T * m), __ldcs(xi + at + T * m));
+  row_pass<N>(v,
+              reinterpret_cast<float2*>(nis_smem) + (tid / T) * P::kRowSlots,
+              a, row, tau, second ? a.o2r : a.o1r, second ? a.o2i : a.o1i);
+}
+
+template <int N>
+int k2_run(const K2Args& a, int n_az, int nch, void* stream) {
+  using P = K2Plan<N>;
+  if (n_az % P::kRows != 0) return (int)cudaErrorInvalidValue;
+  // room for kBlocksPerSm blocks; the rest of the SM's 256 KB stays L1
+  const int carveout =
+      (P::kBlocksPerSm * (P::kSmem + 1024) * 100 + 233471) / 233472;
   cudaError_t err = cudaFuncSetAttribute(
-      k2_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k2_kernel<N>, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
   if (err != cudaSuccess) return (int)err;
-  k2_kernel<NCH><<<n_az, nis::threads_for(n_rg), smem,
-                   (cudaStream_t)stream>>>(
-      x1r, x1i, x2r, x2i, fr, alpha, beta, cphase, dr, usq, rphase, g, c3,
-      tw, o1r, o1i, o2r, o2i, n_rg, nis::log2_of(n_rg));
+  k2_kernel<N><<<dim3(n_az / P::kRows, nch), P::kThreads, P::kSmem,
+                 (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+int k2_dispatch(const K2Args& a, int n_az, int n_rg, int nch, void* stream) {
+  switch (n_rg) {
+    case 64: return k2_run<64>(a, n_az, nch, stream);
+    case 128: return k2_run<128>(a, n_az, nch, stream);
+    case 256: return k2_run<256>(a, n_az, nch, stream);
+    case 512: return k2_run<512>(a, n_az, nch, stream);
+    case 1024: return k2_run<1024>(a, n_az, nch, stream);
+    case 2048: return k2_run<2048>(a, n_az, nch, stream);
+    case 4096: return k2_run<4096>(a, n_az, nch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Launch K2 pair / K2 over (n_az, n_rg) planes on `stream`; n_rg a power of
-// two. Each returns cudaGetLastError() after the launch.
+// two in [64, 4096], n_az a multiple of 4096 / n_rg. Each returns
+// cudaGetLastError() after the launch.
 extern "C" int k2_pair_launch(
     const float* x1r, const float* x1i, const float* x2r, const float* x2i,
     const float* fr, const float* alpha, const float* beta,
@@ -112,8 +362,9 @@ extern "C" int k2_pair_launch(
     const float* rphase, const float* g, const float* c3, const float2* tw,
     float* o1r, float* o1i, float* o2r, float* o2i, int n_az, int n_rg,
     void* stream) {
-  return k2_run<2>(x1r, x1i, x2r, x2i, fr, alpha, beta, cphase, dr, usq,
-                   rphase, g, c3, tw, o1r, o1i, o2r, o2i, n_az, n_rg, stream);
+  const K2Args a{x1r, x1i, x2r, x2i, fr,  alpha, beta, cphase, dr,
+                 usq, rphase, g, c3, tw,  o1r,   o1i,  o2r,    o2i};
+  return k2_dispatch(a, n_az, n_rg, 2, stream);
 }
 
 extern "C" int k2_launch(
@@ -122,9 +373,10 @@ extern "C" int k2_launch(
     const float* usq, const float* rphase, const float* g, const float* c3,
     const float2* tw, float* o_re, float* o_im, int n_az, int n_rg,
     void* stream) {
-  return k2_run<1>(xr, xi, nullptr, nullptr, fr, alpha, beta, cphase, dr, usq,
-                   rphase, g, c3, tw, o_re, o_im, nullptr, nullptr, n_az,
-                   n_rg, stream);
+  const K2Args a{xr,  xi,     nullptr, nullptr, fr,   alpha,   beta,
+                 cphase, dr, usq,     rphase,  g,    c3,      tw,
+                 o_re, o_im, nullptr, nullptr};
+  return k2_dispatch(a, n_az, n_rg, 1, stream);
 }
 
 // Message of a CUDA error code returned by a launcher.

@@ -1,14 +1,14 @@
-// Shared-memory building blocks of the port's CSA and GMTI kernels:
-// complex helpers, radix-2 FFTs over whole sequences held in shared memory
-// or in registers, a deterministic block sum and windowed sums.
+// Shared building blocks of the port's FFT-based kernels: complex helpers,
+// small DFTs wholly in registers, twiddles from a host-made table, a
+// deterministic block sum and windowed sums.
 //
 // The TPU kernels ran their FFTs as four-step DFT contractions on the MXU,
 // with every f32 operand split into bf16 hi/lo halves by hand. Hopper runs
-// f32 FMAs at full precision, so here the kernels transform whole columns or
-// rows with plain radix-2 butterflies in f32: in shared memory, a barrier a
-// stage (fft_dif, fft_dit), or a few stages at a time in registers
-// (dft_reg, forward or inverse). Twiddles come from a table computed in
-// float64 on the host and rounded once to f32.
+// f32 FMAs at full precision, so here the kernels split each transform into
+// passes of at most 32 points, each a radix-2 DFT in registers (dft_reg,
+// forward or inverse), with shared memory only to transpose between passes.
+// Twiddles come from a table computed in float64 on the host and rounded
+// once to f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,65 +26,12 @@ static __device__ __forceinline__ float2 cscale(float2 a, float s) {
   return make_float2(a.x * s, a.y * s);
 }
 
-// p with its low log2n bits reversed.
-static __device__ __forceinline__ int bitrev(int p, int log2n) {
-  return (int)(__brev((unsigned)p) >> (32 - log2n));
-}
-
 // tw[k] = exp(-2 pi i k / n), k < n/2; the inverse transform uses conj.
 static __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw,
                                                  int k, bool inverse) {
   float2 w = __ldg(tw + k);
   if (inverse) w.y = -w.y;
   return w;
-}
-
-// In place on `nseq` sequences of n = 2^log2n points stored back to back in
-// shared memory, by all threads of the block. Decimation in frequency:
-// natural order in, bit-reversed order out. Unnormalised. The caller
-// synchronises before; the function synchronises after every stage.
-static __device__ void fft_dif(float2* x, int nseq, int n, int log2n,
-                               const float2* __restrict__ tw, bool inverse) {
-  const int half_n = n >> 1;
-  const int total = nseq * half_n;
-  for (int s = log2n; s >= 1; --s) {
-    const int half = 1 << (s - 1);
-    const int step = n >> s;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      const int k = b & (half_n - 1);
-      const int pos = k & (half - 1);
-      const int i = (b >> (log2n - 1)) * n + ((k >> (s - 1)) << s) + pos;
-      const int j = i + half;
-      const float2 u = x[i];
-      const float2 v = x[j];
-      x[i] = make_float2(u.x + v.x, u.y + v.y);
-      x[j] = cmul(make_float2(u.x - v.x, u.y - v.y),
-                  twiddle(tw, pos * step, inverse));
-    }
-    __syncthreads();
-  }
-}
-
-// As fft_dif, but decimation in time: bit-reversed order in, natural out.
-static __device__ void fft_dit(float2* x, int nseq, int n, int log2n,
-                               const float2* __restrict__ tw, bool inverse) {
-  const int half_n = n >> 1;
-  const int total = nseq * half_n;
-  for (int s = 1; s <= log2n; ++s) {
-    const int half = 1 << (s - 1);
-    const int step = n >> s;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      const int k = b & (half_n - 1);
-      const int pos = k & (half - 1);
-      const int i = (b >> (log2n - 1)) * n + ((k >> (s - 1)) << s) + pos;
-      const int j = i + half;
-      const float2 u = x[i];
-      const float2 t = cmul(twiddle(tw, pos * step, inverse), x[j]);
-      x[i] = make_float2(u.x + t.x, u.y + t.y);
-      x[j] = make_float2(u.x - t.x, u.y - t.y);
-    }
-    __syncthreads();
-  }
 }
 
 // k with its low `bits` bits reversed, at compile time (the register FFTs'

@@ -30,10 +30,11 @@ import torch
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 
-# CPI sides the kernels take: powers of two (radix-2 FFTs) in the range they
-# were checked at; a K2 block holds a whole range line (64 KB of shared
-# memory at 4096), the column passes (K1, K3 and their pairs) split n_az
-# over a cluster of at most 8 blocks (column_plan)
+# CPI sides the kernels take: powers of two in the range they were checked
+# at; a K2 block holds 4096 / n_rg whole range lines of one channel (one
+# instantiation per n_rg, 34 KB of shared memory, k2_plan), the column
+# passes (K1, K3 and their pairs) split n_az over a cluster of at most 8
+# blocks (column_plan)
 MIN_N, MAX_N = 64, 4096
 
 
@@ -41,6 +42,39 @@ def supported(n_az: int, n_rg: int) -> bool:
     """Shapes the kernels take: both axes powers of two in [64, 4096]."""
     return all(MIN_N <= n <= MAX_N and n & (n - 1) == 0
                for n in (n_az, n_rg))
+
+
+# K2's block (csrc/csa_kernel.cu, K2Plan<N>): threads, points a thread
+# holds, blocks an SM, and the slots of a row's transpose buffer per point
+# of the row (17 / 16)
+K2_THREADS, K2_POINTS, K2_BLOCKS_PER_SM = 256, 16, 3
+
+
+class K2Plan(NamedTuple):
+    """Launch plan of K2 at one n_rg: the passes' DFT sizes in order (their
+    product n_rg), ``rows`` range lines a block of ``threads`` threads,
+    ``smem`` bytes of shared memory a block, ``blocks_per_sm``."""
+    radices: tuple
+    rows: int
+    threads: int
+    smem: int
+    blocks_per_sm: int
+
+
+def k2_plan(n_rg: int) -> K2Plan:
+    """K2's plan at row length ``n_rg`` (a supported side): the first pass
+    takes 2^(log2 n_rg mod 4) points (16 when that is 0), every later one
+    16; a thread holds K2_POINTS points of a row, so n_rg / 16 threads a row
+    and K2_THREADS of them a block; each row has a buffer of 17 n_rg / 16
+    complex64 slots. The pair runs the same plan on twice the blocks."""
+    if not supported(MIN_N, n_rg):
+        raise ValueError(f"k2_plan: n_rg {n_rg} not supported")
+    log = n_rg.bit_length() - 1
+    r1 = 1 << (log % 4) if log % 4 else 16
+    radices = (r1,) + (16,) * ((log - (r1.bit_length() - 1)) // 4)
+    rows = K2_THREADS // (n_rg // K2_POINTS)
+    return K2Plan(radices, rows, K2_THREADS, rows * (17 * n_rg // 16) * 8,
+                  K2_BLOCKS_PER_SM)
 
 
 # Threads a block of the column pass (K1 / K1g, K3 / K3g), and halo rows
@@ -176,7 +210,8 @@ def _k2_args(name, planes, f: CsaFactors, twiddles):
 
 def k2_pair_call(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
     """K2 for both channels: per azimuth row, range FFT -> x Phi2 -> range
-    IFFT (1/N) -> x Phi3, Phi2/Phi3 evaluated once for the two channels.
+    IFFT (1/N) -> x Phi3; :func:`k2_call`'s kernel on twice the blocks, one
+    channel a block (:func:`k2_plan`).
 
     (n_az, n_rg) float32 planes in, four planes out. ``twiddles``: the
     n_rg-point table of :func:`twiddle_table` (built when None). CPU tensors
@@ -200,8 +235,8 @@ def k2_plain(xr, xi, f: CsaFactors, *, twiddles=None):
 
 
 def k2_call(xr, xi, f: CsaFactors, *, twiddles=None):
-    """K2 for one channel: :func:`k2_pair_call`'s pass, the same code per
-    channel, so its result is the pair's for that channel bit for bit.
+    """K2 for one channel: :func:`k2_pair_call`'s kernel on one channel's
+    blocks, so its result is the pair's for that channel bit for bit.
 
     (n_az, n_rg) float32 planes in, two planes out. ``twiddles``: the
     n_rg-point table (built when None)."""

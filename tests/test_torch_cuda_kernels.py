@@ -2,9 +2,11 @@
 on the card: the GMTI and CSA kernels (K1g, K2 pair, K3g, K4, the raw
 balance; K1, K2 single and K3, also bit for bit against their two-channel
 twins) at 256^2 and at the slice's 4096^2, K3 and K3g also on rectangular
-planes, twice for the same bits and at their columns' edges, the fast-BP
-recentre kernels at nfft 16,384 and 65,536 and at the VideoSAR reference
-shape (2,500 x 22,004 samples, nfft 32,768, presum 4; also each presum
+planes, twice for the same bits and at their columns' edges, K2 and its
+pair at every row length they take and on rectangular planes, twice and
+with a passed twiddle table for the same bits, the fast-BP recentre
+kernels at nfft 16,384 and 65,536 and at the VideoSAR reference shape
+(2,500 x 22,004 samples, nfft 32,768, presum 4; also each presum
 group's rows from its own pulses alone, bit for bit), the fast-BP accumulate
 kernels on synthetic operands (also on more tiles than the card holds at
 once, twice for the same bits) and at the VideoSAR full width, and the
@@ -126,13 +128,29 @@ def test_k1g_balance_angle(dev, n):
     assert abs(d) <= 1e-5
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+# K2's shapes: every row length the kernels take (one instantiation of
+# K2Plan<N> each), and n_az != n_rg both ways
+K2_SHAPES = [64, 128, 256, 512, 1024, 2048, 4096, (64, 4096), (4096, 64)]
+
+
+@pytest.mark.parametrize("n", K2_SHAPES)
 def test_k2_pair_matches_plain(dev, n):
+    """Within 1e-4 of the peak of the plain version; a second launch, and
+    one given the twiddle table the wrapper would build, give the same
+    bits."""
     f, x = _factors(n, dev), _planes(n, dev, 1)
+    before = csa_kernel.k2_pair_call.launches
     got = csa_kernel.k2_pair_call(*x, f)
+    torch.cuda.synchronize()
+    assert csa_kernel.k2_pair_call.launches == before + 1
     want = csa_kernel.k2_pair_plain(*x, f)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-4
+    again = csa_kernel.k2_pair_call(*x, f)
+    tw = csa_kernel.twiddle_table(x[0].shape[1], dev)
+    passed = csa_kernel.k2_pair_call(*x, f, twiddles=tw)
+    for i, (a, b, c) in enumerate(zip(got, again, passed)):
+        assert torch.equal(a, b) and torch.equal(a, c), i
 
 
 def _cal_cs(dev):
@@ -224,15 +242,27 @@ def test_k1_matches_plain_and_k1g(dev, n):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("n", K2_SHAPES)
 def test_k2_matches_plain_and_pair(dev, n):
+    """K2 on each channel within 1e-4 of the peak of the plain version and
+    bit for bit the pair's planes for it; a second launch and a passed
+    twiddle table give the same bits."""
     f, x = _factors(n, dev), _planes(n, dev, 5)
-    got = csa_kernel.k2_call(x[2], x[3], f)
-    for a, b in zip(got, csa_kernel.k2_plain(x[2], x[3], f)):
-        assert _rel(a, b) <= 1e-4
     pair = csa_kernel.k2_pair_call(*x, f)
-    for a, b in zip(got, pair[2:]):
-        assert torch.equal(a, b)
+    tw = csa_kernel.twiddle_table(x[0].shape[1], dev)
+    for ch in (0, 1):
+        xr, xi = x[2 * ch], x[2 * ch + 1]
+        before = csa_kernel.k2_call.launches
+        got = csa_kernel.k2_call(xr, xi, f)
+        torch.cuda.synchronize()
+        assert csa_kernel.k2_call.launches == before + 1
+        for a, b in zip(got, csa_kernel.k2_plain(xr, xi, f)):
+            assert _rel(a, b) <= 1e-4, ch
+        again = csa_kernel.k2_call(xr, xi, f)
+        passed = csa_kernel.k2_call(xr, xi, f, twiddles=tw)
+        for a, b, c, d in zip(got, pair[2 * ch:2 * ch + 2], again, passed):
+            assert torch.equal(a, b), ch
+            assert torch.equal(a, c) and torch.equal(a, d), ch
 
 
 @pytest.mark.parametrize("n", COLUMN_SHAPES)
