@@ -1,0 +1,14 @@
+"""fft_conv_roofline (%, layer: kernels): The NUFFT FFT convolution's least
+time for all its launches of one product (bench_torch/work/fft_conv.py,
+at the pass's shapes) over its device time a product in the trace;
+kernels whose name matches r"fft_conv_kernel<". Source: device_trace.
+Moves product_ms."""
+
+from bench_torch.readers import roofline_product
+
+SOURCE, MOVES, UNIT = "device_trace", "product_ms", "%"
+PATTERN = r"fft_conv_kernel<"
+
+
+def read(tr, shapes):
+    return roofline_product(tr, shapes, PATTERN, "fft_conv")

@@ -1,0 +1,11 @@
+"""focus_ms (ms, layer: products): the benchmark's own span around
+models/gmti.py::focus_and_products in a product, closed by a synchronise
+(traced runs only), mean over the traced products. Source: host_clock.
+Moves product_ms."""
+
+SOURCE, MOVES, UNIT = "host_clock", "product_ms", "ms"
+
+
+def read(tr, shapes):
+    v = tr.spans.get("focus")
+    return 1e3 * sum(v) / len(v) if v else None
