@@ -93,9 +93,9 @@ tile, coarse-tile factorized):
               ring (mode B): the kernels of each run launch, the
               (6, 512, 512) frames are finite and the modes agree to 2e-3 of
               the peak; formation ms per frame of both backends in each mode
-              on held inputs, timed in alternating pairs; the stages of a
-              mode-A frame of each; then focus_bp_fast(accumulate=
-              'factor_kernel') on the first CPI's factor plan, against
+              on held inputs, timed in alternating pairs; then
+              focus_bp_fast(accumulate='factor_kernel') on the first CPI's
+              factor plan, against
               accumulate='factor_pallas' on the same plan
   9. bp gold  frame 0 of mode A of both backends and the 'factor_kernel'
               frame against the port's exact float64 backprojection of
@@ -1182,15 +1182,6 @@ def phase_videosar(dev):
           f" s; formation per frame (5 alternating pairs per mode): "
           + "; ".join(f"{b} {m} {quartiles(ms[b, m])}" for b, m in ms)
           + f"; presum d {d}")
-    for route, r in routes.items():
-        pl_ = r["plan"]
-        stages = frame_stages(raw0, tr, vf, p, d, pl_, r["accumulate"],
-                              r["fit_stride"])
-        print(f"[8 videosar] {route} mode A frame by stage (ms, CUDA events,"
-              f" median of 5; accumulate {r['accumulate']}, plan ny_i "
-              f"{pl_.ny_i} nx_i {pl_.nx_i} w {pl_.w_win} sub_raw "
-              f"{pl_.sub_raw} p0/p1 {bp_fast.band_rows(pl_)}): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
     # the factor kernel at the ops layer, on the first CPI's factor plan
     fk = dict(presum=d, plan=plan_cpi, fit_stride=16)
@@ -1229,48 +1220,6 @@ def phase_videosar(dev):
                "fast_pallas mode A": imgs["fast_pallas", "A"][0],
                "factor_kernel": img_fk.cpu().numpy()}
     return totals, frames0, raw0, tr, vf, t0, p
-
-
-def frame_stages(raw0, tr, vf, p, d, plan, acc_name, fit_stride) -> dict:
-    """Device ms of each stage of one mode-A frame on held inputs, in
-    backproject_fast's order: fused recentre kernel, frame geometry and
-    fit (anchored every ``fit_stride`` pulses), accumulate ``acc_name``,
-    finalize (mask, resample, remodulation), presum droop correction."""
-    t_mean = tr[2].mean()
-    rows = bp_fast.band_rows(plan)
-    plan_acc = dataclasses.replace(plan,
-                                   band_start=plan.band_start - rows[0] * 128)
-
-    def recentre():
-        return fft_kernel.recenter_presum(raw0, *tr, vf, p, d, plan.t_ref,
-                                          t_mean=t_mean, out_rows=rows)
-
-    rc2, pos2, vel2, t2 = recentre()
-
-    def fit():
-        rdir, cdir, dy = bp_fast._frame_geometry(pos2[pos2.shape[0] // 2], p,
-                                                 plan)
-        return (rdir, cdir, dy), bp_fast._fit_coeffs(
-            pos2, vel2, t2, vf, p, plan, t_mean, rdir, cdir, dy,
-            fit_stride=fit_stride)
-
-    geom, co = fit()
-
-    def accumulate():
-        return bp_fast.accumulate_grid(acc_name, (rc2, *co, plan_acc), d)
-
-    img_i = accumulate()
-
-    def finalize():
-        return bp_fast._finalize(img_i, co[1:4], pos2, vel2, t2, vf, t_mean,
-                                 p, plan, *geom)
-
-    def droop():
-        return bp.presum_droop_correction(*tr, vf, p, d)
-
-    return {name: median_ms(fn) for name, fn in (
-        ("recentre", recentre), ("fit", fit), ("accumulate", accumulate),
-        ("finalize", finalize), ("droop", droop))}
 
 
 def phase_bp_golden(frames: dict, raw0, tr, vf, t0, p, u=8):

@@ -25,6 +25,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.echo import (
     multi_channel_phase_history, window_start_time)
 from nis_sar_amtigmti_video_tpu_torch.scene.targets import PointTargets
 from nis_sar_amtigmti_video_tpu_torch.utils.device import entry_device
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import span
 
 
 class GmtiProducts(NamedTuple):
@@ -91,9 +92,17 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
     runs torch.fft on the CPU and raises ValueError on the card, under
     'auto' as under 'composed': ``fft_impl='auto'`` takes any shape.
     """
+    with span("focus"):
+        return _focus_and_products(raw2ch, sc, t0, shift_pulses, balance,
+                                   mask_threshold, cfar_params, path)
+
+
+def _focus_and_products(raw2ch, sc, t0, shift_pulses, balance,
+                        mask_threshold, cfar_params, path) -> GmtiProducts:
     r, g = sc.radar, sc.geometry
-    raw1, raw2 = dpca.pulse_shift_coregister(raw2ch[0], raw2ch[1],
-                                             shift_pulses)
+    with span("focus.shift"):
+        raw1, raw2 = dpca.pulse_shift_coregister(raw2ch[0], raw2ch[1],
+                                                 shift_pulses)
     n_p, n_s = raw1.shape
     p = csa_ops.CsaParams(
         wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate, fs_hz=r.fs_hz,
@@ -110,38 +119,47 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
     kernels = path == "kernel_fused" or (
         path == "auto" and supported and sc.processing.fft_impl == "pallas"
         and raw1.device.type == "cuda")
-    f = csa_ops.csa_factors(p, raw1.device)
+    with span("focus.factors"):
+        f = csa_ops.csa_factors(p, raw1.device)
     # velocity inversion uses the phase-center progression speed (the
     # platform's true along-track velocity), not the focusing V_eff
     v_platform = g.speed_mps
     v_amb = velocity.ambiguous_velocity(r.wavelength_m, v_platform,
                                         sc.channels.baseline_m)
     if kernels:
-        (s1r, s1i, s2r, s2i, cal, phase, dmag, det) = fused_mod.gmti_cpi(
-            raw1.real.contiguous(), raw1.imag.contiguous(),
-            raw2.real.contiguous(), raw2.imag.contiguous(), f,
-            balance=balance, mask_threshold=mask_threshold,
-            cfar_params=cfar_params)
-        slc1 = torch.complex(s1r, s1i)
-        slc2 = torch.complex(s2r, s2i)
-        if balance:
-            slc2 = ati.apply_balance(slc2, cal)
-        # cancellation ratio on the kernel's |dpca| plane (abs is a no-op)
-        ratio = dpca.cancellation_ratio(slc1, dmag)
+        with span("focus.cpi_kernels"):
+            planes = fused_mod.gmti_cpi(
+                raw1.real.contiguous(), raw1.imag.contiguous(),
+                raw2.real.contiguous(), raw2.imag.contiguous(), f,
+                balance=balance, mask_threshold=mask_threshold,
+                cfar_params=cfar_params)
     else:
         fft_impl = sc.processing.fft_impl
-        slc1 = csa_ops.apply_csa_fused(raw1, f, fft_impl)
-        slc2 = csa_ops.apply_csa_fused(raw2, f, fft_impl)
-        cal = ati.channel_balance_phase(slc1, slc2)
-        if balance:
-            slc2 = ati.apply_balance(slc2, cal)
-        phase = ati.masked_phase(slc1, slc2, mask_threshold)
-        diff = dpca.dpca_difference(slc1, slc2)
-        dmag = torch.abs(diff)
-        det = cfar.ca_cfar(dmag ** 2, cfar_params)
-        ratio = dpca.cancellation_ratio(slc1, diff)
-    vmap_ = velocity.velocity_from_phase(phase, r.wavelength_m, v_platform,
-                                         sc.channels.baseline_m)
+        with span("focus.csa"):
+            slc1 = csa_ops.apply_csa_fused(raw1, f, fft_impl)
+            slc2 = csa_ops.apply_csa_fused(raw2, f, fft_impl)
+    with span("focus.products"):
+        if kernels:
+            (s1r, s1i, s2r, s2i, cal, phase, dmag, det) = planes
+            slc1 = torch.complex(s1r, s1i)
+            slc2 = torch.complex(s2r, s2i)
+            if balance:
+                slc2 = ati.apply_balance(slc2, cal)
+            # cancellation ratio on the kernel's |dpca| plane (abs is a
+            # no-op)
+            ratio = dpca.cancellation_ratio(slc1, dmag)
+        else:
+            cal = ati.channel_balance_phase(slc1, slc2)
+            if balance:
+                slc2 = ati.apply_balance(slc2, cal)
+            phase = ati.masked_phase(slc1, slc2, mask_threshold)
+            diff = dpca.dpca_difference(slc1, slc2)
+            dmag = torch.abs(diff)
+            det = cfar.ca_cfar(dmag ** 2, cfar_params)
+            ratio = dpca.cancellation_ratio(slc1, diff)
+        vmap_ = velocity.velocity_from_phase(phase, r.wavelength_m,
+                                             v_platform,
+                                             sc.channels.baseline_m)
     rax, cax = csa_ops.csa_axes(p)
     return GmtiProducts(slc1=slc1, slc2=slc2, ati_phase=phase, dpca_mag=dmag,
                         velocity_map=vmap_, detections=det,

@@ -40,6 +40,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.echo import (EchoOpts, phase_history,
 from nis_sar_amtigmti_video_tpu_torch.parallel import pipeline
 from nis_sar_amtigmti_video_tpu_torch.scene.targets import PointTargets
 from nis_sar_amtigmti_video_tpu_torch.utils.device import entry_device
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import count, span
 from nis_sar_amtigmti_video_tpu_torch.video import scheduler
 
 # bp_backend -> bp_fast accumulate ('*_pallas': the hand-written CUDA
@@ -198,8 +199,17 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     contiguous frames and step % presum == 0.
     """
     dev = entry_device(device)
-    r, g, v = sc.radar, sc.geometry, sc.video
-    sched = scheduler.make_schedule(v, r.prf_hz)
+    sched, orig_idx = _schedule(sc, num_frames, frame_indices)
+    with span("videosar.run", frames=len(sched.starts)):
+        return _run(sc, targets, sched, orig_idx, dev, heading_deg,
+                    speed_mps, algorithm, frames_per_batch, seed, avg_rcs,
+                    precision, bp_backend, noise_mode, stream_spectra)
+
+
+def _schedule(sc: ScenarioConfig, num_frames, frame_indices):
+    """:func:`run`'s frame schedule and each frame's index in the whole
+    collect's schedule."""
+    sched = scheduler.make_schedule(sc.video, sc.radar.prf_hz)
     orig_idx = np.arange(sched.num_frames)
     if num_frames is not None:
         sched = sched._replace(starts=sched.starts[:num_frames])
@@ -208,7 +218,14 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         frame_indices = sorted(int(i) for i in frame_indices)
         sched = sched._replace(starts=sched.starts[frame_indices])
         orig_idx = np.asarray(frame_indices)
+    return sched, orig_idx
 
+
+def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
+         algorithm, frames_per_batch, seed, avg_rcs, precision, bp_backend,
+         noise_mode, stream_spectra) -> VideoFrames:
+    """:func:`run` on its schedule and device."""
+    r, g, v = sc.radar, sc.geometry, sc.video
     times = np.linspace(-v.duration_s / 2.0, v.duration_s / 2.0,
                         sched.total_pulses)
     traj = orbit.make_trajectory(g, times)
@@ -238,10 +255,11 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         _check_backend(bp_backend)
     if algorithm in ("mbp", "stdbp") and bp_backend.startswith("fast"):
         factor = bp_backend.startswith("fast_factor")
-        bp_plan = bp_fast.make_plan(
-            p_bp, traj.positions, traj.times, float(t0),
-            w_win=64 if bp_backend == "fast_pallas" else 32,
-            factorize=factor)
+        with span("bp.plan"):
+            bp_plan = bp_fast.make_plan(
+                p_bp, traj.positions, traj.times, float(t0),
+                w_win=64 if bp_backend == "fast_pallas" else 32,
+                factorize=factor)
         if bp_backend == "fast_pallas" and not bp_kernel.supported(bp_plan):
             if dev.type != "cpu":
                 raise ValueError(
@@ -249,8 +267,9 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
                     "128-multiple grid, not the plan's "
                     f"{bp_plan.ny_i} x {bp_plan.nx_i}: pick 'fast'")
             bp_backend = "fast"        # the reference's routing, on the CPU
-            bp_plan = bp_fast.make_plan(p_bp, traj.positions, traj.times,
-                                        float(t0))
+            with span("bp.plan"):
+                bp_plan = bp_fast.make_plan(p_bp, traj.positions, traj.times,
+                                            float(t0))
         elif bp_backend == "fast_factor" and fft_kernel.supported(
                 bp_plan.nfft):
             # the recentre kernel serves every plan; where the bounds
@@ -305,21 +324,28 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
                     f"step={step}, presum={presum}")
 
     def segment(s):
-        if s not in seg_cache:
-            sl = traj.slice(s * step, (s + 1) * step)
+        if s in seg_cache:
+            count("segment.reused")
+            return seg_cache[s]
+        count("segment.echoed")
+        sl = traj.slice(s * step, (s + 1) * step)
+        with span("segment.echo", s=s):
             raw_s = phase_history(sl, tgt, opts, t_start=t0,
                                   target_velocity=vel_tgt, device=dev)
-            if noise_mode == "per_segment" and snr_raw is not None:
+        if noise_mode == "per_segment" and snr_raw is not None:
+            with span("segment.noise", s=s):
                 raw_s = noise_ops.add_ocean_noise(
                     noise_ops.generator(seed, SEGMENT_STREAM + s, dev),
                     raw_s, snr_raw, sc.noise.scr_db, sc.noise.k_shape,
                     ref_power_mode="peak")
-            seg_cache[s] = raw_s
-        return seg_cache[s]
+        seg_cache[s] = raw_s
+        return raw_s
 
     def segment_spectra(s):
         if s not in spec_cache:
-            spec_cache[s] = bp_fast.forward_spectra(segment(s), p_bp)
+            raw_s = segment(s)
+            with span("segment.spectra", s=s):
+                spec_cache[s] = bp_fast.forward_spectra(raw_s, p_bp)
         return spec_cache[s]
 
     def _drop_stale(s0):
@@ -368,7 +394,8 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     vf = _f64(vel_focus, dev)
 
     def fetch(img):
-        return img.cpu().numpy()
+        with span("frame.fetch"):
+            return img.cpu().numpy()
 
     if stream_spectra == "ring":
         # one device-resident spectra window, written in place one segment
@@ -379,19 +406,26 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         def ring_frames():
             spec_buf, wp = None, 0
             for f in range(f_total):
-                po, ve, ts = frame_traj(f)
-                if spec_buf is None:
-                    spec_buf = frame_spectra(f)
-                else:
-                    s0 = int(sched.starts[f]) // step
-                    spec_buf[wp:wp + step] = segment_spectra(
-                        s0 + segs_per_cpi - 1)
-                    _drop_stale(s0)
-                    wp = (wp + step) % sched.cpi_pulses
-                yield bp_fast.focus_bp_fast(
-                    None, po, ve, ts, vf, float(t0), p_bp, presum=presum,
-                    plan=bp_plan, accumulate=acc, fit_stride=fs,
-                    raw_spectra=spec_buf, ring_offset=wp if wp else None)
+                # the span closes before the yield: the fetch is not the
+                # frame's
+                with span("frame", f=f):
+                    with span("frame.traj"):
+                        po, ve, ts = frame_traj(f)
+                    if spec_buf is None:
+                        spec_buf = frame_spectra(f)
+                    else:
+                        s0 = int(sched.starts[f]) // step
+                        spec_buf[wp:wp + step] = segment_spectra(
+                            s0 + segs_per_cpi - 1)
+                        _drop_stale(s0)
+                        wp = (wp + step) % sched.cpi_pulses
+                    with span("frame.bp"):
+                        img = bp_fast.focus_bp_fast(
+                            None, po, ve, ts, vf, float(t0), p_bp,
+                            presum=presum, plan=bp_plan, accumulate=acc,
+                            fit_stride=fs, raw_spectra=spec_buf,
+                            ring_offset=wp if wp else None)
+                yield img
 
         images = list(pipeline.pipelined(lambda img: img, ring_frames(),
                                           depth=2, fetch=fetch))
@@ -408,13 +442,17 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
                              for i in range(3))
         if algorithm in ("mbp", "stdbp"):
             if stream_spectra:
-                return form_frames_bp(None, pos_b, vel_b, t_b, vf, float(t0),
-                                      p_bp, presum, backend=bp_backend,
-                                      plan=bp_plan, spectra_frames=torch.stack(
-                                          [frame_spectra(f) for f in fr]))
-            return form_frames_bp(torch.stack([frame_raw(f) for f in fr]),
-                                  pos_b, vel_b, t_b, vf, float(t0), p_bp,
-                                  presum, backend=bp_backend, plan=bp_plan)
+                spec_b = torch.stack([frame_spectra(f) for f in fr])
+                with span("frame.bp"):
+                    return form_frames_bp(None, pos_b, vel_b, t_b, vf,
+                                          float(t0), p_bp, presum,
+                                          backend=bp_backend, plan=bp_plan,
+                                          spectra_frames=spec_b)
+            raw_b = torch.stack([frame_raw(f) for f in fr])
+            with span("frame.bp"):
+                return form_frames_bp(raw_b, pos_b, vel_b, t_b, vf,
+                                      float(t0), p_bp, presum,
+                                      backend=bp_backend, plan=bp_plan)
         if algorithm == "csa":
             p_csa = csa_ops.CsaParams(
                 wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
@@ -422,9 +460,11 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
                 velocity_mps=g.effective_velocity_mps,
                 range_ref_m=g.slant_range_m, t_start_fast=t0,
                 num_pulses=sched.cpi_pulses, num_samples=opts.num_samples)
-            return form_frames_csa(torch.stack([frame_raw(f) for f in fr]),
-                                   p_csa, fused=sc.processing.csa_fused,
-                                   fft_impl=sc.processing.fft_impl)
+            raw_b = torch.stack([frame_raw(f) for f in fr])
+            with span("frame.bp"):
+                return form_frames_csa(raw_b, p_csa,
+                                       fused=sc.processing.csa_fused,
+                                       fft_impl=sc.processing.fft_impl)
         raise ValueError(f"unknown algorithm {algorithm!r}")
 
     images = list(pipeline.pipelined(

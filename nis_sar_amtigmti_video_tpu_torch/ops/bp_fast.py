@@ -40,6 +40,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.bp import BpParams, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.czt import czt_eval
 from nis_sar_amtigmti_video_tpu_torch.utils.anchors import (anchor_plan as
                                                             _anchor_plan)
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import span
 
 _TWO_PI = 2.0 * math.pi
 _C = 299792458.0
@@ -848,44 +849,51 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
 
     plan_acc = plan
     p0, p1 = band_rows(plan)
-    if raw_spectra is not None:
-        if not (compress and fft_kernel.supported(plan.nfft)):
-            raise ValueError(
-                "raw_spectra needs compress=True and a kernel-supported "
-                f"plan.nfft (got nfft={plan.nfft})")
-        if raw_spectra.shape[1] * 128 != plan.nfft:
-            raise ValueError(
-                f"raw_spectra rows ({raw_spectra.shape[1]}) do not match "
-                f"plan.nfft={plan.nfft}: the spectra were built from "
-                "pulses with a different num_samples than the plan's")
-        rc2, pos2, vel2, t2 = fft_kernel.recentre_from_spectra(
-            raw_spectra, pos, vel, ts, vf, p, d, plan.t_ref,
-            t_mean=t_mean_v, out_rows=(p0, p1), ring_offset=ring_offset)
-        plan_acc = _dc_replace(plan, band_start=plan.band_start - p0 * 128)
-    elif accumulate in KERNEL_ACCUMULATE:
-        if not fft_kernel.supported(plan.nfft):
-            raise ValueError(
-                f"accumulate={accumulate!r} runs the recentre kernel, which "
-                f"does not take plan.nfft={plan.nfft}: pick "
-                f"{KERNEL_ACCUMULATE[accumulate]!r}")
-        rc2, pos2, vel2, t2 = fft_kernel.recenter_presum(
-            rc, pos, vel, ts, vf, p, d, plan.t_ref, filter_compress=compress,
-            t_mean=t_mean_v, out_rows=(p0, p1))
-        plan_acc = _dc_replace(plan, band_start=plan.band_start - p0 * 128)
-    else:
-        ref_conj = matched_filter_spectrum(p, plan.nfft) if compress else None
-        rc2, pos2, vel2, t2 = recenter_presum(rc, pos, vel, ts, vf, p, d,
-                                              plan.t_ref, ref_conj=ref_conj,
-                                              t_mean=t_mean_v)
+    with span("bp.recentre"):
+        if raw_spectra is not None:
+            if not (compress and fft_kernel.supported(plan.nfft)):
+                raise ValueError(
+                    "raw_spectra needs compress=True and a kernel-supported "
+                    f"plan.nfft (got nfft={plan.nfft})")
+            if raw_spectra.shape[1] * 128 != plan.nfft:
+                raise ValueError(
+                    f"raw_spectra rows ({raw_spectra.shape[1]}) do not match "
+                    f"plan.nfft={plan.nfft}: the spectra were built from "
+                    "pulses with a different num_samples than the plan's")
+            rc2, pos2, vel2, t2 = fft_kernel.recentre_from_spectra(
+                raw_spectra, pos, vel, ts, vf, p, d, plan.t_ref,
+                t_mean=t_mean_v, out_rows=(p0, p1), ring_offset=ring_offset)
+            plan_acc = _dc_replace(plan,
+                                   band_start=plan.band_start - p0 * 128)
+        elif accumulate in KERNEL_ACCUMULATE:
+            if not fft_kernel.supported(plan.nfft):
+                raise ValueError(
+                    f"accumulate={accumulate!r} runs the recentre kernel, "
+                    f"which does not take plan.nfft={plan.nfft}: pick "
+                    f"{KERNEL_ACCUMULATE[accumulate]!r}")
+            rc2, pos2, vel2, t2 = fft_kernel.recenter_presum(
+                rc, pos, vel, ts, vf, p, d, plan.t_ref,
+                filter_compress=compress, t_mean=t_mean_v, out_rows=(p0, p1))
+            plan_acc = _dc_replace(plan,
+                                   band_start=plan.band_start - p0 * 128)
+        else:
+            ref_conj = (matched_filter_spectrum(p, plan.nfft) if compress
+                        else None)
+            rc2, pos2, vel2, t2 = recenter_presum(
+                rc, pos, vel, ts, vf, p, d, plan.t_ref, ref_conj=ref_conj,
+                t_mean=t_mean_v)
 
-    rdir, cdir, dy_m = _frame_geometry(pos2[pos2.shape[0] // 2], p, plan)
-    u0, pa, pb, pc, b_t, c_t = _fit_coeffs(pos2, vel2, t2, vf, p, plan,
-                                           t_mean_v, rdir, cdir, dy_m,
-                                           fit_stride=fit_stride)
-    img_i = accumulate_grid(accumulate,
-                            (rc2, u0, pa, pb, pc, b_t, c_t, plan_acc), d)
-    return _finalize(img_i, (pa, pb, pc), pos2, vel2, t2, vf, t_mean_v,
-                     p, plan, rdir, cdir, dy_m)
+    with span("bp.fit"):
+        rdir, cdir, dy_m = _frame_geometry(pos2[pos2.shape[0] // 2], p, plan)
+        u0, pa, pb, pc, b_t, c_t = _fit_coeffs(pos2, vel2, t2, vf, p, plan,
+                                               t_mean_v, rdir, cdir, dy_m,
+                                               fit_stride=fit_stride)
+    with span("bp.accumulate"):
+        img_i = accumulate_grid(accumulate,
+                                (rc2, u0, pa, pb, pc, b_t, c_t, plan_acc), d)
+    with span("bp.finalize"):
+        return _finalize(img_i, (pa, pb, pc), pos2, vel2, t2, vf, t_mean_v,
+                         p, plan, rdir, cdir, dy_m)
 
 
 def accumulate_grid(accumulate: str, coeffs, d: int):
@@ -945,18 +953,20 @@ def focus_bp_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     Without a ``plan``, 'pallas' builds one with 64-sample windows."""
     _check_modes(accumulate, math_mode)
     if plan is None:
-        plan = make_plan(p, np.asarray(sat_pos), np.asarray(t_slow),
-                         float(t_start),
-                         w_win=64 if accumulate == "pallas" else 32,
-                         factorize=accumulate.startswith("factor"))
+        with span("bp.plan"):
+            plan = make_plan(p, np.asarray(sat_pos), np.asarray(t_slow),
+                             float(t_start),
+                             w_win=64 if accumulate == "pallas" else 32,
+                             factorize=accumulate.startswith("factor"))
     img = backproject_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, p, plan,
                            presum=presum, compress=True,
                            accumulate=accumulate, fit_stride=fit_stride,
                            math_mode=math_mode, raw_spectra=raw_spectra,
                            ring_offset=ring_offset)
     if presum > 1:
-        corr = bp_ops.presum_droop_correction(sat_pos, sat_vel, t_slow,
-                                              vel_focus, p, presum,
-                                              device=img.device)
-        return presum * corr * img
+        with span("bp.droop"):
+            corr = bp_ops.presum_droop_correction(sat_pos, sat_vel, t_slow,
+                                                  vel_focus, p, presum,
+                                                  device=img.device)
+            return presum * corr * img
     return img

@@ -35,6 +35,7 @@ import torch
 
 from nis_sar_amtigmti_video_tpu_torch.utils.anchors import anchor_plan
 from nis_sar_amtigmti_video_tpu_torch.utils.device import entry_device
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import span
 
 _TWO_PI = 2.0 * math.pi
 _C = 299792458.0
@@ -288,18 +289,19 @@ def _fields(t_slow, sat_pos, sat_vel, tgt_pos, amp_b, tgt_vel, offsets,
             t_start: float, opts: EchoOpts):
     """The scalar fields (tau_rel, carrier, amp), each (C * P, B) float32,
     that the 'freq' and 'pallas' backends take."""
-    if opts.backend == "freq":
-        # delay-sort the scene once (mid-aperture ranges): the dense
-        # spreaders' group windows need consecutive targets in a narrow
-        # delay band; the echo is a sum over targets, so order never
-        # changes the output
-        num_p = t_slow.shape[0]
-        order = torch.argsort(_norm(tgt_pos - sat_pos[num_p // 2][None, :]),
-                              stable=True)
-        tgt_pos, amp_b = tgt_pos[order], amp_b[order]
-    h_geo = opts.freq_geom_stride if opts.backend == "freq" else 0
-    return _scalar_fields(t_slow, sat_pos, sat_vel, tgt_pos, amp_b, tgt_vel,
-                          offsets, t_start, opts, h_geo)
+    with span("echo.fields"):
+        if opts.backend == "freq":
+            # delay-sort the scene once (mid-aperture ranges): the dense
+            # spreaders' group windows need consecutive targets in a narrow
+            # delay band; the echo is a sum over targets, so order never
+            # changes the output
+            num_p = t_slow.shape[0]
+            order = torch.argsort(
+                _norm(tgt_pos - sat_pos[num_p // 2][None, :]), stable=True)
+            tgt_pos, amp_b = tgt_pos[order], amp_b[order]
+        h_geo = opts.freq_geom_stride if opts.backend == "freq" else 0
+        return _scalar_fields(t_slow, sat_pos, sat_vel, tgt_pos, amp_b,
+                              tgt_vel, offsets, t_start, opts, h_geo)
 
 
 def synth_options(opts: EchoOpts) -> dict:
@@ -394,9 +396,10 @@ def multi_channel_phase_history(trajectory, targets, opts: EchoOpts, *,
     the default everywhere.)"""
     device = entry_device(device)
     offs = [float(o) for o in np.asarray(rx_offsets, np.float64).reshape(-1)]
-    args = _inputs(trajectory, targets, target_velocity, device)
-    out = _phase_history(*args, offs, float(t_start), opts).reshape(
-        len(offs), args[0].shape[0], opts.num_samples)
+    with span("echo"):
+        args = _inputs(trajectory, targets, target_velocity, device)
+        out = _phase_history(*args, offs, float(t_start), opts).reshape(
+            len(offs), args[0].shape[0], opts.num_samples)
     return tuple(out) if channels_as_tuple else out
 
 

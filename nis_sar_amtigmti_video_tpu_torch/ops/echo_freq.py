@@ -43,6 +43,7 @@ import torch
 
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import spread_kernel
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import span
 
 _W = 8                      # spreading taps
 _BETA = 2.30 * _W           # ES-kernel beta (FINUFFT's rule of thumb)
@@ -522,21 +523,27 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
     pass, whose window defaults to half the main one) size the dense
     spreaders' group windows.
     """
-    pl = _plan(tau_rel, opts, oversample, pulse_chunk, edge_taper, spreader,
-               spread_win, spread_grp, conv, spread_win_edge,
-               spread_grp_edge)
-    num_p, ns = tau_rel.shape[0], opts.num_samples
-    out = torch.empty((num_p, ns), dtype=torch.complex64,
-                      device=tau_rel.device)
-    for p0 in range(0, num_p, pl.pulse_chunk):
-        tau = tau_rel[p0:p0 + pl.pulse_chunk]
-        a_re, a_im = _rotated(carrier[p0:p0 + pl.pulse_chunk],
-                              amp[p0:p0 + pl.pulse_chunk])
-        out_c = _conv(pl, *_main_field(pl, tau, a_re, a_im))
-        if pl.n_edge:
-            out_c = out_c + _edge_exact(pl, tau, a_re, a_im)
-        out[p0:p0 + tau.shape[0]] = out_c
-    return out
+    with span("echo.synthesize"):
+        pl = _plan(tau_rel, opts, oversample, pulse_chunk, edge_taper,
+                   spreader, spread_win, spread_grp, conv, spread_win_edge,
+                   spread_grp_edge)
+        num_p, ns = tau_rel.shape[0], opts.num_samples
+        out = torch.empty((num_p, ns), dtype=torch.complex64,
+                          device=tau_rel.device)
+        for p0 in range(0, num_p, pl.pulse_chunk):
+            with span("echo.chunk", p0=p0):
+                tau = tau_rel[p0:p0 + pl.pulse_chunk]
+                a_re, a_im = _rotated(carrier[p0:p0 + pl.pulse_chunk],
+                                      amp[p0:p0 + pl.pulse_chunk])
+                with span("echo.spread"):
+                    field = _main_field(pl, tau, a_re, a_im)
+                with span("echo.conv"):
+                    out_c = _conv(pl, *field)
+                if pl.n_edge:
+                    with span("echo.edge"):
+                        out_c = out_c + _edge_exact(pl, tau, a_re, a_im)
+                out[p0:p0 + tau.shape[0]] = out_c
+        return out
 
 
 def kernel_operands(tau_rel, carrier, amp, opts, **synth_kw) -> dict:
