@@ -114,15 +114,19 @@ and one-accumulator orders), FFT-conv and direct-echo kernels:
               2,048, two sets of 6) in both orders vs the plain version on
               its first 16 pulses (<= 1e-5 of the peak; two launches
               bit-identical), timed on the whole chunk; the conv (512 x
-              50,420 column views of the padded field, as the pass hands
-              them, nfft 65,536, band rows 187-394) vs its plain version
-              (<= 3e-5; two launches bit-identical) beside torch.fft's
-              fft / multiply / ifft; the
+              50,420 column views of the placed field, rows 50,432 floats
+              apart, as the pass hands them, nfft 65,536, band rows
+              187-394) vs its plain version (<= 3e-5; two launches
+              bit-identical) beside torch.fft's fft / multiply / ifft; the
+              window placement of the chunk's main and edge passes (the
+              arguments synthesize hands it) vs its plain version, the row
+              loop, bit for bit; the
               direct-echo kernel on the two launches of phase 12's pallas
               path (the ship's and the clutter's scalar fields, <= 2e-4);
               times of each launch and its plain version
   11. e2e     multi_channel_phase_history(backend='freq') then
-              focus_and_products: spread 2 x 29 and conv 29 launches a pass,
+              focus_and_products: spread 2 x 29, placement 2 x 29 and conv
+              29 launches a pass,
               a finite (2, 7200, 13200) raw and finite products; warm sim
               pass / 2 and end to end (medians of 3); one pass under
               torch.profiler (device busy, idle share, device time by
@@ -241,6 +245,10 @@ ECHO_WRAPPERS = {
     "fft_conv": (fft_kernel.fft_conv_pallas,
                  "nis_sar_amtigmti_video_tpu_torch/csrc/fft_kernel.cu",
                  "nis_sar_amtigmti_video_tpu/ops/pallas/fft_kernel.py:767"),
+    "place": (spread_kernel.place_windows,
+              "nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu",
+              "none (the reference places the windows with jnp: "
+              "nis_sar_amtigmti_video_tpu/ops/echo_freq.py::_spread_dense)"),
     "echo_accumulate": (
         echo_kernel.echo_accumulate,
         "nis_sar_amtigmti_video_tpu_torch/csrc/echo_kernel.cu",
@@ -1328,6 +1336,18 @@ def spread_work(c, v, win):
             2.0 * int((c >= 0).sum()) * v.shape[2] * v.shape[3])
 
 
+def place_work(wins, base, offsets, start, l_out, complex_out):
+    """Bytes of one placement launch: the window cells that land in the
+    cropped field read once (re and im), the bases, every field cell
+    written once (8 bytes, planes or complex64)."""
+    win, n = wins.shape[-1], 0
+    for off in offsets:
+        first = torch.clamp(start - base - off, 0, win)
+        end = torch.clamp(l_out + start - base - off, 0, win)
+        n += int((end - first).clamp(min=0).sum())
+    return 8.0 * n + 4.0 * base.numel() + 8.0 * wins.shape[0] * l_out
+
+
 def echo_work(tau, kw):
     """(bytes, f32 operations, sin / cos results) of one direct-echo launch,
     and the (pulse, target, sample) triples inside the gate. The scalars
@@ -1347,6 +1367,35 @@ def echo_work(tau, kw):
             2.0 * num_p * num_b + 9.0 * n_gate, 2.0 * n_gate), n_gate
 
 
+def place_operands(fields, opts):
+    """The place_windows arguments of synthesize's first pulse chunk of
+    ``fields``: the main pass's, then the exact-edge pass's."""
+    kw = echo.synth_options(opts)
+    n = echo_freq._plan(fields[0], opts, **kw).pulse_chunk
+    calls, place = [], spread_kernel.place_windows
+
+    def rec(*args):
+        calls.append(args)
+        return place(*args)
+
+    rec.launches = 0          # the wrapper counts on what holds its name
+
+    spread_kernel.place_windows = rec
+    try:
+        echo_freq.synthesize(*(f[:n] for f in fields), opts, **kw)
+    finally:
+        spread_kernel.place_windows = place
+    assert len(calls) == 2, len(calls)
+    return calls
+
+
+def re_im(x):
+    """(re, im) of a complex64 tensor; a pair of planes as it is."""
+    if isinstance(x, tuple):
+        return x
+    return torch.view_as_real(x)[..., 0], torch.view_as_real(x)[..., 1]
+
+
 def phase_echo_kernels(dev, setup) -> dict:
     """Each NUFFT kernel against its plain version on the operands of the
     e2e pass's first chunk, and the direct-echo kernel on the two launches
@@ -1357,6 +1406,7 @@ def phase_echo_kernels(dev, setup) -> dict:
                                 rx_offsets=offs, device=dev)
     ops = echo_freq.kernel_operands(*fields, opts,
                                     **echo.synth_options(opts))
+    places = place_operands(fields, opts)
     del fields
     assert len(ops["spread edge"]) == 1, len(ops["spread edge"])
     torch.cuda.synchronize(dev)
@@ -1419,6 +1469,37 @@ def phase_echo_kernels(dev, setup) -> dict:
           f"fft / multiply / ifft {r['library_ms']:.3f} ms; bound "
           f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
     del got, again, want, field, ops
+
+    parts, n_bytes = {}, 0.0
+    for part, args in zip(("main", "edge"), places):
+        wins, base, offsets, start, l_out, complex_out = args
+        got = spread_kernel.place_windows(*args)
+        again = spread_kernel.place_windows(*args)
+        want = spread_kernel.place_windows_plain(*args)
+        same = all(torch.equal(a.view(torch.int32), w.view(torch.int32))
+                   and torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b, w in zip(*map(re_im, (got, again, want))))
+        assert same, part
+        b = place_work(*args)
+        n_bytes += b
+        parts[part] = dict(
+            max_abs_err=0.0,
+            ms=median_ms(lambda: spread_kernel.place_windows(*args)),
+            plain_ms=median_ms(lambda: spread_kernel.place_windows_plain(
+                *args)), **bound(b, 0.0))
+        r = parts[part]
+        print(f"[10 echo] place {part}: windows {tuple(wins.shape)}, "
+              f"offsets {offsets}, {l_out} cells a pulse, "
+              f"{'complex64' if complex_out else 'planes'}; vs plain bit for "
+              f"bit, two launches bit-identical; {r['ms']:.3f} ms vs plain "
+              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}, {b / 1e6:.0f} MB)")
+        del got, again, want
+    rec["place"] = dict(
+        max_abs_err=0.0, ms=sum(q["ms"] for q in parts.values()),
+        plain_ms=sum(q["plain_ms"] for q in parts.values()),
+        library_ms=None, **bound(n_bytes, 0.0), per_chunk=parts)
+    del places
 
     fields, kw = slice_echo_operands(dev)
     parts, work = {}, [0.0, 0.0, 0.0]
@@ -1512,7 +1593,8 @@ def phase_e2e(dev, setup) -> dict:
     torch.cuda.synchronize(dev)
     counts = launch_counts(ECHO_WRAPPERS)
     want = {"spread": 2 * E2E_CHUNKS, "spread_qr": 0,
-            "fft_conv": E2E_CHUNKS, "echo_accumulate": 0}
+            "fft_conv": E2E_CHUNKS, "place": 2 * E2E_CHUNKS,
+            "echo_accumulate": 0}
     assert counts == want, counts
     n_p, ns = setup[4].times.shape[0], opts.num_samples
     assert raw.shape == (2, n_p, ns), raw.shape
@@ -1544,7 +1626,8 @@ def phase_e2e(dev, setup) -> dict:
     torch.cuda.synchronize(dev)
     counts_qr = launch_counts(ECHO_WRAPPERS)
     assert counts_qr["spread_qr"] == 2 * E2E_CHUNKS \
-        and counts_qr["spread"] == 0, counts_qr
+        and counts_qr["spread"] == 0 \
+        and counts_qr["place"] == 2 * E2E_CHUNKS, counts_qr
     qr_err = rel_err(raw_qr, raw)
     assert qr_err <= 1e-5, qr_err
     raw_shape = raw.shape
@@ -1558,7 +1641,7 @@ def phase_e2e(dev, setup) -> dict:
           f"{ {k: v for k, v in counts_qr.items() if v} }, raw "
           f"{qr_err:.2e} of the peak from the roll order (<= 1e-5)")
     return {"spread": counts["spread"], "fft_conv": counts["fft_conv"],
-            "spread_qr": counts_qr["spread_qr"]}
+            "spread_qr": counts_qr["spread_qr"], "place": counts["place"]}
 
 
 def phase_echo_gold(dev, sc, raw4, sc4):

@@ -333,6 +333,129 @@ int smem_bytes(int bg, int win, int n_sets, int k_taps) {
   return 4 * (((nv + 3) & ~3) + 5 * bg + 2 * nw + 3);
 }
 
+// ---------------------------------------------------------------------------
+// The window placement: the group windows added into the field.
+//
+// Replaces no Pallas kernel: the JAX package places the windows with jnp in
+// ops/echo_freq.py::_spread_dense (a gather, add and store of each group's
+// 128-sample rows, group by group), as the plain version
+// (ops/cuda/spread_kernel.py::place_windows_plain) does. Per field cell x
+// of the cropped field [0, l_out) of pulse p, with the sets' integer cell
+// offsets off[s] and each window's field cell base[p][g],
+//
+//   acc = 0
+//   for s in sets, for g in groups (in order):
+//     j = x + start - (base[p][g] + off[s])
+//     if 0 <= j < win: acc += wins[p][g][2s + c][j]      (c: re, im)
+//
+// with start = win + lo, the padded field's first kept cell. This is the
+// row loop's order of sums, set-major, then group, from +0.0; the loop
+// also adds +0.0 where a window's padded rows cover a cell (the sub-row
+// roll of an offset set), which never changes a sum that started at +0.0
+// (no such sum is ever -0.0). So the field is the loop's bit for bit.
+//
+// What bounds it on the H100: bytes. At the full-scale chunk (512 pulses,
+// 16 groups) the main pass reads at most its 268 MB of windows and writes
+// two 103 MB planes, the edge pass reads at most 268 MB (less: most of the
+// trailing flank's windows lie past the window's last sample) and writes
+// 54 MB of complex64; the adds are ~0.1 G. The row loop moves ~6.6 GB a
+// chunk through its zero fills, gathers, slab copies and stores.
+//
+// Design: one read of every window cell that lands in the cropped field and
+// one write of every field cell. A block of 512 threads covers 2,048 cells
+// of one pulse (grid: cell blocks x pulses), the pulse's group bases in
+// shared memory; a thread takes 4 adjacent cells and, per (set, group) in
+// the loop's order, adds the window's overlapping cells (one float4 a row
+// where the window cell is 4-aligned, else per cell), then stores them
+// once: float4 rows into the (re, im) planes at the conv's row stride, or
+// two float4 of interleaved complex64. No zero fill, no index tensors, no
+// atomics. Blocks of 512 threads ran the chunk's two launches in 0.218 ms;
+// 256 or 128 threads 0.362, 256 threads of 8 cells 0.226, 1,024 threads
+// 0.226 (H100 80GB HBM3, 700 W).
+constexpr int kPlaceThreads = 512;
+constexpr int kPlaceSets = 4;        // value sets a launch takes
+constexpr int kPlaceGroups = 12288;  // group bases in 48 KB
+
+struct SetOffsets {
+  int v[kPlaceSets];
+};
+
+// wins (pc, grp, 2 S, win) float32; base (pc, grp) int32. Planes: out_r
+// and out_i (pc, row_stride) float32; complex: out_r (pc, row_stride / 2)
+// complex64 interleaved, out_i unused.
+template <bool kComplex>
+__global__ void __launch_bounds__(kPlaceThreads) place_windows_kernel(
+    const float* __restrict__ wins, const int* __restrict__ base,
+    float* __restrict__ out_r, float* __restrict__ out_i, int grp,
+    int n_sets, int win, int start, int l_out, int row_stride,
+    SetOffsets off) {
+  extern __shared__ int s_base[];  // grp
+  const int p = (int)blockIdx.y;
+  for (int g = (int)threadIdx.x; g < grp; g += kPlaceThreads)
+    s_base[g] = __ldg(base + (size_t)p * grp + g);
+  __syncthreads();
+
+  const float* w_p = wins + (size_t)p * grp * 2 * n_sets * win;
+  const bool vec_in = (win & 3) == 0 && ((size_t)wins & 15) == 0;
+  const int x0 = 4 * ((int)blockIdx.x * kPlaceThreads + (int)threadIdx.x);
+  if (x0 >= l_out) return;
+  float re[4] = {0.f, 0.f, 0.f, 0.f}, im[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < n_sets; ++s) {
+    const int shift = x0 + start - off.v[s];
+    for (int g = 0; g < grp; ++g) {
+      const int j0 = shift - s_base[g];
+      if (j0 <= -4 || j0 >= win) continue;
+      const float* wr = w_p + ((size_t)g * 2 * n_sets + 2 * s) * win;
+      const float* wi = wr + win;
+      if (vec_in && (j0 & 3) == 0) {   // then 0 <= j0 <= win - 4
+        const float4 r = __ldcs(reinterpret_cast<const float4*>(wr + j0));
+        const float4 i = __ldcs(reinterpret_cast<const float4*>(wi + j0));
+        re[0] += r.x; re[1] += r.y; re[2] += r.z; re[3] += r.w;
+        im[0] += i.x; im[1] += i.y; im[2] += i.z; im[3] += i.w;
+      } else {
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const int j = j0 + d;
+          if (j >= 0 && j < win) {
+            re[d] += __ldcs(wr + j);
+            im[d] += __ldcs(wi + j);
+          }
+        }
+      }
+    }
+  }
+
+  const bool whole = x0 + 4 <= l_out && (row_stride & 3) == 0;
+  if (kComplex) {
+    float* o = out_r + (size_t)p * row_stride + 2 * (size_t)x0;
+    if (whole && ((size_t)out_r & 15) == 0) {
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(re[0], im[0], re[1], im[1]));
+      __stcs(reinterpret_cast<float4*>(o + 4),
+             make_float4(re[2], im[2], re[3], im[3]));
+    } else {
+      for (int d = 0; d < 4 && x0 + d < l_out; ++d) {
+        o[2 * d] = re[d];
+        o[2 * d + 1] = im[d];
+      }
+    }
+  } else {
+    float* o_r = out_r + (size_t)p * row_stride + x0;
+    float* o_i = out_i + (size_t)p * row_stride + x0;
+    if (whole && (((size_t)out_r | (size_t)out_i) & 15) == 0) {
+      __stcs(reinterpret_cast<float4*>(o_r),
+             make_float4(re[0], re[1], re[2], re[3]));
+      __stcs(reinterpret_cast<float4*>(o_i),
+             make_float4(im[0], im[1], im[2], im[3]));
+    } else {
+      for (int d = 0; d < 4 && x0 + d < l_out; ++d) {
+        o_r[d] = re[d];
+        o_i[d] = im[d];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // items = pc x grp blocks; qr selects the one-accumulator order. Returns the
@@ -350,5 +473,35 @@ extern "C" int spread_windows_launch(const int* cells, const float* vals,
   if (err) return err;
   kernel<<<items, kThreads, smem, (cudaStream_t)stream>>>(
       cells, vals, out, bg, win, n_sets, k_taps);
+  return (int)cudaGetLastError();
+}
+
+// pc pulses of grp group windows, n_sets value sets at cell offsets off0 ..
+// off3; complex_out: out_r is (pc, l_out) complex64 (out_i unused), else
+// out_r / out_i are planes of row_stride floats a pulse. Returns the
+// launch's CUDA error; cudaErrorInvalidValue for a shape it does not take.
+extern "C" int place_windows_launch(const float* wins, const int* base,
+                                    float* out_r, float* out_i, int pc,
+                                    int grp, int n_sets, int win, int start,
+                                    int l_out, int row_stride,
+                                    int complex_out, int off0, int off1,
+                                    int off2, int off3, void* stream) {
+  if (n_sets < 1 || n_sets > kPlaceSets || grp < 1 || grp > kPlaceGroups ||
+      win < 1 || pc < 1 || pc > 65535 || l_out < 1)
+    return (int)cudaErrorInvalidValue;
+  const SetOffsets off = {{off0, off1, off2, off3}};
+  const int cells = 4 * kPlaceThreads;   // a block's
+  const dim3 grid((l_out + cells - 1) / cells, pc);
+  const size_t smem = sizeof(int) * (size_t)grp;
+  if (complex_out)
+    place_windows_kernel<true><<<grid, kPlaceThreads, smem,
+                                 (cudaStream_t)stream>>>(
+        wins, base, out_r, out_i, grp, n_sets, win, start, l_out,
+        row_stride, off);
+  else
+    place_windows_kernel<false><<<grid, kPlaceThreads, smem,
+                                  (cudaStream_t)stream>>>(
+        wins, base, out_r, out_i, grp, n_sets, win, start, l_out,
+        row_stride, off);
   return (int)cudaGetLastError();
 }

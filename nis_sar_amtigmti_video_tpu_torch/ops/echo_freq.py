@@ -133,10 +133,9 @@ def _pack_vals(val_sets, b_pad: int, grp: int) -> torch.Tensor:
 def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
     """The group-window operands of :func:`_spread_dense`: (c_ok (pc, grp,
     bg) int32 window-relative tap-0 cells, -1 for a dropped target; vals
-    (pc, grp, S, 2K, bg) float32; base (pc, grp) each window's field cell;
-    rows_tot, the padded field's 128-sample rows; lo rounded up to 128)."""
+    (pc, grp, S, 2K, bg) float32; base (pc, grp) int32 each window's cell
+    in the padded field; lo rounded up to 128)."""
     pc, num_b = i0.shape
-    max_off = max(off for _, _, off in val_sets)
     bg = -(-num_b // grp)
     b_pad = bg * grp
     far = -(10 ** 6)
@@ -149,7 +148,6 @@ def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
     # equivalent). ``lo`` > 0 admits i0 down to -lo (offset sets can still
     # land such targets' taps in-grid).
     lo = -(-lo // 128) * 128
-    rows_tot = -(-(l_out + 2 * win + lo + max_off + 256) // 128)
     i0g = i0p.reshape(pc, grp, bg) + win + lo
     live = i0g > far // 2
     base = torch.amin(torch.where(live, i0g, 10 ** 6), dim=2) - 8
@@ -160,11 +158,11 @@ def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
     k_max = max(v[0].shape[-1] for v in val_sets)
     ok = live & (c_rel >= 0) & (c_rel <= win - k_max)
     c_ok = torch.where(ok, c_rel, -1).to(torch.int32).contiguous()
-    return c_ok, _pack_vals(val_sets, b_pad, grp), base, rows_tot, lo
+    return c_ok, _pack_vals(val_sets, b_pad, grp), base, lo
 
 
 def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
-                  lo: int = 0, impl: str = "xla"):
+                  lo: int = 0, impl: str = "xla", complex_out: bool = False):
     """Spreading by group windows of delay-ordered targets: values at
     integer cells, each group of B/grp consecutive targets spread into a
     window of ``win`` cells of its own, the windows then added into the
@@ -182,45 +180,22 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
     ``spread_kernel.spread_windows_plain``), 'pallas' or 'pallas_qr'
     (``spread_kernel.spread_windows_pallas``: the kernel on the card, its
     plain version on the CPU; 'pallas_qr' in the one-accumulator order).
-    The row placement is plain PyTorch, as in the reference.
-    Returns (pc, l_out) float32 re/im fields.
+    The windows go into the field through ``spread_kernel.place_windows``
+    (the placement kernel on the card, the reference's row loop on the
+    CPU). Returns (pc, l_out) float32 re/im fields, or with
+    ``complex_out`` the (pc, l_out) complex64 field.
     """
     if impl not in ("xla", "pallas", "pallas_qr"):
         raise ValueError(f"unknown spread impl {impl!r}")
-    pc, dev = i0.shape[0], i0.device
-    c_ok, vals, base, rows_tot, lo = _group_cells(i0, val_sets, l_out, win,
-                                                  grp, lo)
+    c_ok, vals, base, lo = _group_cells(i0, val_sets, l_out, win, grp, lo)
     if impl == "xla":
         wins = spread_kernel.spread_windows_plain(c_ok, vals, win)
     else:
         wins = spread_kernel.spread_windows_pallas(c_ok, vals, win,
                                                    qr=impl == "pallas_qr")
-
-    fr = torch.zeros((pc * rows_tot, 128), dtype=torch.float32, device=dev)
-    fi = torch.zeros_like(fr)
-    row0 = (torch.arange(pc, device=dev) * rows_tot)[:, None]
-    for si, (_, _, offset) in enumerate(val_sets):
-        out_r, out_i = wins[:, :, 2 * si], wins[:, :, 2 * si + 1]
-        # sub-row part of the offset: pad one row and roll the windows
-        off_mod = offset % 128
-        if off_mod:
-            out_r, out_i = (torch.roll(torch.nn.functional.pad(o, (0, 128)),
-                                       off_mod, dims=-1)
-                            for o in (out_r, out_i))
-        nwr = out_r.shape[-1] // 128
-        base_eff = base + (offset - off_mod)
-        rowpos = (_floor_div(base_eff, 128)[:, :, None]
-                  + torch.arange(nwr, device=dev))            # (pc, grp, nwr)
-        # group by group: one group's rows are distinct, so each update is
-        # a plain gather, add and store (a fixed order of the sums)
-        for g in range(grp):
-            idx = (row0 + rowpos[:, g]).reshape(-1)
-            fr[idx] = fr[idx] + out_r[:, g].reshape(-1, 128)
-            fi[idx] = fi[idx] + out_i[:, g].reshape(-1, 128)
-    fr = fr.reshape(pc, rows_tot * 128)
-    fi = fi.reshape(pc, rows_tot * 128)
-    return (fr[:, win + lo:win + lo + l_out],
-            fi[:, win + lo:win + lo + l_out])
+    return spread_kernel.place_windows(wins, base,
+                                       [off for _, _, off in val_sets],
+                                       win + lo, l_out, complex_out)
 
 
 def _wrap32(x64: torch.Tensor) -> torch.Tensor:
@@ -477,13 +452,13 @@ def _edge_exact(pl: _Plan, tau, a_re, a_im):
     pc, ns, dev = tau.shape[0], pl.opts.num_samples, tau.device
     flanks = _edge_flanks(pl, tau, a_re, a_im)
     if pl.spreader != "scatter":
-        corr_r = torch.zeros((pc, ns), dtype=torch.float32, device=dev)
-        corr_i = torch.zeros_like(corr_r)
+        # one call where the flanks share a cell list; else the two calls'
+        # fields add in call order
+        corr = None
         for call in _edge_spread_calls(pl, flanks):
-            er, ei = _spread_dense(*call, impl=pl.d_impl)
-            corr_r = corr_r + er
-            corr_i = corr_i + ei
-        return torch.complex(corr_r, corr_i)
+            e = _spread_dense(*call, impl=pl.d_impl, complex_out=True)
+            corr = e if corr is None else corr + e
+        return corr
     corr_r = torch.zeros((pc * ns,), dtype=torch.float32, device=dev)
     corr_i = torch.zeros_like(corr_r)
     offs = torch.arange(pl.n_edge, device=dev)[None, None, :]

@@ -11,7 +11,9 @@ group's rows from its own pulses alone, bit for bit), the fast-BP accumulate
 kernels on synthetic operands (also on more tiles than the card holds at
 once, twice for the same bits) and at the VideoSAR full width, and the
 NUFFT echo's spread (both orders; cells sorted, reversed, nearly sorted,
-on one cell, at the window's ends) and FFT-conv kernels (every nfft, on
+on one cell, at the window's ends), window placement (bit for bit, at a
+small shape and at the full-scale chain's first chunk, both passes; never
+the plain loop on the card) and FFT-conv kernels (every nfft, on
 column views of wider planes, bands at both ends) and the direct-echo
 kernel at small shapes and at the full-scale GMTI chain's (512-pulse
 chunks, nfft 65,536), with the freq and pallas echo backends end to end on
@@ -39,8 +41,10 @@ from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (bp_factor_kernel,
                                                        fft_kernel,
                                                        gmti_kernel,
                                                        spread_kernel)
+from nis_sar_amtigmti_video_tpu_torch.models.stripmap import echo_opts_for
 from nis_sar_amtigmti_video_tpu_torch.ops.echo import window_start_time
 from nis_sar_amtigmti_video_tpu_torch.scene import targets
+from nis_sar_amtigmti_video_tpu_torch.scene.clutter import ocean_clutter_field
 
 pytestmark = pytest.mark.cuda
 CP = CfarParams()
@@ -1020,17 +1024,140 @@ def test_freq_synthesize_on_card_matches_cpu(dev, spreader):
     def counts():
         return (spread_kernel.spread_windows_pallas.launches,
                 spread_kernel.spread_windows_pallas.launches_qr,
-                fft_kernel.fft_conv_pallas.launches)
+                fft_kernel.fft_conv_pallas.launches,
+                spread_kernel.place_windows.launches)
 
     before = counts()
     got = echo_freq.synthesize(*(a.to(dev) for a in cpu), _freq_kw(),
                                spreader=spreader)
     torch.cuda.synchronize()
     rises = tuple(a - b for a, b in zip(counts(), before))
-    # one chunk: the main spread, the shared two-set edge spread, the conv
-    assert rises == {"auto": (2, 0, 1), "dense_kernel_qr": (0, 2, 1),
-                     "dense": (0, 0, 1)}[spreader]
+    # one chunk: the main spread, the shared two-set edge spread, the conv,
+    # the main and edge placements (every dense spreader)
+    assert rises == {"auto": (2, 0, 1, 2), "dense_kernel_qr": (0, 2, 1, 2),
+                     "dense": (0, 0, 1, 2)}[spreader]
     assert _rel(got.cpu(), want) <= 2e-5
+
+
+def _place_calls(fields, opts, **kw):
+    """The place_windows calls (wins, base, offsets, start, l_out,
+    complex_out) of synthesize on ``fields``' first pulse chunk: the main
+    pass's, then the exact-edge pass's."""
+    n = echo_freq._plan(fields[0], opts, **kw).pulse_chunk
+    calls, place = [], spread_kernel.place_windows
+
+    def rec(*args):
+        calls.append(args)
+        return place(*args)
+
+    rec.launches = 0          # the wrapper counts on what holds its name
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(spread_kernel, "place_windows", rec)
+        echo_freq.synthesize(*(f[:n] for f in fields), opts, **kw)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _small_place_calls(dev):
+    rng = np.random.default_rng(12)
+    p, b = 24, 300
+    tau = np.sort(rng.uniform(5e-6, 5.5e-5, (p, b)), axis=1)
+    fields = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+              (tau, rng.uniform(-np.pi, np.pi, (p, b)),
+               rng.uniform(0.5, 2.0, (p, b)))]
+    return _place_calls(fields, _freq_kw(), spreader="dense_kernel")
+
+
+@pytest.fixture(scope="module")
+def fullscale_place_calls(dev):
+    """The placements of the full-scale chain's first 512-pulse chunk
+    (config.ati_dpca(): 13,200 samples, fs 600 MHz, Tp 20 us, the centred
+    window; the destroyer turned by 90 degrees in 5,000 clutter points)."""
+    sc = config.ati_dpca()
+    g, c = sc.geometry, sc.collect
+    opts = dataclasses.replace(echo_opts_for(sc), backend="freq",
+                               endpoint_grid=False)
+    t0 = window_start_time(g.slant_range_m, opts, c.window_length_s,
+                           "centered")
+    scene = targets.PointTargets.concatenate(
+        [targets.destroyer().rotate_z(90.0),
+         ocean_clutter_field(np.random.default_rng(0))])
+    traj = orbit.make_trajectory(g, orbit.slow_time_grid(
+        512 / sc.radar.prf_hz, 512))
+    fields = echo.scalar_fields(traj, scene, opts, t_start=t0,
+                                rx_offsets=sc.channels.rx_offsets(),
+                                device=dev)
+    return _place_calls(fields, opts, **echo.synth_options(opts))
+
+
+def _re_im(x):
+    if isinstance(x, tuple):
+        return x
+    return torch.view_as_real(x)[..., 0], torch.view_as_real(x)[..., 1]
+
+
+@pytest.mark.parametrize("part", ["main", "edge"])
+@pytest.mark.parametrize("shape", ["small", "full-scale"])
+def test_place_windows_matches_plain_bit_for_bit(dev, request, shape, part):
+    """The placement kernel against its plain version (the row loop, run
+    on the card's tensors) bit for bit, twice the same bits, on the
+    operands synthesize hands it: the main pass's planes (rows a
+    128-multiple of floats apart, as the conv reads them) and the
+    exact-edge pass's complex64 (its two flanks on one cell list). Full
+    scale: 512 pulses, 16 groups, win 4,096 and 2,048, 13,200 samples."""
+    calls = (_small_place_calls(dev) if shape == "small"
+             else request.getfixturevalue("fullscale_place_calls"))
+    assert len(calls) == 2
+    wins, base, offsets, start, l_out, complex_out = calls[
+        ["main", "edge"].index(part)]
+    assert complex_out == (part == "edge")
+    assert len(offsets) == (2 if part == "edge" else 1)
+    if shape == "full-scale":
+        assert tuple(wins.shape) == ((512, 16, 2, 4096) if part == "main"
+                                     else (512, 16, 4, 2048))
+        assert l_out == (50420 if part == "main" else 13200)
+    before = spread_kernel.place_windows.launches
+    got = spread_kernel.place_windows(wins, base, offsets, start, l_out,
+                                      complex_out)
+    again = spread_kernel.place_windows(wins, base, offsets, start, l_out,
+                                        complex_out)
+    torch.cuda.synchronize()
+    assert spread_kernel.place_windows.launches == before + 2
+    want = spread_kernel.place_windows_plain(wins, base, offsets, start,
+                                             l_out, complex_out)
+    for a, b, w in zip(_re_im(got), _re_im(again), _re_im(want)):
+        assert a.shape == w.shape == (wins.shape[0], l_out)
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if not complex_out:
+            assert a.stride(1) == 1 and a.stride(0) % 128 == 0
+    assert float(want[0].abs().max() if not complex_out
+                 else want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("spreader", ["dense", "dense_kernel",
+                                      "dense_kernel_qr"])
+def test_place_windows_never_runs_the_loop_on_card(dev, monkeypatch,
+                                                   spreader):
+    """Every dense spreader places through the kernel on the card, two
+    launches a chunk; the plain loop is never reached."""
+    def loop(*args, **kw):
+        raise AssertionError("the plain placement ran on the card")
+
+    monkeypatch.setattr(spread_kernel, "place_windows_plain", loop)
+    rng = np.random.default_rng(13)
+    p, b = 40, 200
+    tau = np.sort(rng.uniform(5e-6, 5.5e-5, (p, b)), axis=1)
+    fields = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+              (tau, rng.uniform(-np.pi, np.pi, (p, b)),
+               rng.uniform(0.5, 2.0, (p, b)))]
+    before = spread_kernel.place_windows.launches
+    out = echo_freq.synthesize(*fields, _freq_kw(), spreader=spreader,
+                               pulse_chunk=16)
+    torch.cuda.synchronize()
+    assert spread_kernel.place_windows.launches == before + 2 * 3
+    assert bool(torch.isfinite(torch.view_as_real(out)).all())
 
 
 def test_freq_kernel_routes_refuse_on_card(dev):

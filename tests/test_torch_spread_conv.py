@@ -6,8 +6,10 @@ the contiguous result and the JAX package's conv kernel in interpret mode,
 the row-stride check, the spread's shared-memory size, and a NumPy model of
 the spread kernel's arithmetic (occupancy bits, occupied-cell index, stable
 target list, 4-cell groups) held bit for bit to the first design's walk over
-every window cell and tap and to the plain version. On the CPU no kernel
-launches."""
+every window cell and tap and to the plain version; a NumPy model of the
+window placement kernel's per-cell walk held bit for bit to its plain
+version, and that to the row loop it replaced, with synthesize's bits and
+kernel_operands' shapes unchanged by it. On the CPU no kernel launches."""
 
 import numpy as np
 import pytest
@@ -312,3 +314,252 @@ def test_spread_kernel_model_equals_first_design_bit_for_bit(kind, win, qr):
             assert np.array_equal(new.view(np.int32), old.view(np.int32))
             scale = np.abs(plain[p, g]).max()
             assert np.abs(new - plain[p, g]).max() <= 1e-5 * scale
+
+
+# --------------------------------------------------------------------------
+# the window placement (spread_kernel.place_windows): a NumPy model of
+# csrc/spread_kernel.cu's per-cell walk, the plain version and the row loop
+# _spread_dense ran before the placement kernel
+# --------------------------------------------------------------------------
+
+def _loop_placement(wins, base, offsets, l_out, win, lo, rows_tot):
+    """The row loop of ops/echo_freq.py::_spread_dense before the
+    placement kernel, verbatim: (pc, l_out) float32 re/im fields."""
+    pc, dev = wins.shape[0], wins.device
+    grp = wins.shape[1]
+    fr = torch.zeros((pc * rows_tot, 128), dtype=torch.float32, device=dev)
+    fi = torch.zeros_like(fr)
+    row0 = (torch.arange(pc, device=dev) * rows_tot)[:, None]
+    for si, offset in enumerate(offsets):
+        out_r, out_i = wins[:, :, 2 * si], wins[:, :, 2 * si + 1]
+        # sub-row part of the offset: pad one row and roll the windows
+        off_mod = offset % 128
+        if off_mod:
+            out_r, out_i = (torch.roll(torch.nn.functional.pad(o, (0, 128)),
+                                       off_mod, dims=-1)
+                            for o in (out_r, out_i))
+        nwr = out_r.shape[-1] // 128
+        base_eff = base + (offset - off_mod)
+        rowpos = (echo_freq._floor_div(base_eff, 128)[:, :, None]
+                  + torch.arange(nwr, device=dev))            # (pc, grp, nwr)
+        # group by group: one group's rows are distinct, so each update is
+        # a plain gather, add and store (a fixed order of the sums)
+        for g in range(grp):
+            idx = (row0 + rowpos[:, g]).reshape(-1)
+            fr[idx] = fr[idx] + out_r[:, g].reshape(-1, 128)
+            fi[idx] = fi[idx] + out_i[:, g].reshape(-1, 128)
+    fr = fr.reshape(pc, rows_tot * 128)
+    fi = fi.reshape(pc, rows_tot * 128)
+    return (fr[:, win + lo:win + lo + l_out],
+            fi[:, win + lo:win + lo + l_out])
+
+
+def _old_spread_dense(i0, val_sets, l_out, win, grp, lo=0, impl="xla"):
+    """_spread_dense as it was before the placement kernel (its windows,
+    its padded field's rows, the row loop)."""
+    max_off = max(off for _, _, off in val_sets)
+    c_ok, vals, base, lo = echo_freq._group_cells(i0, val_sets, l_out, win,
+                                                  grp, lo)
+    rows_tot = -(-(l_out + 2 * win + lo + max_off + 256) // 128)
+    if impl == "xla":
+        wins = spread_kernel.spread_windows_plain(c_ok, vals, win)
+    else:
+        wins = spread_kernel.spread_windows_pallas(c_ok, vals, win,
+                                                   qr=impl == "pallas_qr")
+    return _loop_placement(wins, base, [o for _, _, o in val_sets], l_out,
+                           win, lo, rows_tot)
+
+
+def _old_edge_exact(pl, tau, a_re, a_im):
+    """_edge_exact's dense branch before the placement kernel."""
+    pc, ns, dev = tau.shape[0], pl.opts.num_samples, tau.device
+    flanks = echo_freq._edge_flanks(pl, tau, a_re, a_im)
+    assert pl.spreader != "scatter"
+    corr_r = torch.zeros((pc, ns), dtype=torch.float32, device=dev)
+    corr_i = torch.zeros_like(corr_r)
+    for call in echo_freq._edge_spread_calls(pl, flanks):
+        er, ei = _old_spread_dense(*call, impl=pl.d_impl)
+        corr_r = corr_r + er
+        corr_i = corr_i + ei
+    return torch.complex(corr_r, corr_i)
+
+
+def _place_model(wins, base, offsets, start, l_out):
+    """The kernel's walk per field cell x: for each set, then each group in
+    order, add window cell j = x + start - (base + offset) where 0 <= j <
+    win, from +0.0 in float32. Returns (2, pc, l_out) float32 (re, im)."""
+    w, b = wins.numpy(), base.numpy()
+    pc, grp, _, win = w.shape
+    x = np.arange(l_out)
+    out = np.zeros((2, pc, l_out), np.float32)
+    for p in range(pc):
+        for s, off in enumerate(offsets):
+            for g in range(grp):
+                j = x + start - (int(b[p, g]) + off)
+                ok = (j >= 0) & (j < win)
+                for c in range(2):
+                    out[c, p, ok] = out[c, p, ok] + w[p, g, 2 * s + c, j[ok]]
+    return out
+
+
+def _clustered(rng, pc, grp, bg, lo_cell, hi_cell, span):
+    """Sorted tap-0 cells: each group's bg targets within ``span`` cells of
+    a centre, the centres spread over [lo_cell, hi_cell)."""
+    c = np.sort(rng.integers(lo_cell, hi_cell, (pc, grp)), axis=1)
+    return np.sort((c[:, :, None] + rng.integers(0, span, (pc, grp, bg)))
+                   .reshape(pc, grp * bg), axis=1)
+
+
+# name -> (pc, targets, taps, l_out, win, grp, lo, offsets, i0 clamp)
+PLACE_CASES = {
+    "one set": (2, 60, 8, 3000, 512, 4, 0, (0,), (-256, 3256)),
+    "two sets at delta": (2, 160, 6, 13200, 256, 4, 11996 + 256,
+                          (0, 11996), (-11996 - 256, 13200 + 256)),
+    "overlapping windows": (2, 96, 8, 2000, 1024, 6, 0, (0,), (-256, 2256)),
+    "dropped targets": (2, 60, 8, 2000, 256, 3, 0, (0,), (-256, 2256)),
+    "far-out clamped": (2, 40, 8, 1500, 512, 4, 0, (0,), (-256, 1756)),
+}
+
+
+def _place_case(name, seed=3):
+    """The case's group windows, bases and start, through _group_cells and
+    the plain spread, as _spread_dense builds them."""
+    pc, num_b, k, l_out, win, grp, lo, offsets, (c_lo, c_hi) = \
+        PLACE_CASES[name]
+    rng = np.random.default_rng(seed)
+    bg = num_b // grp
+    if name == "two sets at delta":
+        # the trailing set of the group at -11,400 lands on the leading
+        # sets of the two groups that share [560, 710)
+        centre = np.array([-11400, 560, 560, 12470])
+        i0 = (centre[None, :, None]
+              + rng.integers(0, 150, (pc, grp, bg))).reshape(pc, num_b)
+    elif name == "overlapping windows":
+        # in no delay order: every group's window spans the same cells
+        i0 = rng.integers(300, 900, (pc, num_b))
+    elif name == "dropped targets":
+        i0 = np.sort(rng.integers(0, 2000, (pc, num_b)), axis=1)
+    elif name == "far-out clamped":
+        i0 = _clustered(rng, pc, grp, bg, 0, l_out, 100)
+        i0[:, :5] = -10 ** 6
+        i0[:, -5:] = 10 ** 6
+    else:
+        i0 = _clustered(rng, pc, grp, bg, -40, l_out + 20, 200)
+    i0 = torch.clamp(torch.from_numpy(i0.astype(np.int32)), c_lo, c_hi)
+    sets = []
+    for off in offsets:
+        vr, vi = (rng.normal(size=(pc, num_b, k)).astype(np.float32)
+                  for _ in range(2))
+        vr[0, 3] = -0.0
+        sets.append((torch.from_numpy(vr), torch.from_numpy(vi), off))
+    c_ok, vals, base, lo_r = echo_freq._group_cells(i0, sets, l_out, win,
+                                                    grp, lo)
+    wins = spread_kernel.spread_windows_plain(c_ok, vals, win)
+    rows_tot = -(-(l_out + 2 * win + lo_r + max(offsets) + 256) // 128)
+    return wins, base, list(offsets), l_out, win, lo_r, rows_tot, c_ok
+
+
+def _bits(t):
+    return t.contiguous().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("complex_out", [False, True])
+@pytest.mark.parametrize("case", sorted(PLACE_CASES))
+def test_place_windows_model_plain_and_loop_bit_for_bit(case, complex_out):
+    """The kernel's per-cell walk (NumPy), place_windows_plain and the row
+    loop _spread_dense ran before the placement kernel give the same bits
+    (values of -0.0 included): one set at offset 0; two sets at the
+    full-scale edge pass's offset (sub-row part 92) with lo > 0;
+    overlapping group windows; dropped targets; far-out cells clamped at
+    the grid's edges. On a CPU tensor place_windows is the plain
+    version."""
+    wins, base, offsets, l_out, win, lo, rows_tot, c_ok = _place_case(case)
+    assert base.dtype == torch.int32
+    if case == "dropped targets":
+        assert int((c_ok < 0).sum()) > 10
+    if case in ("overlapping windows", "two sets at delta"):
+        # cells that sum terms of three or more windows: the order shows
+        w, b = wins.numpy(), base.numpy()
+        terms = np.zeros((wins.shape[0], l_out), int)
+        for p in range(wins.shape[0]):
+            for s, off in enumerate(offsets):
+                for g in range(wins.shape[1]):
+                    j = np.arange(l_out) + win + lo - (int(b[p, g]) + off)
+                    ok = (j >= 0) & (j < win)
+                    terms[p, ok] += w[p, g, 2 * s, j[ok]] != 0
+        assert int((terms >= 3).sum()) > 10
+    start = win + lo
+    model = _place_model(wins, base, offsets, start, l_out)
+    assert np.abs(model).max() > 0
+    loop = _loop_placement(wins, base, offsets, l_out, win, lo, rows_tot)
+    plain = spread_kernel.place_windows_plain(wins, base, offsets, start,
+                                              l_out, complex_out)
+    got = spread_kernel.place_windows(wins, base, offsets, start, l_out,
+                                      complex_out)
+    if complex_out:
+        assert plain.dtype == torch.complex64
+        plain = (torch.view_as_real(plain)[..., 0],
+                 torch.view_as_real(plain)[..., 1])
+        got = (torch.view_as_real(got)[..., 0],
+               torch.view_as_real(got)[..., 1])
+    for c in range(2):
+        assert plain[c].shape == (wins.shape[0], l_out)
+        assert np.array_equal(_bits(plain[c]), model[c].view(np.int32))
+        assert np.array_equal(_bits(plain[c]), _bits(loop[c]))
+        assert np.array_equal(_bits(got[c]), _bits(plain[c]))
+
+
+def test_place_windows_refuses_bad_operands():
+    wins, base, offsets, l_out, win, lo, _, _ = _place_case("one set")
+    with pytest.raises(ValueError, match="2S, win"):
+        spread_kernel.place_windows(wins, base, [0, 5], win + lo, l_out)
+    with pytest.raises(ValueError, match="bases"):
+        spread_kernel.place_windows(wins, base[:, :2], offsets, win + lo,
+                                    l_out)
+    with pytest.raises(ValueError, match="l_out"):
+        spread_kernel.place_windows(wins, base, offsets, win + lo, 0)
+
+
+@pytest.mark.parametrize("flanks", ["shared", "apart"])
+@pytest.mark.parametrize("spreader", ["dense", "dense_kernel"])
+def test_synthesize_bits_unchanged_by_the_placement(monkeypatch, spreader,
+                                                    flanks):
+    """synthesize on the CPU gives the bits it gave with the row loop and
+    the exact-edge pass's zeros / add / complex: both flanks on one cell
+    list (Tp fs an integer) or one call a flank."""
+    opts, fields = _freq_case()
+    if flanks == "apart":
+        opts = echo.EchoOpts(**{**opts.__dict__, "pulse_width_s": 2.01e-6})
+    kw = dict(spreader=spreader, conv="xla")
+    pl = echo_freq._plan(fields[0], opts, **kw)
+    assert pl.share == (flanks == "shared")
+    after = echo_freq.synthesize(*fields, opts, **kw)
+    monkeypatch.setattr(echo_freq, "_spread_dense", _old_spread_dense)
+    monkeypatch.setattr(echo_freq, "_edge_exact", _old_edge_exact)
+    before = echo_freq.synthesize(*fields, opts, **kw)
+    assert np.array_equal(_bits(torch.view_as_real(after)),
+                          _bits(torch.view_as_real(before)))
+
+
+def test_kernel_operands_shapes():
+    """kernel_operands' operands keep their shapes: the main spread's
+    (pc, grp, bg) cells and (pc, grp, 1, 2W, bg) values, one shared-flank
+    edge spread of two sets, the conv's (pc, l_imp) planes with rows a
+    128-multiple of floats apart."""
+    opts, fields = _freq_case()
+    kw = dict(spreader="dense_kernel", conv="pallas")
+    pl = echo_freq._plan(fields[0], opts, **kw)
+    ops = echo_freq.kernel_operands(*fields, opts, **kw)
+    pc, bg = fields[0].shape[0], -(-fields[0].shape[1] // pl.grp)
+    c, v, win = ops["spread main"]
+    assert (tuple(c.shape), tuple(v.shape), win) == (
+        (pc, pl.grp, bg), (pc, pl.grp, 1, 2 * echo_freq._W, bg), pl.win)
+    (ce, ve, win_e), = ops["spread edge"]
+    assert (tuple(ce.shape), tuple(ve.shape), win_e) == (
+        (pc, pl.grp_e, bg), (pc, pl.grp_e, 2, 2 * pl.n_edge, bg), pl.win_e)
+    fr, fi, filt, nfft, rows = ops["conv"]
+    for f in (fr, fi):
+        assert f.shape == (pc, pl.l_imp) and f.stride(1) == 1
+        assert f.stride(0) % 128 == 0
+    assert (tuple(filt.shape), nfft, rows) == ((pl.l_fft,), pl.l_fft,
+                                               pl.rows)
