@@ -23,6 +23,13 @@ raises and the exit code is non-zero:
               both channels as a stack, the phases built outside the
               timing); K1g's, the K2 pair's and K3g's shares of their byte
               bounds, K1g's and K3g's column_plans and K2's k2_plan
+  3c. upstream the same four kernels, and the raw balance, K1, K2 single
+              and K3, at the upstream's CPI, 7,199 x 13,200 (chirp-z
+              azimuth, mixed-radix range) and 7,200 x 13,200, with the
+              tables built once: each vs its plain version to the card
+              tests' bounds, its launches from counters reset just before
+              one call (2 for a chirp-z column pass), its ms beside its
+              byte bound
   3b. csa     K1, K2 single, K3 and the raw balance on the same inputs vs
               their plain versions (<= 1e-4 of the peak, balance angle
               <= 1e-5 rad); K1, K2 single and K3 bit for bit against K1g, K2
@@ -180,6 +187,9 @@ from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (cuda_times_ms,
                                                                median_ms)
 
 N = 4096                      # the headline CPI: 4096 x 4096 after the shift
+# the upstream's CPI (sar_ati_dcpa_sim_csa.py): 7,199 x 13,200 after the
+# DPCA one-pulse shift, 7,200 x 13,200 unshifted
+UPSTREAM_SHAPES = ((7199, 13200), (7200, 13200))
 SHIP_VELOCITY = (15.0, 0.0, 0.0)
 WRAPPERS = {                  # name -> (wrapper, source, TPU kernel replaced)
     "K1g": (gmti_kernel.k1_gmti_planes,
@@ -269,6 +279,8 @@ SFU_PER_S = F32_FLOPS / 16
 TF32_FLOPS = 495e12
 # f32 planes of N^2 each kernel reads plus writes (PR 1's bytes column)
 GMTI_PLANES = {"K1g": 8, "K2 pair": 8, "K3g": 13, "K4": 9}
+# and the single-channel kernels' (phase 3b's bytes)
+CSA_PLANES = {"K1": 4, "K2 single": 4, "K3": 4, "balance": 4}
 SHIP_SPEED, SHIP_HEADING = 15.0, 45.0
 VS_FRAMES = 6
 E2E_CHUNKS = 29        # 512-pulse chunks of the 2 x 7,200-pulse NUFFT echo
@@ -326,19 +338,20 @@ def phase_build():
     print(f"[2 build] {path.name} in {time.perf_counter() - t:.2f} s")
 
 
-def kernel_inputs(dev):
-    """The slice scenario's 4096^2 factors and four seeded planes: channel 2
-    is channel 1 rotated by 0.31 rad plus 5 % independent noise."""
-    sc = slice_scenario(N + 1, N)
+def kernel_inputs(dev, n_az: int = N, n_rg: int = N):
+    """The slice scenario's factors at (n_az, n_rg) (4096^2 unless given)
+    and four seeded planes: channel 2 is channel 1 rotated by 0.31 rad plus
+    5 % independent noise."""
+    sc = slice_scenario(n_az + 1, n_rg)
     g, r = sc.geometry, sc.radar
     t0 = 2.0 * g.slant_range_m / 299792458.0 - r.pulse_width_s / 2 - 1e-6
     f = csa.csa_factors(csa.CsaParams(
         wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate, fs_hz=r.fs_hz,
         prf_hz=r.prf_hz, velocity_mps=g.effective_velocity_mps,
-        range_ref_m=g.slant_range_m, t_start_fast=t0, num_pulses=N,
-        num_samples=N), dev)
+        range_ref_m=g.slant_range_m, t_start_fast=t0, num_pulses=n_az,
+        num_samples=n_rg), dev)
     rng = np.random.default_rng(0)
-    x1r, x1i, n2r, n2i = (rng.standard_normal((N, N), dtype=np.float32)
+    x1r, x1i, n2r, n2i = (rng.standard_normal((n_az, n_rg), dtype=np.float32)
                           for _ in range(4))
     c, s = np.float32(math.cos(0.31)), np.float32(math.sin(0.31))
     return f, [torch.from_numpy(v).to(dev) for v in
@@ -469,6 +482,123 @@ def phase_kernels(dev) -> dict:
           f"threshold; dmag/noise rel err {err:.2e}; "
           f"{rec['K4']['ms']:.3f} ms vs plain {rec['K4']['plain_ms']:.3f} ms")
     return rec
+
+
+def phase_upstream(dev) -> dict:
+    """K1g, the K2 pair, K3g and K4, and the split route's raw balance, K1,
+    K2 single and K3 (channel 1), at the upstream's CPI (UPSTREAM_SHAPES)
+    on phase 3's seeded planes and slice factors at that shape, each stage
+    fed the plain result of the stage before, the tables built once as
+    GmtiCpi holds them: each against its plain version to the card tests'
+    bounds (planes 1e-4 of the peak, balance angle 1e-5 rad, K3g's ATI
+    phase 1e-3 rad on strong pixels, K4's SNR rtol 1e-4, phase mask exact,
+    dmag rtol 1e-6); its launches, from the counters reset just before one
+    call (the chirp-z column passes launch twice); its time (CUDA events,
+    median of 5 after a warm-up) beside its byte bound."""
+    cp = CfarParams()
+    h_out, h_in = cp.guard + cp.train, cp.guard
+    out = {}
+    for n_az, n_rg in UPSTREAM_SHAPES:
+        f, x = kernel_inputs(dev, n_az, n_rg)
+        az = csa_kernel.azimuth_tables(n_az, dev)
+        rg = csa_kernel.range_tables(n_rg, dev)
+        counts = gmti_kernel.cfar_counts(n_az, n_rg, h_out, h_in, dev)
+        key = f"{n_az}x{n_rg}"
+
+        def run(name, kernel, plain, check):
+            reset_launches()
+            got = kernel()
+            launches = launch_counts({**WRAPPERS, **CSA_WRAPPERS})[name]
+            assert launches == (csa_kernel.column_launches(n_az)
+                                if name in ("K1g", "K3g", "K1", "K3")
+                                else 1), launches
+            want = plain()
+            err = check(got, want)
+            ms = median_ms(kernel)
+            b = bound({**GMTI_PLANES, **CSA_PLANES}[name] * 4.0 * n_az
+                      * n_rg, 0.0)
+            out.setdefault(name, {})[key] = dict(
+                ms=ms, bound_ms=b["bound_ms"], launches=launches,
+                rel_err=err)
+            print(f"[3c upstream] {key} {name} rel err {err:.2e}; "
+                  f"{ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+                  f"({b['bound_ms'] / ms:.1%}); {launches} launch(es)")
+            return want
+
+        def planes_err(got, want, idx):
+            err = max(rel_err(got[i], want[i]) for i in idx)
+            assert err <= 1e-4, err
+            return err
+
+        def k1g_check(got, want):
+            d = abs(float(torch.atan2(got[5], got[4])
+                          - torch.atan2(want[5], want[4])))
+            assert d <= 1e-5, d
+            return planes_err(got, want, range(4))
+
+        ref = run("K1g", lambda: gmti_kernel.k1_gmti_planes(
+            *x, f, twiddles=az), lambda: gmti_kernel.k1_gmti_plain(*x, f),
+            k1g_check)
+
+        def balance_check(got, want):
+            d = abs(float(torch.atan2(got[1], got[0])
+                          - torch.atan2(want[1], want[0])))
+            assert d <= 1e-5, d
+            err = rel_err(torch.stack(got), torch.stack(want))
+            assert err <= 1e-4, err
+            return err
+
+        run("balance", lambda: gmti_kernel.raw_balance(*x),
+            lambda: gmti_kernel.raw_balance_plain(*x), balance_check)
+        run("K1", lambda: csa_kernel.k1_call(x[0], x[1], f, twiddles=az),
+            lambda: csa_kernel.k1_plain(x[0], x[1], f),
+            lambda got, want: planes_err(got, want, range(2)))
+        z, xs = ref[:4], ref[4:]
+        del x, ref
+        run("K2 single",
+            lambda: csa_kernel.k2_call(z[0], z[1], f, twiddles=rg),
+            lambda: csa_kernel.k2_plain(z[0], z[1], f),
+            lambda got, want: planes_err(got, want, range(2)))
+        z = run("K2 pair",
+                lambda: csa_kernel.k2_pair_call(*z, f, twiddles=rg),
+                lambda: csa_kernel.k2_pair_plain(*z, f),
+                lambda got, want: planes_err(got, want, range(4)))
+        run("K3", lambda: csa_kernel.k3_call(z[0], z[1], twiddles=az),
+            lambda: csa_kernel.k3_plain(z[0], z[1]),
+            lambda got, want: planes_err(got, want, range(2)))
+        cal = torch.atan2(xs[1], xs[0])
+        cal_cs = torch.stack([torch.cos(cal), torch.sin(cal)])
+
+        def k3g_check(got, want):
+            err = planes_err(got, want, (0, 1, 2, 3, 5, 6, 7, 8, 9))
+            strong = want[5] > 1e-2 * want[5].max()
+            dph = torch.remainder(got[4] - want[4] + math.pi,
+                                  2 * math.pi) - math.pi
+            assert float(dph[strong].abs().max()) < 1e-3
+            return err
+
+        p3 = run("K3g", lambda: gmti_kernel.k3_gmti_planes(
+            *z, cal_cs, h_out=h_out, h_in=h_in, twiddles=az),
+            lambda: gmti_kernel.k3_gmti_plain(*z, cal_cs, h_out=h_out,
+                                              h_in=h_in), k3g_check)
+        del z
+        args = (p3[7], p3[8], p3[6], p3[4], p3[5],
+                0.05 ** 2 * p3[9].max())
+
+        def k4_check(got, want):
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4,
+                                       atol=1e-6)
+            assert torch.equal(got[1], want[1])
+            torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+            return max(rel_err(got[i], want[i]) for i in (0, 2, 3))
+
+        run("K4", lambda: gmti_kernel.k4_epilogue_planes(
+            *args, h_out=h_out, h_in=h_in, counts=counts),
+            lambda: gmti_kernel.k4_epilogue_plain(
+                *args, h_out=h_out, h_in=h_in, counts=counts), k4_check)
+        del p3, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_csa_kernels(dev) -> dict:
@@ -1723,7 +1853,10 @@ def main():
         rec[k].setdefault("library_ms", None)
         rec[k].update(**bound(planes * 4.0 * N * N, 0.0))
     torch.cuda.empty_cache()
+    upstream = timed_phase("upstream", phase_upstream, dev)
     rec.update(timed_phase("csa kernels", phase_csa_kernels, dev))
+    for k, at in upstream.items():
+        rec[k]["upstream"] = at
     torch.cuda.empty_cache()
     launches, raw, sc, t0 = timed_phase("main", phase_main, dev)
     # the single-channel kernels' launches: the formation stream's (K1, K2

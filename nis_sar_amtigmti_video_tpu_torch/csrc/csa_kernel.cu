@@ -54,6 +54,29 @@
 // probe, both with each thread holding both channels' points (128
 // registers, two blocks an SM) and with the pair's 512 threads split by
 // channel and the row's phases staged in shared memory.
+//
+// Every other row length (any n in [64, 16384] whose prime factors are 2,
+// 3, 5, 7, 11 or 13 and that is not a power of two up to 4096; the
+// upstream's 13,200 = 16 x 11 x 5 x 5 x 3) runs the mixed-radix plan,
+// k2_kernel<0>: one row a block, whole in shared memory (n complex slots,
+// 105.6 KB at 13,200: two blocks an SM), 512 threads. The forward
+// transform is one in-place pass per radix (ops/cuda/csa_kernel.py::
+// mixed_radices, read from a device table: 16s, then the rest of the power
+// of two, then the odd primes, largest first), each a
+// decimation-in-frequency step like the register plan's: the R points s +
+// (L / R) j of each sequence of length L, the R-point DFT over j in
+// registers (dft16, nis::dft_reg for 2, 4 and 8, dft_odd for the odd
+// primes), x W_L^(s k), written back to the slots they came from. A
+// butterfly reads and writes only its own slots, so a pass needs one
+// barrier and no second buffer. The spectrum is left in digit-reversed
+// order; Phi2 reads fr at each position's frequency (a table of the
+// order, ops/cuda/csa_kernel.py::mixed_order), and the inverse runs the
+// passes backwards with conjugate twiddles (x conj W first, then the
+// inverse DFT), which takes that order back to the natural one: no
+// permutation pass. The twiddles come from the full n-point table (n may
+// be odd), two loads a butterfly and products for the other powers, as in
+// twiddle_row. Phi2 and Phi3 are the register plan's expressions, so the
+// two plans differ only in the order of the transforms' sums.
 #include "fft_smem.cuh"
 
 namespace {
@@ -85,11 +108,35 @@ struct K2Plan {
   }
 };
 
+// The mixed-radix plan's block
+constexpr int kMixThreads = 512;
+constexpr int kMixBlocksPerSm = 2;
+
 struct K2Args {
   const float *x1r, *x1i, *x2r, *x2i;   // x2*, o2*: the pair's second channel
   const float *fr, *alpha, *beta, *cphase, *dr, *usq, *rphase, *g, *c3;
   const float2* tw;                     // exp(-2 pi i k / N), k < N / 2
   float *o1r, *o1i, *o2r, *o2i;
+  // the mixed-radix plan (k2_kernel<0>): exp(-2 pi i k / n) for k < n, the
+  // forward transform's frequency at each position, the passes' radices in
+  // the forward order (npass of them), the row length
+  const float2* twf;
+  const int* order;
+  const int* radix;
+  int n, npass;
+};
+
+// Threads and blocks an SM of k2_kernel<N>: the register plan's, or the
+// mixed-radix plan's for N = 0
+template <int N>
+struct K2Bounds {
+  static constexpr int kThreads = K2Plan<N>::kThreads;
+  static constexpr int kBlocks = K2Plan<N>::kBlocksPerSm;
+};
+template <>
+struct K2Bounds<0> {
+  static constexpr int kThreads = kMixThreads;
+  static constexpr int kBlocks = kMixBlocksPerSm;
 };
 
 // cos and sin of 2 pi e / 16 rounded to float32: the 16-point DFT's
@@ -299,27 +346,245 @@ __device__ __forceinline__ void row_pass(float2 (&v)[16], float2* buf,
   }
 }
 
+// ---- the mixed-radix plan ---------------------------------------------
+
+// W_n^m of the direction from the full n-point table (0 <= m < n)
+template <bool INV>
+__device__ __forceinline__ float2 twf_pow(const float2* __restrict__ twf,
+                                          int m) {
+  const float2 w = __ldg(twf + m);
+  return INV ? make_float2(w.x, -w.y) : w;
+}
+
+// The R-point DFT (R an odd prime) of u, natural order in and out, with
+// W_R^q = twf[q n / R]: in the symmetric form, a_m = u_m + u_(R-m) and b_m =
+// u_m - u_(R-m) for m <= H = (R - 1) / 2, X_k = u_0 + sum_m a_m cos(2 pi m k /
+// R) - j sum_m b_m sin(2 pi m k / R) and X_(R-k) with + j (the signs swapped
+// for the inverse).
+template <bool INV, int R>
+__device__ __forceinline__ void dft_odd(float2 (&u)[R],
+                                        const float2* __restrict__ twf,
+                                        int n) {
+  constexpr int H = (R - 1) / 2;
+  float c[H + 1], s[H + 1];              // cos, sin of 2 pi q / R, q <= H
+#pragma unroll
+  for (int q = 1; q <= H; ++q) {
+    const float2 w = __ldg(twf + q * (n / R));
+    c[q] = w.x;
+    s[q] = -w.y;
+  }
+  float2 a[H + 1], b[H + 1];
+  const float2 x0 = u[0];
+  float2 sum = x0;
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    a[m] = make_float2(u[m].x + u[R - m].x, u[m].y + u[R - m].y);
+    b[m] = make_float2(u[m].x - u[R - m].x, u[m].y - u[R - m].y);
+    sum = make_float2(sum.x + a[m].x, sum.y + a[m].y);
+  }
+  u[0] = sum;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 re = x0, im = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      const int q = (m * k) % R;
+      const float cq = q <= H ? c[q] : c[R - q];
+      const float sq = q <= H ? s[q] : -s[R - q];
+      re = make_float2(re.x + a[m].x * cq, re.y + a[m].y * cq);
+      im = make_float2(im.x + b[m].x * sq, im.y + b[m].y * sq);
+    }
+    // -j im for the forward X_k, + j im for X_(R-k)
+    const float2 lo = make_float2(re.x + im.y, re.y - im.x);
+    const float2 hi = make_float2(re.x - im.y, re.y + im.x);
+    u[k] = INV ? hi : lo;
+    u[R - k] = INV ? lo : hi;
+  }
+}
+
+// The R-point DFT of one butterfly of the mixed-radix plan
+template <bool INV, int R>
+__device__ __forceinline__ void mixed_dft(float2 (&u)[R],
+                                          const float2* __restrict__ twf,
+                                          int n) {
+  if constexpr (R == 16) dft16<INV>(u);
+  else if constexpr ((R & (R - 1)) == 0) nis::dft_reg<INV, R>(u, twf, n / R);
+  else dft_odd<INV, R>(u, twf, n);
+}
+
+// u[k] x W^(m k) of the direction for 0 < k < R from the full table (m k <
+// n): W^m and, for R > 4, W^(4 m) loaded, the other powers as products (at
+// most five roundings a twiddle, as twiddle_row).
+template <bool INV, int R>
+__device__ __forceinline__ void mixed_twiddle(float2 (&u)[R],
+                                              const float2* __restrict__ twf,
+                                              int m) {
+  constexpr int A = R < 4 ? R : 4, B = (R + 3) / 4;
+  float2 wa[4], wb[4];
+  wa[1] = twf_pow<INV>(twf, m);
+#pragma unroll
+  for (int q = 2; q < A; ++q) wa[q] = nis::cmul(wa[q - 1], wa[1]);
+  if constexpr (B > 1) wb[1] = twf_pow<INV>(twf, 4 * m);
+#pragma unroll
+  for (int q = 2; q < B; ++q) wb[q] = nis::cmul(wb[q - 1], wb[1]);
+#pragma unroll
+  for (int k = 1; k < R; ++k) {
+    const int a = k % 4, b = k / 4;
+    const float2 w = b == 0 ? wa[a] : a == 0 ? wb[b] : nis::cmul(wa[a], wb[b]);
+    u[k] = nis::cmul(u[k], w);
+  }
+}
+
+// One pass of radix R over the row in buf, whose sequences have length
+// len: butterfly (block, s) holds the R slots block len + s + (len / R) j.
+// Forward: the DFT over j, x W_len^(s k), back to slot k. Inverse: x conj
+// W_len^(s k), the inverse DFT, back in place. Ends with a block barrier.
+template <bool INV, int R>
+__device__ void mixed_pass(float2* buf, const float2* __restrict__ twf,
+                           int n, int len) {
+  const int sl = len / R, stride = n / len;
+  for (int b = threadIdx.x; b < n / R; b += blockDim.x) {
+    const int blk = b / sl, s = b - blk * sl;
+    float2* p = buf + blk * len + s;
+    float2 u[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) u[j] = p[j * sl];
+    if constexpr (INV) {
+      if (s) mixed_twiddle<true, R>(u, twf, s * stride);
+      mixed_dft<true, R>(u, twf, n);
+    } else {
+      mixed_dft<false, R>(u, twf, n);
+      if (s) mixed_twiddle<false, R>(u, twf, s * stride);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) p[j * sl] = u[j];
+  }
+  __syncthreads();
+}
+
+template <bool INV>
+__device__ void mixed_pass_of(int r, float2* buf,
+                              const float2* __restrict__ twf, int n,
+                              int len) {
+  switch (r) {
+    case 16: mixed_pass<INV, 16>(buf, twf, n, len); break;
+    case 8: mixed_pass<INV, 8>(buf, twf, n, len); break;
+    case 4: mixed_pass<INV, 4>(buf, twf, n, len); break;
+    case 2: mixed_pass<INV, 2>(buf, twf, n, len); break;
+    case 13: mixed_pass<INV, 13>(buf, twf, n, len); break;
+    case 11: mixed_pass<INV, 11>(buf, twf, n, len); break;
+    case 7: mixed_pass<INV, 7>(buf, twf, n, len); break;
+    case 5: mixed_pass<INV, 5>(buf, twf, n, len); break;
+    default: mixed_pass<INV, 3>(buf, twf, n, len); break;
+  }
+}
+
+// The row's transform in buf: forward, natural order -> the plan's order;
+// or inverse (unnormalised), back to the natural order.
+template <bool INV>
+__device__ void mixed_transform(float2* buf, const K2Args& a) {
+  if constexpr (!INV) {
+    int len = a.n;
+    for (int p = 0; p < a.npass; ++p) {
+      const int r = __ldg(a.radix + p);
+      mixed_pass_of<false>(r, buf, a.twf, a.n, len);
+      len /= r;
+    }
+  } else {
+    int len = __ldg(a.radix + a.npass - 1);
+    for (int p = a.npass - 1; p >= 0; --p) {
+      mixed_pass_of<true>(__ldg(a.radix + p), buf, a.twf, a.n, len);
+      if (p > 0) len *= __ldg(a.radix + p - 1);
+    }
+  }
+}
+
+// A row of the mixed-radix plan (one block): loads, forward transform, x
+// Phi2 at each position's frequency, inverse transform, x Phi3 / n,
+// stores. The same Phi2 and Phi3 expressions as row_pass.
+__device__ __forceinline__ void mixed_row(const K2Args& a, const float* xr,
+                                          const float* xi, float* o_re,
+                                          float* o_im) {
+  const int n = a.n, row = (int)blockIdx.x;
+  float2* buf = reinterpret_cast<float2*>(nis_smem);
+  const size_t at = (size_t)row * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    buf[i] = make_float2(__ldcs(xr + at + i), __ldcs(xi + at + i));
+  __syncthreads();
+  mixed_transform<false>(buf, a);
+  const float al = a.alpha[row];
+  const float be = a.beta[row];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float f = __ldg(a.fr + __ldg(a.order + i));
+    float sn, cs;
+    sincosf((al * f + be) * f, &sn, &cs);
+    buf[i] = nis::cmul(buf[i], make_float2(cs, sn));
+  }
+  __syncthreads();
+  mixed_transform<true>(buf, a);
+  const float rp = a.rphase[row];
+  const float gg = a.g[row];
+  const float cc = a.c3[row];
+  const float inv_n = 1.0f / (float)n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float sn, cs;
+    sincosf(rp + __ldg(a.cphase + i) + gg * __ldg(a.dr + i) -
+                cc * __ldg(a.usq + i),
+            &sn, &cs);
+    const float2 y = nis::cmul(nis::cscale(buf[i], inv_n), make_float2(cs, sn));
+    __stcs(o_re + at + i, y.x);
+    __stcs(o_im + at + i, y.y);
+  }
+}
+
 // One block: K2Plan<N>::kRows rows of channel blockIdx.y (0: x1 -> o1, 1: x2
-// -> o2), T threads a row.
+// -> o2), T threads a row; for N = 0 one row of the mixed-radix plan.
 template <int N>
-__global__ void __launch_bounds__(K2Plan<N>::kThreads,
-                                  K2Plan<N>::kBlocksPerSm)
+__global__ void __launch_bounds__(K2Bounds<N>::kThreads,
+                                  K2Bounds<N>::kBlocks)
     k2_kernel(K2Args a) {
-  using P = K2Plan<N>;
-  constexpr int T = P::T;
   const bool second = blockIdx.y != 0;
   const float* xr = second ? a.x2r : a.x1r;
   const float* xi = second ? a.x2i : a.x1i;
-  const int tid = (int)threadIdx.x, tau = tid % T;
-  const int row = (int)blockIdx.x * P::kRows + tid / T;
-  const size_t at = (size_t)row * N + tau;
-  float2 v[16];
+  if constexpr (N == 0) {
+    mixed_row(a, xr, xi, second ? a.o2r : a.o1r, second ? a.o2i : a.o1i);
+  } else {
+    using P = K2Plan<N>;
+    constexpr int T = P::T;
+    const int tid = (int)threadIdx.x, tau = tid % T;
+    const int row = (int)blockIdx.x * P::kRows + tid / T;
+    const size_t at = (size_t)row * N + tau;
+    float2 v[16];
 #pragma unroll
-  for (int m = 0; m < 16; ++m)
-    v[m] = make_float2(__ldcs(xr + at + T * m), __ldcs(xi + at + T * m));
-  row_pass<N>(v,
-              reinterpret_cast<float2*>(nis_smem) + (tid / T) * P::kRowSlots,
-              a, row, tau, second ? a.o2r : a.o1r, second ? a.o2i : a.o1i);
+    for (int m = 0; m < 16; ++m)
+      v[m] = make_float2(__ldcs(xr + at + T * m), __ldcs(xi + at + T * m));
+    row_pass<N>(v,
+                reinterpret_cast<float2*>(nis_smem) + (tid / T) * P::kRowSlots,
+                a, row, tau, second ? a.o2r : a.o1r, second ? a.o2i : a.o1i);
+  }
+}
+
+// K2 on the mixed-radix plan: one block a row and channel, n complex slots
+// of shared memory (the rest of the SM's 256 KB stays L1).
+static int k2_mixed_run(K2Args a, int n_az, int n_rg, int npass, int nch,
+                        void* stream) {
+  if (npass < 1) return (int)cudaErrorInvalidValue;
+  a.n = n_rg;
+  a.npass = npass;
+  const int smem = n_rg * (int)sizeof(float2);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      k2_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 233472 / (smem + 1024);
+  per_sm = per_sm < kMixBlocksPerSm ? per_sm : kMixBlocksPerSm;
+  err = cudaFuncSetAttribute(
+      k2_kernel<0>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (per_sm * (smem + 1024) * 100 + 233471) / 233472);
+  if (err != cudaSuccess) return (int)err;
+  k2_kernel<0><<<dim3(n_az, nch), kMixThreads, smem,
+                 (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <int N>
@@ -377,6 +642,41 @@ extern "C" int k2_launch(
                  cphase, dr, usq,     rphase,  g,    c3,      tw,
                  o_re, o_im, nullptr, nullptr};
   return k2_dispatch(a, n_az, n_rg, 1, stream);
+}
+
+// Launch K2 pair / K2 on the mixed-radix plan over (n_az, n_rg) planes:
+// n_rg in [64, 16384] with prime factors 2, 3, 5, 7, 11, 13; `twf` the
+// full n_rg-point table, `order` the forward transform's frequency at each
+// position, `radix` the npass radices of the plan in the forward order,
+// all on the device (ops/cuda/csa_kernel.py::range_tables).
+extern "C" int k2_pair_mixed_launch(
+    const float* x1r, const float* x1i, const float* x2r, const float* x2i,
+    const float* fr, const float* alpha, const float* beta,
+    const float* cphase, const float* dr, const float* usq,
+    const float* rphase, const float* g, const float* c3, const float2* twf,
+    const int* order, const int* radix, float* o1r, float* o1i, float* o2r,
+    float* o2i, int n_az, int n_rg, int npass, void* stream) {
+  K2Args a{x1r, x1i, x2r, x2i, fr,  alpha, beta, cphase, dr,
+           usq, rphase, g, c3, nullptr, o1r, o1i, o2r, o2i};
+  a.twf = twf;
+  a.order = order;
+  a.radix = radix;
+  return k2_mixed_run(a, n_az, n_rg, npass, 2, stream);
+}
+
+extern "C" int k2_mixed_launch(
+    const float* xr, const float* xi, const float* fr, const float* alpha,
+    const float* beta, const float* cphase, const float* dr,
+    const float* usq, const float* rphase, const float* g, const float* c3,
+    const float2* twf, const int* order, const int* radix, float* o_re,
+    float* o_im, int n_az, int n_rg, int npass, void* stream) {
+  K2Args a{xr,  xi,     nullptr, nullptr, fr,   alpha,   beta,
+           cphase, dr, usq,     rphase,  g,    c3,      nullptr,
+           o_re, o_im, nullptr, nullptr};
+  a.twf = twf;
+  a.order = order;
+  a.radix = radix;
+  return k2_mixed_run(a, n_az, n_rg, npass, 1, stream);
 }
 
 // Message of a CUDA error code returned by a launcher.

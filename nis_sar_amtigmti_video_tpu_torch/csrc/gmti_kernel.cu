@@ -47,6 +47,26 @@
 // so its box sums close in the block. Balance reads the four planes as
 // float4 on a grid sized to the card, several loads in flight a thread, and
 // closes its sum in the same launch (see balance_kernel).
+// Azimuth sides that are not powers of two (the upstream's 7,199 pulses
+// after the DPCA shift = 23 x 313, or 7,200) run as chirp-z transforms
+// (Bluestein) of the CPI's own length, on the column pass of m points, m
+// the least power of two of at least 2 n_az - 1 (16,384 for both): no
+// padding of the data, the DFT of n_az points exactly. Each kernel runs it
+// in two launches of the same template at STAGE 1 and 2 (the column pass
+// needs the whole column of one transform before the next starts). Stage 1
+// reads the n_az rows (rows n_az .. m - 1 are zeros), multiplies each by
+// the chirp c[n] = exp(-/+ j pi n^2 / n_az), runs the forward column pass
+// and writes the spectrum times the convolution kernel's spectrum H (a
+// table: ops/cuda/csa_kernel.py::chirpz_tables) to m-row planes. Stage 2
+// reads those, runs the inverse column pass (1 / m), keeps rows below
+// n_az times the chirp again, and does what the kernel's one launch does
+// at a power of two: Phi1 (K1, K1g), the stores (K3) or every product and
+// the box sums (K3g, its windows clipped to n_az). K1g's balance sums come
+// from stage 1's spectra (Parseval, 1 / m). m = 8192 and 16,384, and the
+// azimuth side 8192 itself, split over clusters of 16 blocks (non-portable
+// on the H100; 16,384 as 16 x 32 x 32, one block an SM for K3g's 181 KB).
+// A last tile of columns past n_rg (a range side that is not a multiple of
+// the tile) reads its last column again and stores nothing past the edge.
 // No float atomics anywhere: the balance kernel's last block sums the
 // per-block partials in block order, K1g's per-column sums are summed by
 // the wrapper (torch.sum), and K1g's column sums and K3g's column peaks are
@@ -94,6 +114,11 @@ struct Tile {
   int n_rg, cols, log2cols, col0, rank;
 };
 
+// The kernels' chirp-z stages: 0 none (one launch, n_az a power of two), 1
+// the chirp, the forward pass and x H into m-row planes, 2 the inverse
+// pass, the chirp and the kernel's own output
+constexpr int kDirect = 0, kChirpIn = 1, kChirpOut = 2;
+
 template <int CS>
 __device__ __forceinline__ void cluster_barrier() {
   if constexpr (CS > 1)
@@ -117,13 +142,16 @@ __device__ __forceinline__ int slot(int l, int c, const Tile& t) {
 }
 
 // Pass A of NCH channels at once: task (ch, qb, c) for channel ch's planes
-// into y + ch * ysz, so every thread of the block has a load to issue.
-template <bool INV, int NCH, int CS, int QA, int QB>
+// into y + ch * ysz, so every thread of the block has a load to issue. A
+// column past n_rg reads the last one again. CHIRP (chirp-z stage 1): rows
+// from n_valid on are zeros, the others times chirp[row].
+template <bool INV, int NCH, int CS, int QA, int QB, bool CHIRP>
 __device__ void pass_a(const float* __restrict__ z1r,
                        const float* __restrict__ z1i,
                        const float* __restrict__ z2r,
                        const float* __restrict__ z2i, float2* y, int ysz,
-                       const float2* __restrict__ tw, const Tile& t) {
+                       const float2* __restrict__ tw, const Tile& t,
+                       const float2* __restrict__ chirp, int n_valid) {
   constexpr int n = CS * QA * QB;
   const size_t step = (size_t)CS * QB * t.n_rg;
   for (int task = threadIdx.x; task < ((NCH * QB) << t.log2cols);
@@ -132,11 +160,23 @@ __device__ void pass_a(const float* __restrict__ z1r,
     const int ch = u / QB, qb = u % QB;
     const float* __restrict__ zr = ch ? z2r : z1r;
     const float* __restrict__ zi = ch ? z2i : z1i;
-    const size_t at = (size_t)(t.rank + CS * qb) * t.n_rg + t.col0 + c;
+    const int col = min(t.col0 + c, t.n_rg - 1);
+    const size_t at = (size_t)(t.rank + CS * qb) * t.n_rg + col;
     float2 v[QA];
 #pragma unroll
-    for (int a = 0; a < QA; ++a)
-      v[a] = make_float2(__ldg(zr + at + a * step), __ldg(zi + at + a * step));
+    for (int a = 0; a < QA; ++a) {
+      if constexpr (CHIRP) {
+        const int row = t.rank + CS * (qb + QB * a);
+        v[a] = row < n_valid
+                   ? nis::cmul(make_float2(__ldg(zr + at + a * step),
+                                           __ldg(zi + at + a * step)),
+                               __ldg(chirp + row))
+                   : make_float2(0.0f, 0.0f);
+      } else {
+        v[a] = make_float2(__ldg(zr + at + a * step),
+                           __ldg(zi + at + a * step));
+      }
+    }
     nis::dft_reg<INV, QA>(v, tw, n / QA);
 #pragma unroll
     for (int a = 0; a < QA; ++a) {
@@ -171,12 +211,15 @@ __device__ void pass_b(float2* y, const float2* __restrict__ tw,
 
 // Passes A and B of NCH channels (channel ch's planes into y + ch * ysz),
 // then the cluster barrier: every block's Y is complete.
-template <bool INV, int NCH, int CS, int QA, int QB>
+template <bool INV, int NCH, int CS, int QA, int QB, bool CHIRP = false>
 __device__ void column_passes(const float* z1r, const float* z1i,
                               const float* z2r, const float* z2i, float2* y,
                               int ysz, const float2* __restrict__ tw,
-                              const Tile& t) {
-  pass_a<INV, NCH, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
+                              const Tile& t,
+                              const float2* __restrict__ chirp = nullptr,
+                              int n_valid = 0) {
+  pass_a<INV, NCH, CS, QA, QB, CHIRP>(z1r, z1i, z2r, z2i, y, ysz, tw, t,
+                                      chirp, n_valid);
   __syncthreads();
   pass_b<INV, CS, QA, QB>(y, tw, t);
   if constexpr (NCH == 2) pass_b<INV, CS, QA, QB>(y + ysz, tw, t);
@@ -238,17 +281,24 @@ __device__ __forceinline__ Tile tile_of(int n_rg, int log2cols) {
 // gathered spectra before Phi1 (which cancels), each thread's rows in task
 // order, then the threads that served the column (c, c + cols, ...) in
 // thread order, then the cluster's blocks in rank order in rank 0's shared
-// memory, and 1 / n (a power of two) at the end.
-template <int NCH, int CS, int QA, int QB>
-__global__ void __launch_bounds__(kColThreads, 2) k1_kernel(
+// memory, and 1 / n (a power of two) at the end. Chirp-z: STAGE 1 writes
+// the chirped rows' spectra x spec to z* (m-row planes) and takes the
+// balance sums from them; STAGE 2 reads those (x*), and rows below n_valid
+// of the inverse times chirp get Phi1.
+template <int NCH, int CS, int QA, int QB, int STAGE>
+__global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k1_kernel(
     const float* __restrict__ x1r, const float* __restrict__ x1i,
     const float* __restrict__ x2r, const float* __restrict__ x2i,
     const float* __restrict__ u, const float* __restrict__ c1,
     const float* __restrict__ w, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ spec,
     float* __restrict__ z1r, float* __restrict__ z1i,
     float* __restrict__ z2r, float* __restrict__ z2i,
-    float* __restrict__ bal, int n_rg, int balance, int log2cols) {
+    float* __restrict__ bal, int n_rg, int n_valid, int balance,
+    int log2cols) {
   constexpr int Q = QA * QB, n = CS * Q;
+  constexpr bool INV = STAGE == kChirpOut;
+  constexpr bool SUMS = NCH == 2 && STAGE != kChirpOut;
   const Tile t = tile_of<CS>(n_rg, log2cols);
   const int ysz = (Q + QB) << log2cols;
   float2* y = reinterpret_cast<float2*>(nis_smem);
@@ -256,16 +306,40 @@ __global__ void __launch_bounds__(kColThreads, 2) k1_kernel(
   // cols a block of the cluster
   float2* red = y + 2 * ysz;
   float2* part = red + kColThreads;
-  column_passes<false, NCH, CS, QA, QB>(x1r, x1i, x2r, x2i, y, ysz, tw, t);
+  column_passes<INV, NCH, CS, QA, QB, STAGE == kChirpIn>(
+      x1r, x1i, x2r, x2i, y, ysz, tw, t, chirp, n_valid);
   float2 s = make_float2(0.0f, 0.0f);   // X1 conj(X2) over this thread's rows
-  column_gather<false, NCH, CS, QA, QB>(
+  column_gather<INV, NCH, CS, QA, QB>(
       y, ysz, tw, t, [&](int c, int, int row, float2 v1, float2 v2) {
         const int col = t.col0 + c;
+        if (col >= n_rg) return;
+        const size_t idx = (size_t)row * n_rg + col;
+        if constexpr (SUMS) {
+          s.x += v1.x * v2.x + v1.y * v2.y;
+          s.y += v1.y * v2.x - v1.x * v2.y;
+        }
+        if constexpr (STAGE == kChirpIn) {
+          const float2 h = __ldg(spec + row);
+          const float2 a = nis::cmul(v1, h);
+          z1r[idx] = a.x;
+          z1i[idx] = a.y;
+          if constexpr (NCH == 2) {
+            const float2 b = nis::cmul(v2, h);
+            z2r[idx] = b.x;
+            z2i[idx] = b.y;
+          }
+          return;
+        }
+        if constexpr (STAGE == kChirpOut) {
+          if (row >= n_valid) return;
+          const float2 cz = __ldg(chirp + row);
+          v1 = nis::cmul(v1, cz);
+          v2 = nis::cmul(v2, cz);
+        }
         const float du = __ldg(u + col) - __ldg(w + row);
         float sn, cs;
         sincosf(__ldg(c1 + row) * du * du, &sn, &cs);
         const float2 phi = make_float2(cs, sn);
-        const size_t idx = (size_t)row * n_rg + col;
         const float2 a = nis::cmul(v1, phi);
         z1r[idx] = a.x;
         z1i[idx] = a.y;
@@ -273,11 +347,9 @@ __global__ void __launch_bounds__(kColThreads, 2) k1_kernel(
           const float2 b = nis::cmul(v2, phi);
           z2r[idx] = b.x;
           z2i[idx] = b.y;
-          s.x += v1.x * v2.x + v1.y * v2.y;
-          s.y += v1.y * v2.x - v1.x * v2.y;
         }
       });
-  if constexpr (NCH == 2) {
+  if constexpr (SUMS) {
     red[threadIdx.x] = s;
     __syncthreads();
     if ((int)threadIdx.x < t.cols) {
@@ -289,8 +361,9 @@ __global__ void __launch_bounds__(kColThreads, 2) k1_kernel(
     }
   }
   cluster_barrier<CS>();   // every gather and every block's sums are done
-  if constexpr (NCH == 2) {
-    if (t.rank == 0 && (int)threadIdx.x < t.cols) {
+  if constexpr (SUMS) {
+    if (t.rank == 0 && (int)threadIdx.x < t.cols &&
+        t.col0 + (int)threadIdx.x < n_rg) {
       float sr = 0.0f, si = 0.0f;
 #pragma unroll
       for (int r = 0; r < CS; ++r) {
@@ -304,17 +377,31 @@ __global__ void __launch_bounds__(kColThreads, 2) k1_kernel(
   }
 }
 
-template <int CS, int QA, int QB>
-__global__ void __launch_bounds__(kColThreads, 2) k3_kernel(
+// K3: the inverse column DFT of one channel, / n. Chirp-z: STAGE 1 as
+// K1's (the chirped rows' spectra x spec into s*, m-row planes), STAGE 2
+// reads those (z*) and stores rows below n_valid times chirp.
+template <int CS, int QA, int QB, int STAGE>
+__global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3_kernel(
     const float* __restrict__ zr, const float* __restrict__ zi,
-    const float2* __restrict__ tw, float* __restrict__ sr,
-    float* __restrict__ si, int n_rg, int log2cols) {
+    const float2* __restrict__ tw, const float2* __restrict__ chirp,
+    const float2* __restrict__ spec, float* __restrict__ sr,
+    float* __restrict__ si, int n_rg, int n_valid, int log2cols) {
+  constexpr bool INV = STAGE != kChirpIn;
   float2* y = reinterpret_cast<float2*>(nis_smem);
   const Tile t = tile_of<CS>(n_rg, log2cols);
-  column_passes<true, 1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw, t);
-  column_gather<true, 1, CS, QA, QB>(
+  column_passes<INV, 1, CS, QA, QB, STAGE == kChirpIn>(
+      zr, zi, nullptr, nullptr, y, 0, tw, t, chirp, n_valid);
+  column_gather<INV, 1, CS, QA, QB>(
       y, 0, tw, t, [&](int c, int, int row, float2 v, float2) {
-        const size_t idx = (size_t)row * n_rg + t.col0 + c;
+        const int col = t.col0 + c;
+        if (col >= n_rg) return;
+        if constexpr (STAGE == kChirpIn) {
+          v = nis::cmul(v, __ldg(spec + row));
+        } else if constexpr (STAGE == kChirpOut) {
+          if (row >= n_valid) return;
+          v = nis::cmul(v, __ldg(chirp + row));
+        }
+        const size_t idx = (size_t)row * n_rg + col;
         sr[idx] = v.x;
         si[idx] = v.y;
       });
@@ -336,7 +423,7 @@ __device__ __forceinline__ int pslot(int k1, int jj, int c, const Tile& t) {
 
 // The azimuth box sums of half-widths h_out and h_in at `row` (chunk k1,
 // row jj of it) of column c: each the power of rows [row - h, row + h]
-// clipped to the column, summed in row order (a locally windowed sum, as
+// clipped to the column's n rows, summed in row order (a locally windowed sum, as
 // nis::window_sum; adding 0 outside a window changes no bit). One pass over
 // the wider window, from the chunk and its halo when it is within kHalo,
 // else row by row from the blocks that hold the rows.
@@ -344,8 +431,8 @@ template <int CS, int QA, int QB>
 __device__ __forceinline__ float2 column_windows(const float* pcol, int row,
                                                  int k1, int jj, int c,
                                                  int h_out, int h_in,
-                                                 const Tile& t) {
-  constexpr int Q = QA * QB, J = Q / CS, n = CS * Q;
+                                                 const Tile& t, int n) {
+  constexpr int Q = QA * QB, J = Q / CS;
   const int h = h_out > h_in ? h_out : h_in;
   const int lo = (row - h > 0 ? row - h : 0) - row;
   const int hi = (row + h < n - 1 ? row + h : n - 1) - row;
@@ -370,20 +457,46 @@ __device__ __forceinline__ float2 column_windows(const float* pcol, int row,
   return make_float2(so, si);
 }
 
-template <int CS, int QA, int QB>
-__global__ void __launch_bounds__(kColThreads, 2) k3g_kernel(
+// K3g: the inverse column DFT of both channels, / n, and every product
+// from the gathered values. Chirp-z: STAGE 1 as K3's for both channels
+// (into s1*, s2*); STAGE 2 reads those (z*), keeps rows below n_valid times
+// chirp, and clips the windows and the halo to n_valid rows.
+template <int CS, int QA, int QB, int STAGE>
+__global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3g_kernel(
     const float* __restrict__ z1r, const float* __restrict__ z1i,
     const float* __restrict__ z2r, const float* __restrict__ z2i,
     const float* __restrict__ cal_cs, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ spec,
     float* __restrict__ s1r, float* __restrict__ s1i,
     float* __restrict__ s2r, float* __restrict__ s2i,
     float* __restrict__ ph, float* __restrict__ mag, float* __restrict__ pw,
     float* __restrict__ cso, float* __restrict__ csi,
-    float* __restrict__ peaks, int n_rg, int h_out, int h_in, int log2cols) {
+    float* __restrict__ peaks, int n_rg, int n_valid, int h_out, int h_in,
+    int log2cols) {
   constexpr int Q = QA * QB, J = Q / CS, n = CS * Q;
   const Tile t = tile_of<CS>(n_rg, log2cols);
   const int ysz = (Q + QB) << log2cols;
   float2* y = reinterpret_cast<float2*>(nis_smem);
+  if constexpr (STAGE == kChirpIn) {
+    column_passes<false, 2, CS, QA, QB, true>(z1r, z1i, z2r, z2i, y, ysz, tw,
+                                              t, chirp, n_valid);
+    column_gather<false, 2, CS, QA, QB>(
+        y, ysz, tw, t, [&](int c, int, int row, float2 v1, float2 v2) {
+          const int col = t.col0 + c;
+          if (col >= n_rg) return;
+          const float2 h = __ldg(spec + row);
+          const float2 a = nis::cmul(v1, h), b = nis::cmul(v2, h);
+          const size_t idx = (size_t)row * n_rg + col;
+          s1r[idx] = a.x;
+          s1i[idx] = a.y;
+          s2r[idx] = b.x;
+          s2i[idx] = b.y;
+        });
+    cluster_barrier<CS>();
+    return;
+  } else {
+  // the rows of the transform that are the CPI's
+  const int nv = STAGE == kChirpOut ? n_valid : n;
   float* pcol = reinterpret_cast<float*>(y + 2 * ysz);
   float* red = pcol + ((Q + 2 * kHalo * CS) << log2cols);
   column_passes<true, 2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
@@ -393,7 +506,14 @@ __global__ void __launch_bounds__(kColThreads, 2) k3g_kernel(
   float m = 0.0f;     // max |s1|^2 over this thread's rows of column c
   column_gather<true, 2, CS, QA, QB>(
       y, ysz, tw, t, [&](int c, int lr, int row, float2 v1, float2 v2) {
-        const size_t idx = (size_t)row * n_rg + t.col0 + c;
+        const int col = t.col0 + c;
+        if (col >= n_rg || row >= nv) return;
+        if constexpr (STAGE == kChirpOut) {
+          const float2 cz = __ldg(chirp + row);
+          v1 = nis::cmul(v1, cz);
+          v2 = nis::cmul(v2, cz);
+        }
+        const size_t idx = (size_t)row * n_rg + col;
         s1r[idx] = v1.x;
         s1i[idx] = v1.y;
         s2r[idx] = v2.x;
@@ -423,7 +543,8 @@ __global__ void __launch_bounds__(kColThreads, 2) k3g_kernel(
     red[threadIdx.x] = m;
   }
   cluster_barrier<CS>();   // every block's pcol and column maxima are done
-  if (t.rank == 0 && (int)threadIdx.x < t.cols) {
+  if (t.rank == 0 && (int)threadIdx.x < t.cols &&
+      t.col0 + (int)threadIdx.x < n_rg) {
     float pk = 0.0f;
 #pragma unroll
     for (int r = 0; r < CS; ++r)
@@ -438,7 +559,7 @@ __global__ void __launch_bounds__(kColThreads, 2) k3g_kernel(
     const int k1 = (task >> log2cols) / (2 * kHalo);
     const int first = k1 * Q + t.rank * J;       // the chunk's first row
     const int row = e < kHalo ? first - kHalo + e : first + J + e - kHalo;
-    if (row >= 0 && row < n) {
+    if (row >= 0 && row < nv) {
       const int jq = row % Q;
       const float* src = block_smem<CS>(pcol, jq / J);
       pcol[((k1 * (J + 2 * kHalo) + (e < kHalo ? e : J + e)) << log2cols)
@@ -457,13 +578,15 @@ __global__ void __launch_bounds__(kColThreads, 2) k3g_kernel(
     const int c = task & (t.cols - 1), lr = task >> log2cols;
     const int k1 = lr / J, jj = lr % J;
     const int row = k1 * Q + t.rank * J + jj;
+    if (row >= nv || t.col0 + c >= n_rg) continue;
     const size_t idx = (size_t)row * n_rg + t.col0 + c;
     const float2 w = column_windows<CS, QA, QB>(pcol, row, k1, jj, c,
-                                                h_out, h_in, t);
+                                                h_out, h_in, t, nv);
     cso[idx] = w.x;
     csi[idx] = w.y;
   }
   if (!local) cluster_barrier<CS>();   // others read this pcol until then
+  }
 }
 
 __global__ void k4_kernel(
@@ -501,8 +624,8 @@ __global__ void k4_kernel(
   }
 }
 
-// Raw balance: re / im of sum(x1 conj(x2)) over n4 float4 of each plane, in
-// one launch. Thread i of the grid takes float4 i, i + S, i + 2 S, ... (S
+// Raw balance: re / im of sum(x1 conj(x2)) over n4 float4 of each plane
+// (and the last n % 4 floats, added by the last block), in one launch. Thread i of the grid takes float4 i, i + S, i + 2 S, ... (S
 // the grid's threads), kBalU of them per plane at a time: their loads go out
 // together (streaming loads, evict-first: each byte is read once) into kBalU
 // separate sums, combined in a fixed order. A block reduces its threads in a
@@ -519,7 +642,8 @@ __global__ void __launch_bounds__(kBalThreads, kBalBlocksPerSm)
     balance_kernel(
     const float4* __restrict__ x1r, const float4* __restrict__ x1i,
     const float4* __restrict__ x2r, const float4* __restrict__ x2i,
-    float* __restrict__ work, float* __restrict__ out, long long n4) {
+    float* __restrict__ work, float* __restrict__ out, long long n4,
+    int tail) {
   unsigned int* ticket = reinterpret_cast<unsigned int*>(work);
   float* part = work + 1;
   __shared__ float red[32];
@@ -576,6 +700,15 @@ __global__ void __launch_bounds__(kBalThreads, kBalBlocksPerSm)
   sr = nis::block_sum(red, sr);
   si = nis::block_sum(red, si);
   if (threadIdx.x == 0) {
+    // the last n % 4 floats of each plane, after every float4
+    const float* ar = reinterpret_cast<const float*>(x1r + n4);
+    const float* ai = reinterpret_cast<const float*>(x1i + n4);
+    const float* br = reinterpret_cast<const float*>(x2r + n4);
+    const float* bi = reinterpret_cast<const float*>(x2i + n4);
+    for (int k = 0; k < tail; ++k) {
+      sr += ar[k] * br[k] + ai[k] * bi[k];
+      si += ai[k] * br[k] - ar[k] * bi[k];
+    }
     out[0] = sr;
     out[1] = si;
     *ticket = 0u;                    // ready for the next launch
@@ -585,13 +718,14 @@ __global__ void __launch_bounds__(kBalThreads, kBalBlocksPerSm)
 }  // namespace
 
 // Each launcher runs its kernel over (n_az, n_rg) f32 planes on `stream`
-// (n_az, n_rg powers of two) and returns cudaGetLastError() after the launch.
+// and returns cudaGetLastError() after the launch.
 
 // The column pass's launch plan (ops/cuda/csa_kernel.py::column_plan):
-// `cols` columns a tile (a power of two, 8 to kColThreads, dividing n_rg),
-// a cluster of `cluster` blocks a tile, `smem` bytes of dynamic shared
-// memory a block. The split of n_az into CS x QA x QB is fixed by (n_az,
-// cluster): QA = 2^ceil(log2(Q) / 2), QB = Q / QA, Q = n_az / cluster.
+// `cols` columns a tile (a power of two, 8 to kColThreads; the last tile
+// may pass n_rg), a cluster of `cluster` blocks a tile, `smem` bytes of
+// dynamic shared memory a block. The split of the transform's n points
+// into CS x QA x QB is fixed by (n, cluster): QA = 2^ceil(log2(Q) / 2), QB
+// = Q / QA, Q = n / cluster.
 // The shared memory a block of the plan needs: per channel (Q + QB) x cols
 // float2; K1g (`forward`) adds one float2 a thread and cluster x cols
 // float2 of block sums; K3g its Q x cols power slots, 2 kHalo x cols halo
@@ -610,27 +744,32 @@ static int column_smem(int nch, bool forward, int n_az, int cluster,
   return bytes;
 }
 
-// Launches `kernel` as n_rg / cols tiles of clusters of CS blocks, after
-// checking the plan; returns the CUDA error code.
+// Launches `kernel` as ceil(n_rg / cols) tiles of clusters of CS blocks,
+// after checking the plan; returns the CUDA error code. Clusters of more
+// than 8 blocks are non-portable: the kernel is allowed them first.
 template <int CS, typename... KArgs, typename... Args>
 static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
-                         int n_az, int n_rg, int cols, int smem,
+                         int n, int n_rg, int cols, int smem,
                          void* stream, Args... args) {
   if (cols < 8 || cols > kColThreads || (cols & (cols - 1)) != 0
-      || n_rg % cols != 0
-      || smem != column_smem(nch, forward, n_az, CS, cols)
+      || smem != column_smem(nch, forward, n, CS, cols)
       || smem > 232448)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
+  if (CS > 8) {
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = CS;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_rg / cols * CS);
+  cfg.gridDim = dim3((n_rg + cols - 1) / cols * CS);
   cfg.blockDim = dim3(kColThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -641,64 +780,112 @@ static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
   return (int)cudaGetLastError();
 }
 
-// The (n_az, cluster) splits the column pass is built for, one per n_az
+// The (n, cluster) splits the column pass is built for, one per n
 // (column_plan's): F(CS, QA, QB) for the launch's pair;
-// cudaErrorInvalidValue for any other.
+// cudaErrorInvalidValue for any other. Direct: the azimuth sides that are
+// powers of two, each with its stage 0. Chirp-z: the chirp-z lengths 256
+// to 16,384, each with its stages 1 and 2 (one after the other).
 template <typename F>
-static int column_dispatch(int n_az, int cluster, F f) {
-  switch (n_az * 16 + cluster) {
-    case 64 * 16 + 1: return f.template run<1, 8, 8>();
-    case 128 * 16 + 1: return f.template run<1, 16, 8>();
-    case 256 * 16 + 1: return f.template run<1, 16, 16>();
-    case 512 * 16 + 1: return f.template run<1, 32, 16>();
-    case 1024 * 16 + 2: return f.template run<2, 32, 16>();
-    case 2048 * 16 + 4: return f.template run<4, 32, 16>();
-    case 4096 * 16 + 8: return f.template run<8, 32, 16>();
+static int column_dispatch(int n, int cluster, F f) {
+  switch (n * 32 + cluster) {
+    case 64 * 32 + 1: return f.template run<1, 8, 8, kDirect>();
+    case 128 * 32 + 1: return f.template run<1, 16, 8, kDirect>();
+    case 256 * 32 + 1: return f.template run<1, 16, 16, kDirect>();
+    case 512 * 32 + 1: return f.template run<1, 32, 16, kDirect>();
+    case 1024 * 32 + 2: return f.template run<2, 32, 16, kDirect>();
+    case 2048 * 32 + 4: return f.template run<4, 32, 16, kDirect>();
+    case 4096 * 32 + 8: return f.template run<8, 32, 16, kDirect>();
+    case 8192 * 32 + 16: return f.template run<16, 32, 16, kDirect>();
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int CS, int QA, int QB, typename F>
+static int chirpz_stages(F f) {
+  const int err = f.template run<CS, QA, QB, kChirpIn>();
+  return err ? err : f.template run<CS, QA, QB, kChirpOut>();
+}
+
+template <typename F>
+static int chirpz_dispatch(int m, int cluster, F f) {
+  switch (m * 32 + cluster) {
+    case 256 * 32 + 1: return chirpz_stages<1, 16, 16>(f);
+    case 512 * 32 + 1: return chirpz_stages<1, 32, 16>(f);
+    case 1024 * 32 + 2: return chirpz_stages<2, 32, 16>(f);
+    case 2048 * 32 + 4: return chirpz_stages<4, 32, 16>(f);
+    case 4096 * 32 + 8: return chirpz_stages<8, 32, 16>(f);
+    case 8192 * 32 + 16: return chirpz_stages<16, 32, 16>(f);
+    case 16384 * 32 + 16: return chirpz_stages<16, 32, 32>(f);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A launch's planes: stage 1 reads the CPI's planes (x*) and writes the
+// chirp-z planes (c*); stage 2 reads c* and writes the kernel's outputs
+// (o*); the direct launch reads x* and writes o*.
+template <int STAGE, typename T>
+static T* in_plane(T* x, T* c) { return STAGE == kChirpOut ? c : x; }
+template <int STAGE>
+static float* out_plane(float* o, float* c) {
+  return STAGE == kChirpIn ? c : o;
 }
 
 template <int NCH>
 struct K1Launch {
   const float *x1r, *x1i, *x2r, *x2i, *u, *c1, *w;
-  const float2* tw;
+  const float2 *tw, *chirp, *spec;
+  float *c1r, *c1i, *c2r, *c2i;   // the chirp-z planes (m rows)
   float *z1r, *z1i, *z2r, *z2i, *bal;
-  int n_az, n_rg, balance, cols, smem;
+  int n, n_az, n_rg, balance, cols, smem;
   void* stream;
-  template <int CS, int QA, int QB>
+  template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS>(k1_kernel<NCH, CS, QA, QB>, NCH, true, n_az,
-                             n_rg, cols, smem, stream, x1r, x1i, x2r, x2i, u,
-                             c1, w, tw, z1r, z1i, z2r, z2i, bal, n_rg,
-                             balance);
+    return column_launch<CS>(
+        k1_kernel<NCH, CS, QA, QB, STAGE>, NCH, true, n, n_rg, cols, smem,
+        stream, in_plane<STAGE, const float>(x1r, c1r),
+        in_plane<STAGE, const float>(x1i, c1i),
+        in_plane<STAGE, const float>(x2r, c2r),
+        in_plane<STAGE, const float>(x2i, c2i), u, c1, w, tw, chirp, spec,
+        out_plane<STAGE>(z1r, c1r), out_plane<STAGE>(z1i, c1i),
+        out_plane<STAGE>(z2r, c2r), out_plane<STAGE>(z2i, c2i), bal, n_rg,
+        n_az, balance);
   }
 };
 
 struct K3Launch {
   const float *zr, *zi;
-  const float2* tw;
-  float *sr, *si;
-  int n_az, n_rg, cols, smem;
+  const float2 *tw, *chirp, *spec;
+  float *cr, *ci, *sr, *si;
+  int n, n_az, n_rg, cols, smem;
   void* stream;
-  template <int CS, int QA, int QB>
+  template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS>(k3_kernel<CS, QA, QB>, 1, false, n_az, n_rg,
-                             cols, smem, stream, zr, zi, tw, sr, si, n_rg);
+    return column_launch<CS>(
+        k3_kernel<CS, QA, QB, STAGE>, 1, false, n, n_rg, cols, smem, stream,
+        in_plane<STAGE, const float>(zr, cr),
+        in_plane<STAGE, const float>(zi, ci), tw, chirp, spec,
+        out_plane<STAGE>(sr, cr), out_plane<STAGE>(si, ci), n_rg, n_az);
   }
 };
 
 struct K3gLaunch {
   const float *z1r, *z1i, *z2r, *z2i, *cal_cs;
-  const float2* tw;
+  const float2 *tw, *chirp, *spec;
+  float *c1r, *c1i, *c2r, *c2i;
   float *s1r, *s1i, *s2r, *s2i, *ph, *mag, *pw, *cso, *csi, *peaks;
-  int n_az, n_rg, cols, smem, h_out, h_in;
+  int n, n_az, n_rg, cols, smem, h_out, h_in;
   void* stream;
-  template <int CS, int QA, int QB>
+  template <int CS, int QA, int QB, int STAGE>
   int run() const {
     return column_launch<CS>(
-        k3g_kernel<CS, QA, QB>, 2, false, n_az, n_rg, cols, smem, stream,
-        z1r, z1i, z2r, z2i, cal_cs, tw, s1r, s1i, s2r, s2i, ph, mag, pw, cso,
-        csi, peaks, n_rg, h_out, h_in);
+        k3g_kernel<CS, QA, QB, STAGE>, 2, false, n, n_rg, cols, smem, stream,
+        in_plane<STAGE, const float>(z1r, c1r),
+        in_plane<STAGE, const float>(z1i, c1i),
+        in_plane<STAGE, const float>(z2r, c2r),
+        in_plane<STAGE, const float>(z2i, c2i), cal_cs, tw, chirp, spec,
+        out_plane<STAGE>(s1r, c1r), out_plane<STAGE>(s1i, c1i),
+        out_plane<STAGE>(s2r, c2r), out_plane<STAGE>(s2i, c2i), ph, mag, pw,
+        cso, csi, peaks, n_rg, n_az, h_out, h_in);
   }
 };
 
@@ -709,8 +896,9 @@ extern "C" int k1g_launch(
     int n_rg, int balance, int cols, int cluster, int smem, void* stream) {
   return column_dispatch(
       n_az, cluster,
-      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, z1r, z1i, z2r, z2i, bal,
-                  n_az, n_rg, balance, cols, smem, stream});
+      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, z1r, z1i, z2r, z2i,
+                  bal, n_az, n_az, n_rg, balance, cols, smem, stream});
 }
 
 extern "C" int k1_launch(const float* xr, const float* xi, const float* u,
@@ -719,15 +907,19 @@ extern "C" int k1_launch(const float* xr, const float* xi, const float* u,
                          int cluster, int smem, void* stream) {
   return column_dispatch(
       n_az, cluster,
-      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, zr, zi, nullptr,
-                  nullptr, nullptr, n_az, n_rg, 0, cols, smem, stream});
+      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, zr, zi, nullptr,
+                  nullptr, nullptr, n_az, n_az, n_rg, 0, cols, smem,
+                  stream});
 }
 
 extern "C" int k3_launch(const float* zr, const float* zi, const float2* tw,
                          float* sr, float* si, int n_az, int n_rg, int cols,
                          int cluster, int smem, void* stream) {
-  return column_dispatch(n_az, cluster, K3Launch{zr, zi, tw, sr, si, n_az,
-                                                 n_rg, cols, smem, stream});
+  return column_dispatch(
+      n_az, cluster,
+      K3Launch{zr, zi, tw, nullptr, nullptr, nullptr, nullptr, sr, si, n_az,
+               n_az, n_rg, cols, smem, stream});
 }
 
 extern "C" int k3g_launch(
@@ -738,9 +930,67 @@ extern "C" int k3g_launch(
     int cols, int cluster, int smem, void* stream) {
   return column_dispatch(
       n_az, cluster,
-      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, s1r, s1i, s2r, s2i, ph, mag,
-                pw, cso, csi, peaks, n_az, n_rg, cols, smem, h_out, h_in,
+      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, nullptr, nullptr, nullptr,
+                nullptr, nullptr, nullptr, s1r, s1i, s2r, s2i, ph, mag, pw,
+                cso, csi, peaks, n_az, n_az, n_rg, cols, smem, h_out, h_in,
                 stream});
+}
+
+// The chirp-z launchers: the same kernels at an n_az that is not a power
+// of two, as stage 1 then stage 2 on `stream`, through (m, n_rg) planes
+// c* of the caller's (m the chirp-z length, with `cluster` and `smem` the
+// column plan's at m); `tw` the m-point table, `chirp` (n_az) and `spec`
+// (m) the direction's tables (ops/cuda/csa_kernel.py::chirpz_tables).
+extern "C" int k1g_chirpz_launch(
+    const float* x1r, const float* x1i, const float* x2r, const float* x2i,
+    const float* u, const float* c1, const float* w, const float2* tw,
+    const float2* chirp, const float2* spec, float* c1r, float* c1i,
+    float* c2r, float* c2i, float* z1r, float* z1i, float* z2r, float* z2i,
+    float* bal, int n_az, int m, int n_rg, int balance, int cols,
+    int cluster, int smem, void* stream) {
+  return chirpz_dispatch(
+      m, cluster,
+      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, c1r, c1i,
+                  c2r, c2i, z1r, z1i, z2r, z2i, bal, m, n_az, n_rg, balance,
+                  cols, smem, stream});
+}
+
+extern "C" int k1_chirpz_launch(
+    const float* xr, const float* xi, const float* u, const float* c1,
+    const float* w, const float2* tw, const float2* chirp,
+    const float2* spec, float* cr, float* ci, float* zr, float* zi, int n_az,
+    int m, int n_rg, int cols, int cluster, int smem, void* stream) {
+  return chirpz_dispatch(
+      m, cluster,
+      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, chirp, spec, cr,
+                  ci, nullptr, nullptr, zr, zi, nullptr, nullptr, nullptr, m,
+                  n_az, n_rg, 0, cols, smem, stream});
+}
+
+extern "C" int k3_chirpz_launch(
+    const float* zr, const float* zi, const float2* tw, const float2* chirp,
+    const float2* spec, float* cr, float* ci, float* sr, float* si,
+    int n_az, int m, int n_rg, int cols, int cluster, int smem,
+    void* stream) {
+  return chirpz_dispatch(
+      m, cluster,
+      K3Launch{zr, zi, tw, chirp, spec, cr, ci, sr, si, m, n_az, n_rg, cols,
+               smem, stream});
+}
+
+extern "C" int k3g_chirpz_launch(
+    const float* z1r, const float* z1i, const float* z2r, const float* z2i,
+    const float* cal_cs, const float2* tw, const float2* chirp,
+    const float2* spec, float* c1r, float* c1i, float* c2r, float* c2i,
+    float* s1r, float* s1i, float* s2r, float* s2i, float* ph, float* mag,
+    float* pw, float* cso, float* csi, float* peaks, int n_az, int m,
+    int n_rg, int h_out, int h_in, int cols, int cluster, int smem,
+    void* stream) {
+  return chirpz_dispatch(
+      m, cluster,
+      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, c1r, c1i, c2r,
+                c2i, s1r, s1i, s2r, s2i, ph, mag, pw, cso, csi, peaks, m,
+                n_az, n_rg, cols, smem, h_out, h_in, stream});
 }
 
 extern "C" int k4_launch(
@@ -764,20 +1014,21 @@ extern "C" int k4_launch(
 extern "C" int balance_loads_per_block() { return kBalThreads * kBalU; }
 extern "C" int balance_blocks_per_sm() { return kBalBlocksPerSm; }
 
-// Raw balance over n4 = n_az * n_rg / 4 float4 of each plane on `blocks`
-// blocks (ops/cuda/gmti_kernel.py::balance_grid): `work` holds the ticket
-// (a zero uint32, left zero) and then 2 x blocks floats for the partials,
-// `out` re and im.
+// Raw balance over the n_az * n_rg floats of each plane, n4 = n_az * n_rg
+// / 4 float4 and the rest, on `blocks` blocks
+// (ops/cuda/gmti_kernel.py::balance_grid): `work` holds the ticket (a zero
+// uint32, left zero) and then 2 x blocks floats for the partials, `out` re
+// and im.
 extern "C" int balance_launch(const float* x1r, const float* x1i,
                               const float* x2r, const float* x2i,
                               float* work, float* out, int n_az, int n_rg,
                               int blocks, void* stream) {
-  if (n_rg % 4 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)n_az * n_rg;
   balance_kernel<<<blocks, kBalThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(x1r),
       reinterpret_cast<const float4*>(x1i),
       reinterpret_cast<const float4*>(x2r),
-      reinterpret_cast<const float4*>(x2i), work, out,
-      (long long)n_az * n_rg / 4);
+      reinterpret_cast<const float4*>(x2i), work, out, n / 4, (int)(n % 4));
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,15 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/gmti/fused.py``:
   K3g's per-column peaks. The reference's other TPU knobs (mode, variants,
   rows, ``balance_impl``, ``k2_impl``, ``epilogue``) have no counterpart
   here.
+
+  Any CPI of ``csa_kernel.supported``: the upstream's 7,199 x 13,200 runs
+  K1g and K3g as chirp-z transforms (two launches each) and K2 on its
+  mixed-radix plan. Each kernel runs under its span (``focus.k1g``,
+  ``focus.k2``, ``focus.k3g``, ``focus.k4``; the split route's
+  ``focus.balance`` and ``focus.k1``), and the counters
+  ``cpi.chirpz_axes`` and ``cpi.mixed_radix_axes`` count the CPI's axis
+  transforms (azimuth forward and inverse, range forward and inverse) that
+  ran by chirp-z and by the mixed-radix plan.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from torch import nn
 from nis_sar_amtigmti_video_tpu_torch.gmti import cfar as cfar_mod
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import csa_kernel, gmti_kernel
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import count, span
 
 K1_IMPLS = ("fused2ch", "split")
 
@@ -62,10 +72,21 @@ def gmti_product_step(s1, s2, *, balance: bool = True,
     return cal, phase, dmag, det
 
 
+def _map_tables(fn, tables):
+    """``fn`` applied to a table tensor, or to each tensor of a table
+    tuple (``csa_kernel.ChirpZ`` / ``MixedRadix``)."""
+    if isinstance(tables, torch.Tensor):
+        return fn(tables)
+    return type(tables)(*(fn(t) for t in tables))
+
+
 class GmtiCpi(nn.Module):
-    """The kernel-path CPI with its per-configuration state as buffers, so
-    ``.to(device)`` moves it: the 1-D ``CsaFactors`` vectors, the azimuth
-    and range twiddle tables and the CFAR count vectors."""
+    """The kernel-path CPI with its per-configuration state, which
+    ``.to(device)`` moves: the 1-D ``CsaFactors`` vectors and the CFAR
+    count vectors as buffers, and the tables the kernels read, as the
+    wrappers take them: ``az`` (``csa_kernel.azimuth_tables``: a twiddle
+    table, or the chirp-z tables) and ``rg`` (``range_tables``: a twiddle
+    table, or the mixed-radix plan's tables)."""
 
     def __init__(self, f: CsaFactors,
                  cfar_params: cfar_mod.CfarParams | None = None):
@@ -75,8 +96,11 @@ class GmtiCpi(nn.Module):
         for name in CsaFactors._fields:
             self.register_buffer(name, getattr(f, name))
         dev = f.u.device
-        self.register_buffer("tw_az", csa_kernel.twiddle_table(n_az, dev))
-        self.register_buffer("tw_rg", csa_kernel.twiddle_table(n_rg, dev))
+        self.az = csa_kernel.azimuth_tables(n_az, dev)
+        self.rg = csa_kernel.range_tables(n_rg, dev)
+        # the CPI's axis transforms (forward and inverse) by each method
+        self.chirpz_axes = 2 * csa_kernel.chirpz(n_az)
+        self.mixed_radix_axes = 2 * csa_kernel.k2_mixed(n_rg)
         p = self.cfar_params
         for name, v in zip(("ch_o", "ch_i", "cw_o", "cw_i"),
                            gmti_kernel.cfar_counts(n_az, n_rg,
@@ -84,13 +108,21 @@ class GmtiCpi(nn.Module):
                                                    p.guard, dev)):
             self.register_buffer(name, v)
 
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self.az = _map_tables(fn, self.az)
+        self.rg = _map_tables(fn, self.rg)
+        return self
+
     def factors(self) -> CsaFactors:
         return CsaFactors(*(getattr(self, n) for n in CsaFactors._fields))
 
     def _k12(self, xr, xi, f: CsaFactors):
         """K1 then K2 single on one channel's raw planes."""
-        zr, zi = csa_kernel.k1_call(xr, xi, f, twiddles=self.tw_az)
-        return csa_kernel.k2_call(zr, zi, f, twiddles=self.tw_rg)
+        with span("focus.k1"):
+            zr, zi = csa_kernel.k1_call(xr, xi, f, twiddles=self.az)
+        with span("focus.k2"):
+            return csa_kernel.k2_call(zr, zi, f, twiddles=self.rg)
 
     def forward(self, x1r, x1i, x2r, x2i, *, balance: bool = True,
                 mask_threshold: float = 0.05, k1_impl: str = "fused2ch"):
@@ -105,28 +137,38 @@ class GmtiCpi(nn.Module):
         p = self.cfar_params
         h_out, h_in = p.guard + p.train, p.guard
         f = self.factors()
+        count("cpi.chirpz_axes", self.chirpz_axes)
+        count("cpi.mixed_radix_axes", self.mixed_radix_axes)
         if k1_impl == "fused2ch":
-            z1r, z1i, z2r, z2i, xs_re, xs_im = gmti_kernel.k1_gmti_planes(
-                x1r, x1i, x2r, x2i, f, balance=balance, twiddles=self.tw_az)
-            z1r, z1i, z2r, z2i = csa_kernel.k2_pair_call(
-                z1r, z1i, z2r, z2i, f, twiddles=self.tw_rg)
+            with span("focus.k1g"):
+                z1r, z1i, z2r, z2i, xs_re, xs_im = \
+                    gmti_kernel.k1_gmti_planes(x1r, x1i, x2r, x2i, f,
+                                               balance=balance,
+                                               twiddles=self.az)
+            with span("focus.k2"):
+                z1r, z1i, z2r, z2i = csa_kernel.k2_pair_call(
+                    z1r, z1i, z2r, z2i, f, twiddles=self.rg)
         else:
             if balance:
-                xs_re, xs_im = gmti_kernel.raw_balance(x1r, x1i, x2r, x2i)
+                with span("focus.balance"):
+                    xs_re, xs_im = gmti_kernel.raw_balance(x1r, x1i, x2r,
+                                                           x2i)
             z1r, z1i, z2r, z2i = (
                 *self._k12(x1r, x1i, f), *self._k12(x2r, x2i, f))
         cal = (torch.atan2(xs_im, xs_re) if balance
                else torch.zeros((), dtype=torch.float32, device=x1r.device))
         cal_cs = torch.stack([torch.cos(cal), torch.sin(cal)])
-        (s1r, s1i, s2r, s2i, ph_raw, mag, power, cso, csi,
-         peaks) = gmti_kernel.k3_gmti_planes(
-            z1r, z1i, z2r, z2i, cal_cs, h_out=h_out, h_in=h_in,
-            twiddles=self.tw_az)
+        with span("focus.k3g"):
+            (s1r, s1i, s2r, s2i, ph_raw, mag, power, cso, csi,
+             peaks) = gmti_kernel.k3_gmti_planes(
+                z1r, z1i, z2r, z2i, cal_cs, h_out=h_out, h_in=h_in,
+                twiddles=self.az)
         del z1r, z1i, z2r, z2i      # free the K2 planes before K4's outputs
         thr = (mask_threshold ** 2) * torch.max(peaks)
-        snr, phase, dmag, noise = gmti_kernel.k4_epilogue_planes(
-            cso, csi, power, ph_raw, mag, thr, h_out=h_out, h_in=h_in,
-            counts=(self.ch_o, self.ch_i, self.cw_o, self.cw_i))
+        with span("focus.k4"):
+            snr, phase, dmag, noise = gmti_kernel.k4_epilogue_planes(
+                cso, csi, power, ph_raw, mag, thr, h_out=h_out, h_in=h_in,
+                counts=(self.ch_o, self.ch_i, self.cw_o, self.cw_i))
         det = cfar_mod.CfarResult(detections=snr > p.alpha, snr=snr,
                                   noise=noise)
         return s1r, s1i, s2r, s2i, cal, phase, dmag, det

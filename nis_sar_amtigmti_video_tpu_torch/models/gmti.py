@@ -114,8 +114,8 @@ def _focus_and_products(raw2ch, sc, t0, shift_pulses, balance,
     supported = csa_kernel.supported(n_p, n_s)
     if path == "kernel_fused" and not supported:
         raise ValueError(
-            f"path='kernel_fused' needs a CPI of power-of-two sides in "
-            f"[{csa_kernel.MIN_N}, {csa_kernel.MAX_N}]; got {(n_p, n_s)}")
+            f"path='kernel_fused' needs a CPI of {csa_kernel.family()}; "
+            f"got {(n_p, n_s)}")
     kernels = path == "kernel_fused" or (
         path == "auto" and supported and sc.processing.fft_impl == "pallas"
         and raw1.device.type == "cuda")

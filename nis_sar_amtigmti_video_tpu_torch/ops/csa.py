@@ -157,9 +157,9 @@ def apply_csa_fused(phist: torch.Tensor, f: CsaFactors,
             return csa_kernel.apply_csa_pallas(phist, f)
         if phist.device.type != "cpu":
             raise ValueError(
-                f"fft_impl='pallas': the CSA kernels take power-of-two "
-                f"sides in [{csa_kernel.MIN_N}, {csa_kernel.MAX_N}], got "
-                f"{shape} on {phist.device}; fft_impl='auto' takes it")
+                f"fft_impl='pallas': the CSA kernels take "
+                f"{csa_kernel.family()}, got {shape} on {phist.device}; "
+                f"fft_impl='auto' takes it")
         fft_impl = "auto"
     _check_fft_impl(fft_impl)
     u, fr = f.u[None, :], f.fr[None, :]

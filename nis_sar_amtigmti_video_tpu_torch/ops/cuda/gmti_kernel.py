@@ -27,7 +27,8 @@ from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import _count_1d, _window_sum
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda.csa_kernel import (
-    column_plan, plane_shape, twiddles_for)
+    azimuth_tables_for, chirpz, chirpz_args, chirpz_length, chirpz_planes,
+    column_launches, column_plan, plane_shape)
 
 
 # --------------------------------------------------------------------------
@@ -62,8 +63,10 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     sum(x1 conj x2) over the raw pair (zeros when balance=False) as 0-d
     tensors. The kernel writes each column's sum, from the two spectra by
     Parseval (sum_k X1 conj X2 / n_az) and reduced in a fixed order, so two
-    launches give the same bits; the columns are summed here.
-    ``twiddles``: the n_az-point table (built when None)."""
+    launches give the same bits; the columns are summed here. At an n_az
+    that is not a power of two, the chirp-z transform in two launches
+    through (m, n_rg) planes (the sums from the first's spectra, / m).
+    ``twiddles``: the ``azimuth_tables`` of n_az (built when None)."""
     if _build.on_cpu(x1r):
         return k1_gmti_plain(x1r, x1i, x2r, x2i, f, balance=balance)
     n_az, n_rg = plane_shape("k1_gmti_planes", x1r)
@@ -71,14 +74,21 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     _build.check("k1_gmti_planes", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
     _build.check("k1_gmti_planes", (f.u,), (n_rg,), dev)
     _build.check("k1_gmti_planes", (f.c1, f.w), (n_az,), dev)
-    tw = twiddles_for("k1_gmti_planes", twiddles, n_az, dev)
+    tab = azimuth_tables_for("k1_gmti_planes", twiddles, n_az, dev)
     out = [torch.empty_like(x1r) for _ in range(4)]
     bal = torch.empty((2, n_rg), dtype=torch.float32, device=dev)
-    _build.launch("k1g_launch", (x1r, x1i, x2r, x2i, f.u, f.c1, f.w, tw,
-                                 *out, bal),
-                  (n_az, n_rg, int(balance),
-                   *column_plan(n_az, n_rg, 2, forward=True)))
-    k1_gmti_planes.launches += 1
+    plan = column_plan(n_az, n_rg, 2, forward=True)
+    if chirpz(n_az):
+        _build.launch("k1g_chirpz_launch",
+                      (x1r, x1i, x2r, x2i, f.u, f.c1, f.w,
+                       *chirpz_args(tab, False),
+                       *chirpz_planes(n_az, n_rg, 2, dev), *out, bal),
+                      (n_az, chirpz_length(n_az), n_rg, int(balance), *plan))
+    else:
+        _build.launch("k1g_launch", (x1r, x1i, x2r, x2i, f.u, f.c1, f.w, tab,
+                                     *out, bal),
+                      (n_az, n_rg, int(balance), *plan))
+    k1_gmti_planes.launches += column_launches(n_az)
     # per-column sums -> two scalars
     xs = torch.sum(bal, dim=1)
     return (*out, xs[0], xs[1])
@@ -139,15 +149,16 @@ def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
 def raw_balance(x1r, x1i, x2r, x2i):
     """(xs_re, xs_im): re and im of sum(x1 conj x2) over the raw pair, as
     0-d float32 tensors; the caller takes atan2. One launch over the four
-    (n_az, n_rg) planes (n_rg a multiple of 4, 16-byte aligned): per-block
+    (n_az, n_rg) planes (16-byte aligned; the last n_az n_rg mod 4 floats
+    added by the last block): per-block
     partials on :func:`balance_grid`'s blocks, summed in block order by the
     last block to finish (no float atomics), so a launch gives the same bits
     every time."""
     if _build.on_cpu(x1r):
         return raw_balance_plain(x1r, x1i, x2r, x2i)
-    if x1r.dim() != 2 or x1r.shape[1] % 4:
-        raise ValueError("raw_balance: needs (n_az, n_rg) planes with n_rg "
-                         f"a multiple of 4, got shape {tuple(x1r.shape)}")
+    if x1r.dim() != 2:
+        raise ValueError("raw_balance: needs (n_az, n_rg) planes, got shape "
+                         f"{tuple(x1r.shape)}")
     n_az, n_rg = x1r.shape
     dev = x1r.device
     _build.check("raw_balance", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
@@ -200,7 +211,10 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     Returns (s1r, s1i, s2r, s2i, phase_unmasked, mag1_sq, power,
     colsum_outer, colsum_inner, peaks): the colsums are the azimuth halves
     of the CFAR box sums of ``power`` (half-widths h_out, h_in); ``peaks``
-    is the (n_rg,) max |s1|^2 of each range column."""
+    is the (n_rg,) max |s1|^2 of each range column. At an n_az that is not
+    a power of two, the chirp-z transform in two launches through (m,
+    n_rg) planes. ``twiddles``: the ``azimuth_tables`` of n_az (built when
+    None)."""
     if _build.on_cpu(x1r):
         return k3_gmti_plain(x1r, x1i, x2r, x2i, cal_cos_sin, h_out=h_out,
                              h_in=h_in)
@@ -208,13 +222,21 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     dev = x1r.device
     _build.check("k3_gmti_planes", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
     _build.check("k3_gmti_planes", (cal_cos_sin,), (2,), dev)
-    tw = twiddles_for("k3_gmti_planes", twiddles, n_az, dev)
+    tab = azimuth_tables_for("k3_gmti_planes", twiddles, n_az, dev)
     out = [torch.empty_like(x1r) for _ in range(9)]
     peaks = torch.empty((n_rg,), dtype=torch.float32, device=dev)
-    _build.launch("k3g_launch", (x1r, x1i, x2r, x2i, cal_cos_sin, tw, *out,
-                                 peaks),
-                  (n_az, n_rg, h_out, h_in, *column_plan(n_az, n_rg, 2)))
-    k3_gmti_planes.launches += 1
+    plan = column_plan(n_az, n_rg, 2)
+    if chirpz(n_az):
+        _build.launch("k3g_chirpz_launch",
+                      (x1r, x1i, x2r, x2i, cal_cos_sin,
+                       *chirpz_args(tab, True),
+                       *chirpz_planes(n_az, n_rg, 2, dev), *out, peaks),
+                      (n_az, chirpz_length(n_az), n_rg, h_out, h_in, *plan))
+    else:
+        _build.launch("k3g_launch", (x1r, x1i, x2r, x2i, cal_cos_sin, tab,
+                                     *out, peaks),
+                      (n_az, n_rg, h_out, h_in, *plan))
+    k3_gmti_planes.launches += column_launches(n_az)
     return (*out, peaks)
 
 

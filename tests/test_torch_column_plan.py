@@ -56,7 +56,7 @@ def test_column_plan_fits(n_az, n_rg, nch):
 
 
 def test_column_plan_refuses_unsupported_shapes():
-    for shape in ((32, 64), (64, 8192), (192, 256)):
+    for shape in ((32, 64), (64, 16896), (192, 272)):
         with pytest.raises(ValueError, match="not supported"):
             tck.column_plan(*shape, 1)
 
@@ -109,7 +109,7 @@ def test_forward_column_plan_fits(n_az, n_rg, nch):
 
 
 def test_forward_column_plan_refuses_unsupported_shapes():
-    for shape in ((32, 64), (64, 8192), (192, 256), (4096, 96)):
+    for shape in ((32, 64), (64, 16896), (192, 272), (4096, 136)):
         for nch in (1, 2):
             with pytest.raises(ValueError, match="not supported"):
                 tck.column_plan(*shape, nch, forward=True)

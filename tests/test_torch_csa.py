@@ -141,8 +141,10 @@ def test_k2_pair_matches_pallas(k2_case, entry):
 
 @pytest.mark.parametrize("shape,ok", [
     ((256, 256), True), ((4096, 4096), True), ((64, 128), True),
-    ((192, 256), False), ((257, 256), False), ((32, 64), False),
-    ((8192, 8192), False)])
+    ((192, 272), False), ((257, 257), False), ((32, 64), False),
+    ((16384, 8192), False), ((7199, 13200), True), ((7200, 13200), True),
+    ((8192, 16384), True), ((90, 165), True), ((257, 256), True),
+    ((8193, 256), False), ((64, 16896), False), ((64, 62), False)])
 def test_supported_shapes(shape, ok):
     assert tck.supported(*shape) is ok
 

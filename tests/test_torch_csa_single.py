@@ -235,18 +235,20 @@ def test_apply_csa_fused_fft_impl(impl):
 
 
 def test_fft_impl_errors_and_refused_shapes():
-    _, tf = _factors(192, SIZE)
-    x = torch.from_numpy(_raw((192, SIZE)))
+    # 272 = 16 x 17: a prime factor outside the mixed-radix plan's
+    _, tf = _factors(192, 272)
+    x = torch.from_numpy(_raw((192, 272)))
     with pytest.raises(ValueError, match="unknown fft impl"):
         tcsa.apply_csa_fused(x, tf, "cufft")
-    with pytest.raises(ValueError, match=r"power-of-two sides.*\(192, 256\)"):
+    with pytest.raises(ValueError,
+                       match=r"prime factors in .*\(192, 272\)"):
         tck.apply_csa_pallas_planes(x.real.contiguous(),
                                     x.imag.contiguous(), tf)
     # on the CPU a refused shape takes the reference's torch.fft route
     assert torch.equal(tcsa.apply_csa_fused(x, tf, "pallas"),
                        tcsa.apply_csa_fused(x, tf, "auto"))
     # the grid-phase path has no kernel route: 'pallas' raises there
-    ph = tcsa.csa_phases(_slice_params(192, SIZE)[1])
+    ph = tcsa.csa_phases(_slice_params(192, 272)[1])
     with pytest.raises(ValueError, match="unknown fft impl 'pallas'"):
         tcsa.apply_csa(x, ph, "pallas")
 
@@ -267,12 +269,12 @@ def test_pallas_refused_shape_raises_off_the_cpu(entry):
     through focus_and_products under both paths."""
     with pytest.raises(ValueError, match="fft_impl='auto'"):
         if entry == "apply_csa_fused":
-            _, tf = _factors(192, SIZE)
-            tcsa.apply_csa_fused(torch.empty((192, SIZE), device="meta",
+            _, tf = _factors(192, 272)
+            tcsa.apply_csa_fused(torch.empty((192, 272), device="meta",
                                              dtype=torch.complex64),
                                  tf, "pallas")
         else:
-            raw = torch.empty((2, 193, SIZE), device="meta",
+            raw = torch.empty((2, 193, 272), device="meta",
                               dtype=torch.complex64)
             gmti.focus_and_products(raw, _gmti_sc("pallas"), 4e-3,
                                     path=entry)

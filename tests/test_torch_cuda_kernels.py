@@ -17,7 +17,10 @@ the plain loop on the card) and FFT-conv kernels (every nfft, on
 column views of wider planes, bands at both ends) and the direct-echo
 kernel at small shapes and at the full-scale GMTI chain's (512-pulse
 chunks, nfft 65,536), with the freq and pallas echo backends end to end on
-the card. Marked ``cuda``: they skip
+the card; the CPI kernels also at the upstream's 7,199 x 13,200 and
+7,200 x 13,200 and at two small odd shapes (chirp-z azimuth, mixed-radix
+range, tiles cut at the range edge), both CPI routes, and the auto path
+at the upstream's CPI with its spans and counters. Marked ``cuda``: they skip
 where no CUDA device is present (the kernels have no CPU mode). On a GPU
 machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q``."""
 
@@ -298,14 +301,22 @@ def test_raw_balance_matches_plain_and_repeats(dev, n):
 
 
 def test_raw_balance_refuses_misaligned_and_ragged_planes(dev):
+    """Planes off a 16-byte boundary and ragged views (not contiguous) are
+    refused; contiguous planes of any width are taken (the last n mod 4
+    floats by the last block)."""
     x = _planes(256, dev, 7)
     base = torch.zeros(256 * 256 + 1, device=dev)
     off = base[1:].view(256, 256)               # 4 bytes past a boundary
     off.copy_(x[0])
     with pytest.raises(ValueError, match="16-byte"):
         gmti_kernel.raw_balance(off, *x[1:])
-    with pytest.raises(ValueError, match="multiple of 4"):
-        gmti_kernel.raw_balance(*(v[:, :254].contiguous() for v in x))
+    with pytest.raises(ValueError, match="contiguous"):
+        gmti_kernel.raw_balance(*(v[:, :254] for v in x))
+    for cols in (254, 165):
+        y = [v[:, :cols].contiguous() for v in x]
+        got = gmti_kernel.raw_balance(*y)
+        want = gmti_kernel.raw_balance_plain(*y)
+        assert _rel(torch.stack(got), torch.stack(want)) <= 1e-4
 
 
 def test_csa_pallas_refuses_shapes_on_cuda(dev):
@@ -315,14 +326,14 @@ def test_csa_pallas_refuses_shapes_on_cuda(dev):
     f = csa.csa_factors(csa.CsaParams(
         wavelength_m=0.03, chirp_rate=6e13, fs_hz=150e6, prf_hz=6000.0,
         velocity_mps=7600.0, range_ref_m=6e5, t_start_fast=4e-3,
-        num_pulses=192, num_samples=256), dev)
-    x = torch.zeros((192, 256), dtype=torch.complex64, device=dev)
+        num_pulses=192, num_samples=272), dev)
+    x = torch.zeros((192, 272), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="fft_impl='auto'"):
         csa.apply_csa_fused(x, f, "pallas")
     sc = config.ati_dpca()
     sc = sc.replace(processing=dataclasses.replace(sc.processing,
                                                    fft_impl="pallas"))
-    raw = torch.ones((2, 193, 256), dtype=torch.complex64, device=dev)
+    raw = torch.ones((2, 193, 272), dtype=torch.complex64, device=dev)
     before = csa_kernel.k1_call.launches
     for path in ("composed", "auto"):
         with pytest.raises(ValueError, match="fft_impl='auto'"):
@@ -331,7 +342,7 @@ def test_csa_pallas_refuses_shapes_on_cuda(dev):
                                                    fft_impl="auto"))
     for path in ("composed", "auto"):
         prod = gmti.focus_and_products(raw, sc, 1e-3, path=path)
-        assert prod.slc1.shape == (192, 256)
+        assert prod.slc1.shape == (192, 272)
     assert csa_kernel.k1_call.launches == before
 
 
@@ -388,9 +399,171 @@ def test_wrappers_reject_bad_planes(dev):
     with pytest.raises(TypeError, match="float32"):
         csa_kernel.k2_pair_call(x[0].double(), *x[1:], f)
     with pytest.raises(ValueError, match="not supported"):
-        gmti_kernel.k1_gmti_planes(*(v[:192] for v in x), f)
+        gmti_kernel.k1_gmti_planes(*(torch.zeros((192, 272), device=dev)
+                                     for _ in range(4)), f)
     with pytest.raises(ValueError, match="on cpu"):
         gmti_kernel.k1_gmti_planes(x[0], x[1].cpu(), *x[2:], f)
+
+
+# --------------------------------------------------------------------------
+# the CPI kernels at sides that are not powers of two: azimuth by chirp-z,
+# range by the mixed-radix plan, tiles cut at the range edge
+# --------------------------------------------------------------------------
+
+# the upstream's CPI after the one-pulse shift and unshifted, two small odd
+# shapes (a prime azimuth over an odd range; 23 x 313... over 8 x 15), and
+# the family's far corners, so every radix of the mixed-radix plan runs:
+# 13^3 under the direct column pass at its longest (8,192 on a cluster of
+# 16); 9 x 7 x 11 under chirp-z at 4,097; the longest row, 16,384 (16^3 x
+# 4, a 128 KB row) under the shortest azimuth; 8,192 (16^3 x 2) under
+# chirp-z at 8,191 (the 16,384-point stages)
+ODD_SHAPES = [(7199, 13200), (7200, 13200), (97, 165), (313, 120),
+              (8192, 2197), (4097, 693), (64, 16384), (8191, 8192)]
+ODD_IDS = [f"{a}x{b}" for a, b in ODD_SHAPES]
+
+
+@pytest.mark.parametrize("n", ODD_SHAPES, ids=ODD_IDS)
+def test_column_kernels_match_plain_at_other_sides(dev, n):
+    """K1g, K1, K3g and K3 against their plain versions (1e-4 of the peak;
+    the ATI phase on strong pixels 1e-3 rad), the one-channel kernels bit
+    for bit their pairs' channel, two launches the same bits."""
+    assert csa_kernel.supported(*n)
+    f, x = _factors(n, dev), _planes(n, dev, 21)
+    before = gmti_kernel.k1_gmti_planes.launches
+    got = gmti_kernel.k1_gmti_planes(*x, f)
+    assert gmti_kernel.k1_gmti_planes.launches \
+        == before + csa_kernel.column_launches(n[0])
+    want = gmti_kernel.k1_gmti_plain(*x, f)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a, b) <= 1e-4
+    d = float(torch.atan2(got[5], got[4]) - torch.atan2(want[5], want[4]))
+    assert abs(d) <= 1e-5
+    again = gmti_kernel.k1_gmti_planes(*x, f)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    one = csa_kernel.k1_call(x[0], x[1], f)
+    assert all(torch.equal(a, b) for a, b in zip(one, got[:2]))
+    del got, want, again, one
+    cal_cs = _cal_cs(dev)
+    got = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
+    want = gmti_kernel.k3_gmti_plain(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
+    for i in (0, 1, 2, 3, 5, 6, 7, 8, 9):
+        assert got[i].shape == want[i].shape, i
+        assert _rel(got[i], want[i]) <= 1e-4, i
+    strong = want[5] > 1e-2 * want[5].max()
+    dph = torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi) - np.pi
+    assert float(dph[strong].abs().max()) < 1e-3
+    del want
+    one = csa_kernel.k3_call(x[0], x[1])
+    assert all(torch.equal(a, b) for a, b in zip(one, got[:2]))
+
+
+@pytest.mark.parametrize("n", ODD_SHAPES, ids=ODD_IDS)
+def test_k2_k4_and_balance_match_plain_at_other_sides(dev, n):
+    """K2 pair and single (mixed-radix plan where n_rg takes it) against the
+    plain version and bit for bit each other; K4 and the raw balance
+    against theirs."""
+    f, x = _factors(n, dev), _planes(n, dev, 22)
+    got = csa_kernel.k2_pair_call(*x, f)
+    want = csa_kernel.k2_pair_plain(*x, f)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-4
+    del want
+    tab = csa_kernel.range_tables(n[1], dev)
+    for ch in (0, 1):
+        one = csa_kernel.k2_call(x[2 * ch], x[2 * ch + 1], f, twiddles=tab)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(one, got[2 * ch:2 * ch + 2])), ch
+    del got, one
+    bal = gmti_kernel.raw_balance(*x)
+    want = gmti_kernel.raw_balance_plain(*x)
+    assert _rel(torch.stack(bal), torch.stack(want)) <= 1e-4
+    cal_cs = torch.tensor([1.0, 0.0], device=dev)
+    p3 = gmti_kernel.k3_gmti_plain(*x, cal_cs, h_out=H_OUT, h_in=H_IN)
+    thr = 0.05 ** 2 * p3[9].max()
+    args = (p3[7], p3[8], p3[6], p3[4], p3[5], thr)
+    got = gmti_kernel.k4_epilogue_planes(*args, h_out=H_OUT, h_in=H_IN)
+    want = gmti_kernel.k4_epilogue_plain(*args, h_out=H_OUT, h_in=H_IN)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("k1_impl", ["fused2ch", "split"])
+@pytest.mark.parametrize("n", ODD_SHAPES, ids=ODD_IDS)
+def test_gmti_cpi_routes_at_other_sides(dev, n, k1_impl):
+    """The whole CPI on the card, both routes, against the CPI of the
+    plain versions (on the CPU at the small shapes, on the card at the
+    upstream's): planes 1e-4 of the peak, cal 1e-5 rad, SNR as the 256^2
+    test holds it."""
+    f, x = _factors(n, dev), _planes(n, dev, 23)
+    got = fused.gmti_cpi(*x, f, cfar_params=CP, k1_impl=k1_impl)
+    if n[0] * n[1] < 10 ** 6:
+        want = fused.gmti_cpi(*(v.cpu() for v in x),
+                              csa.CsaFactors(*(v.cpu() for v in f)),
+                              cfar_params=CP, k1_impl=k1_impl)
+    else:
+        want = _plain_cpi(x, f)
+    for a, b in zip(got[:4], want[:4]):
+        assert _rel(a.cpu(), b.cpu()) <= 1e-4
+    assert abs(float(got[4]) - float(want[4])) < 1e-5
+    torch.testing.assert_close(got[7].snr.cpu(), want[7].snr.cpu(),
+                               rtol=5e-3, atol=5e-3)
+
+
+def _plain_cpi(x, f):
+    """gmti_cpi's four stages by their plain versions on x's device."""
+    p = CP
+    z = gmti_kernel.k1_gmti_plain(*x, f)
+    z = csa_kernel.k2_pair_plain(*z[:4], f) + z[4:]
+    cal = torch.atan2(z[5], z[4])
+    cal_cs = torch.stack([torch.cos(cal), torch.sin(cal)])
+    s = gmti_kernel.k3_gmti_plain(*z[:4], cal_cs, h_out=H_OUT, h_in=H_IN)
+    thr = 0.05 ** 2 * torch.max(s[9])
+    snr, phase, dmag, noise = gmti_kernel.k4_epilogue_plain(
+        s[7], s[8], s[6], s[4], s[5], thr, h_out=H_OUT, h_in=H_IN)
+    det = fused.cfar_mod.CfarResult(detections=snr > p.alpha, snr=snr,
+                                    noise=noise)
+    return (*s[:4], cal, phase, dmag, det)
+
+
+def test_auto_path_takes_kernels_at_the_upstream_cpi(dev):
+    """focus_and_products(path='auto') with fft_impl='pallas' runs K1g, K2
+    pair, K3g and K4 at 7,199 x 13,200 (the upstream's raw after the
+    one-pulse shift), with their spans and the counters: two azimuth
+    transforms by chirp-z, two range transforms by the mixed-radix plan;
+    the slc against the composed route's."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    sc = config.ati_dpca()
+    sc = sc.replace(processing=dataclasses.replace(sc.processing,
+                                                   fft_impl="pallas"))
+    raw = torch.complex(
+        torch.randn((2, 7200, 13200), generator=torch.Generator(
+            device=dev).manual_seed(24), device=dev),
+        torch.randn((2, 7200, 13200), generator=torch.Generator(
+            device=dev).manual_seed(25), device=dev))
+    before = [k.launches for k in (gmti_kernel.k1_gmti_planes,
+                                   csa_kernel.k2_pair_call,
+                                   gmti_kernel.k3_gmti_planes,
+                                   gmti_kernel.k4_epilogue_planes)]
+    with profiling.recording() as rec:
+        auto = gmti.focus_and_products(raw, sc, 1e-3, path="auto")
+    after = [k.launches for k in (gmti_kernel.k1_gmti_planes,
+                                  csa_kernel.k2_pair_call,
+                                  gmti_kernel.k3_gmti_planes,
+                                  gmti_kernel.k4_epilogue_planes)]
+    # K1g and K3g: the chirp-z transform's two launches each
+    assert [b - a for a, b in zip(before, after)] == [2, 1, 2, 1]
+    assert rec.counters == {"cpi.chirpz_axes": 2, "cpi.mixed_radix_axes": 2}
+    tree = rec.tree()
+    for k in ("k1g", "k2", "k3g", "k4"):
+        assert f"focus/focus.cpi_kernels/focus.{k}" in tree, k
+    slc = auto.slc1
+    del auto
+    comp = gmti.focus_and_products(raw, sc.replace(
+        processing=dataclasses.replace(sc.processing, fft_impl="auto")),
+        1e-3, path="composed")
+    assert float((slc - comp.slc1).abs().max()) \
+        / float(comp.slc1.abs().max()) < 2e-3
 
 
 # --------------------------------------------------------------------------

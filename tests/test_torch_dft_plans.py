@@ -1,0 +1,193 @@
+"""The CPI kernels' DFT plans at sides that are not powers of two, emulated
+in plain NumPy with the factorisation, the tables and the order of work the
+kernels read, and held to NumPy's float64 FFT.
+
+* K2's mixed-radix plan (``csrc/csa_kernel.cu``, ``k2_kernel<0>``): the
+  forward transform decimates in frequency, in place, one pass per radix of
+  ``csa_kernel.mixed_radices``; the spectrum lies at the positions of
+  ``csa_kernel.mixed_order``; the inverse runs the passes backwards with
+  conjugate twiddles and leaves the natural order.
+* The chirp-z azimuth transform (``csrc/gmti_kernel.cu``, the column pass's
+  two stages): the chirp, the convolution's spectrum and the m-point
+  twiddle table of ``csa_kernel.chirpz_tables``, the column pass's split of
+  m into CS x QA x QB (``column_split``), a forward transform, the product
+  with the spectrum, an inverse transform and the chirp again.
+
+The plans' DFTs of a few points run as dense products with the table's
+values (the kernels' register DFTs are the same sums in another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+from nis_sar_amtigmti_video_tpu_torch.ops.cuda import csa_kernel as tck
+
+torch.set_num_threads(1)
+
+
+def _c64(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else t
+
+
+def _small(u, r, tw, n, inverse):
+    """The r-point DFT over u's last axis with W_r^q = tw[q n / r] of the
+    n-point table ``tw`` (complex64)."""
+    q = (np.outer(np.arange(r), np.arange(r)) % r) * (n // r)
+    w = tw[q]
+    if inverse:
+        w = np.conj(w)
+    return (u @ w).astype(np.complex64)
+
+
+def mixed_forward(x, tw, inverse=False):
+    """K2's mixed-radix plan over x's last axis (complex64): forward
+    (spectrum at mixed_order's positions) or, with ``inverse``, the
+    unnormalised inverse from those positions to the natural order."""
+    n = x.shape[-1]
+    tw = _c64(tw)
+    lead = x.shape[:-1]
+    passes, left = [], n
+    for r in tck.mixed_radices(n):
+        passes.append((left, r))
+        left //= r
+    v = x.astype(np.complex64)
+    for ln, r in (reversed(passes) if inverse else passes):
+        s_len = ln // r
+        # position base + s + s_len j of each block of ln
+        u = v.reshape(lead + (n // ln, r, s_len))
+        s = np.arange(s_len)[:, None]
+        k = np.arange(r)[None, :]
+        w = tw[(s * k * (n // ln)) % n]            # W_ln^(s k)
+        u = np.swapaxes(u, -1, -2)                 # (..., blk, s, j)
+        if inverse:
+            u = _small(u * np.conj(w), r, tw, n, True)
+        else:
+            u = _small(u, r, tw, n, False) * w
+        v = np.swapaxes(u, -1, -2).reshape(lead + (n,)).astype(np.complex64)
+    return v
+
+
+MIXED_SIDES = [120, 165, 693, 2197, 8192, 13200]
+
+
+@pytest.mark.parametrize("n", MIXED_SIDES)
+def test_mixed_radix_plan_is_the_dft(n):
+    """Forward: the spectrum at mixed_order's positions; inverse from
+    there: n x the natural-order inverse; both to float32 rounding."""
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+         ).astype(np.complex64)
+    tab = tck.range_tables(n) if tck.k2_mixed(n) else None
+    tw = tab.twiddles.numpy() if tab is not None else \
+        tck.full_twiddle_table(n).numpy()
+    order = tck.mixed_order(n)
+    got = mixed_forward(x, tw)
+    want = np.fft.fft(x.astype(np.complex128), axis=-1)
+    err = np.abs(got - want[:, order]).max() / np.abs(want).max()
+    assert err < 2e-6
+    back = mixed_forward(got, tw, inverse=True)
+    assert np.abs(back / n - x).max() / np.abs(x).max() < 2e-6
+    assert tab is None or np.array_equal(tab.order.numpy(), order)
+
+
+def test_mixed_radices_and_order():
+    assert tck.mixed_radices(13200) == (16, 11, 5, 5, 3)
+    assert tck.mixed_radices(16384) == (16, 16, 16, 4)
+    assert tck.mixed_radices(165) == (11, 5, 3)
+    for n in (96, 120, 13200):
+        o = tck.mixed_order(n)
+        assert o.dtype == np.int32 and np.array_equal(np.sort(o),
+                                                      np.arange(n))
+    with pytest.raises(ValueError, match="prime factor"):
+        tck.mixed_radices(17 * 16)
+
+
+def _twp(tw, m, n, inverse):
+    """W_n^m from the n-point half table, as nis::twiddle_pow reads it."""
+    m = np.asarray(m) % n
+    h = n // 2
+    w = tw[np.where(m < h, m, m - h)]
+    w = np.where(m < h, w, -w)
+    return np.conj(w) if inverse else w
+
+
+def column_dft(x, tw, cs, inverse):
+    """The column pass's unnormalised DFT of x's rows (m, cols) in its
+    four-step split n = n1 + CS q, q = qb + QB qa; output k = j + Q k1,
+    j = ja + QA jb: pass A (QA points), x W_Q^(qb ja), pass B (QB points),
+    x W_m^(n1 j), the gather's CS-point DFT."""
+    m = x.shape[0]
+    qa, qb = tck.column_split(m, cs)
+    q = qa * qb
+    tw = _c64(tw)
+    # x[n1 + cs (qb + QB qa)] -> (n1, qb, qa, col)
+    v = x.reshape(qa, qb, cs, -1).transpose(2, 1, 0, 3)
+    wa = _twp(tw, np.outer(np.arange(qa), np.arange(qa)) * (m // qa), m,
+              inverse)
+    v = np.einsum("nbac,aj->nbjc", v, wa)
+    v = v * _twp(tw, cs * np.outer(np.arange(qb), np.arange(qa)), m,
+                 inverse)[None, :, :, None]
+    wb = _twp(tw, np.outer(np.arange(qb), np.arange(qb)) * (m // qb), m,
+              inverse)
+    v = np.einsum("nbjc,bk->nkjc", v, wb)       # (n1, jb, ja, col)
+    j = np.arange(qa)[None, :] + qa * np.arange(qb)[:, None]
+    v = v * _twp(tw, np.arange(cs)[:, None, None] * j[None], m,
+                 inverse)[..., None]
+    wc = _twp(tw, np.outer(np.arange(cs), np.arange(cs)) * (m // cs), m,
+              inverse)
+    v = np.einsum("nkjc,nl->lkjc", v, wc)       # (k1, jb, ja, col)
+    return v.reshape(m, -1).astype(np.complex64)
+
+
+def chirpz_dft(x, tables, inverse):
+    """The two stages of the column pass's chirp-z transform over x's rows:
+    stage 1 the chirped rows, zero beyond n, forward, times the spectrum;
+    stage 2 the inverse over m, 1 / m, the chirp again, rows below n."""
+    n = x.shape[0]
+    tw = tables.tw.numpy()
+    m = 2 * tw.shape[0]
+    cs = tck.column_plan(n, 64, 1).cluster
+    chirp = (tables.inv_chirp if inverse else tables.fwd_chirp).numpy()
+    spec = (tables.inv_spec if inverse else tables.fwd_spec).numpy()
+    a = np.zeros((m,) + x.shape[1:], np.complex64)
+    a[:n] = x * chirp[:, None]
+    a = column_dft(a, tw, cs, False) * spec[:, None]
+    c = column_dft(a, tw, cs, True) * np.float32(1.0 / m)
+    return (c[:n] * chirp[:, None]).astype(np.complex64)
+
+
+CHIRPZ_SIDES = [97, 120, 165, 313, 719, 7199]
+
+
+@pytest.mark.parametrize("n", CHIRPZ_SIDES)
+def test_chirpz_plan_is_the_dft(n):
+    """Forward and inverse (with its 1/n) against float64, to float32
+    rounding, on the chirp-z length's power-of-two column split."""
+    rng = np.random.default_rng(n + 1)
+    x = (rng.standard_normal((n, 8)) + 1j * rng.standard_normal((n, 8))
+         ).astype(np.complex64)
+    tables = tck.chirpz_tables(n)
+    m = tck.chirpz_length(n)
+    assert m >= 2 * n - 1 and m & (m - 1) == 0 and m < 4 * n
+    x64 = x.astype(np.complex128)
+    for inverse, want in ((False, np.fft.fft(x64, axis=0)),
+                          (True, np.fft.ifft(x64, axis=0))):
+        got = chirpz_dft(x, tables, inverse)
+        assert np.abs(got - want).max() / np.abs(want).max() < 5e-6
+
+
+@pytest.mark.parametrize("m", [256, 1024, 8192, 16384])
+def test_column_split_is_the_dft(m):
+    """The column pass's split of every chirp-z length (and of 8192 as an
+    azimuth side) is the DFT, both directions."""
+    cs = tck.column_cluster(m)
+    rng = np.random.default_rng(m)
+    x = (rng.standard_normal((m, 2)) + 1j * rng.standard_normal((m, 2))
+         ).astype(np.complex64)
+    tw = tck.twiddle_table(m).numpy()
+    for inverse in (False, True):
+        want = np.fft.fft(x.astype(np.complex128), axis=0)
+        if inverse:
+            want = np.fft.ifft(x.astype(np.complex128), axis=0) * m
+        got = column_dft(x, tw, cs, inverse)
+        assert np.abs(got - want).max() / np.abs(want).max() < 5e-6

@@ -331,7 +331,8 @@ def test_auto_path_on_cpu_is_composed(random_raw):
 
 def test_kernel_path_rejects_bad_shape():
     sc = _small(tcfg, 257, 256)
-    raw = torch.zeros((2, 193, 256), dtype=torch.complex64)  # 192 not 2^k
+    # 272 = 16 x 17: a prime factor the mixed-radix plan does not take
+    raw = torch.zeros((2, 193, 272), dtype=torch.complex64)
     with pytest.raises(ValueError, match="kernel_fused"):
         gmti.focus_and_products(raw, sc, 1e-3, path="kernel_fused")
     with pytest.raises(ValueError, match="unknown GMTI path"):

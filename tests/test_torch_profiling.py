@@ -14,9 +14,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from nis_sar_amtigmti_video_tpu_torch import config
 from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
+from nis_sar_amtigmti_video_tpu_torch.gmti import fused
 from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
 from nis_sar_amtigmti_video_tpu_torch.models.stripmap import echo_opts_for
-from nis_sar_amtigmti_video_tpu_torch.ops import echo
+from nis_sar_amtigmti_video_tpu_torch.ops import csa, echo
 from nis_sar_amtigmti_video_tpu_torch.scene import clutter, targets
 from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (count,
                                                                recording, span)
@@ -181,8 +182,43 @@ def test_fullscale_span_tree_and_outputs(path):
         "focus": 1, "focus/focus.shift": 1, "focus/focus.factors": 1,
         {"composed": "focus/focus.csa",
          "kernel_fused": "focus/focus.cpi_kernels"}[path]: 1,
-        "focus/focus.products": 1}
-    assert rec.counters == {}
+        "focus/focus.products": 1,
+        **({f"focus/focus.cpi_kernels/focus.{k}": 1
+            for k in ("k1g", "k2", "k3g", "k4")}
+           if path == "kernel_fused" else {})}
+    # a 256 x 256 CPI: no axis by chirp-z or by the mixed-radix plan
+    assert rec.counters == ({"cpi.chirpz_axes": 0, "cpi.mixed_radix_axes": 0}
+                            if path == "kernel_fused" else {})
+
+
+@pytest.mark.parametrize("k1_impl", ["fused2ch", "split"])
+@pytest.mark.parametrize("shape", [(64, 128), (90, 165), (64, 120),
+                                   (97, 128)])
+def test_cpi_kernel_spans_and_counters(shape, k1_impl):
+    """Each CPI kernel under its span (the split route's balance, K1 and
+    K2 single a channel), and the counters: the CPI's azimuth transforms
+    (forward, inverse) by chirp-z where n_az is not a power of two, its
+    range transforms by the mixed-radix plan where n_rg is not one up to
+    4096."""
+    n_az, n_rg = shape
+    f = csa.csa_factors(csa.CsaParams(
+        wavelength_m=0.03, chirp_rate=6e13, fs_hz=150e6, prf_hz=6000.0,
+        velocity_mps=7600.0, range_ref_m=6e5, t_start_fast=4e-3,
+        num_pulses=n_az, num_samples=n_rg))
+    rng = np.random.default_rng(3)
+    x = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+         for _ in range(4)]
+    with recording() as rec:
+        fused.gmti_cpi(*x, f, k1_impl=k1_impl)
+    tree = {k: v[0] for k, v in rec.tree().items()}
+    if k1_impl == "fused2ch":
+        want = {"focus.k1g": 1, "focus.k2": 1}
+    else:
+        want = {"focus.balance": 1, "focus.k1": 2, "focus.k2": 2}
+    assert tree == {**want, "focus.k3g": 1, "focus.k4": 1}
+    odd_az = n_az & (n_az - 1) != 0
+    assert rec.counters == {"cpi.chirpz_axes": 2 * odd_az,
+                            "cpi.mixed_radix_axes": 2 * (n_rg != 128)}
 
 
 def test_ring_span_tree_counters_and_frames():
