@@ -127,13 +127,15 @@ and one-accumulator orders), FFT-conv and direct-echo kernels:
               bit-identical) beside torch.fft's fft / multiply / ifft; the
               window placement of the chunk's main and edge passes (the
               arguments synthesize hands it) vs its plain version, the row
-              loop, bit for bit; the
+              loop, bit for bit; the spread of the taps it forms from the
+              chunk's operands (ES taps, flank taps) vs the values
+              staging's windows, bit for bit, timed beside it; the
               direct-echo kernel on the two launches of phase 12's pallas
               path (the ship's and the clutter's scalar fields, <= 2e-4);
               times of each launch and its plain version
   11. e2e     multi_channel_phase_history(backend='freq') then
-              focus_and_products: spread 2 x 29, placement 2 x 29 and conv
-              29 launches a pass,
+              focus_and_products: the spread of formed taps 2 x 29 (of
+              values none), placement 2 x 29 and conv 29 launches a pass,
               a finite (2, 7200, 13200) raw and finite products; warm sim
               pass / 2 and end to end (medians of 3); one pass under
               torch.profiler (device busy, idle share, device time by
@@ -252,6 +254,11 @@ ECHO_WRAPPERS = {
                   "nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu",
                   "nis_sar_amtigmti_video_tpu/ops/pallas/spread_kernel.py:"
                   "214"),
+    "spread_taps": (spread_kernel.spread_windows_pallas,
+                    "nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu",
+                    "nis_sar_amtigmti_video_tpu/ops/pallas/spread_kernel.py:"
+                    "214 with the echo's per-tap operand math of "
+                    "nis_sar_amtigmti_video_tpu/ops/echo_freq.py"),
     "fft_conv": (fft_kernel.fft_conv_pallas,
                  "nis_sar_amtigmti_video_tpu_torch/csrc/fft_kernel.cu",
                  "nis_sar_amtigmti_video_tpu/ops/pallas/fft_kernel.py:767"),
@@ -266,7 +273,7 @@ ECHO_WRAPPERS = {
 }
 ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL, **ECHO_WRAPPERS}
 # the wrapper attribute counting an entry's launches, where not .launches
-COUNTER = {"spread_qr": "launches_qr"}
+COUNTER = {"spread_qr": "launches_qr", "spread_taps": "launches_taps"}
 # the card's peaks for the bounds (H100 SXM data sheet, full power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1466,6 +1473,20 @@ def spread_work(c, v, win):
             2.0 * int((c >= 0).sum()) * v.shape[2] * v.shape[3])
 
 
+def spread_taps_work(c, o, win, taps):
+    """(bytes, operations, sin / cos results) of one formed-taps spread
+    launch: cells and operands read once, the windows written once; two
+    adds per live target, tap and set, and forming each value pair (ES
+    taps: 12 operations and an exp; flank taps: 22 operations and a cos of
+    the weight, a cos and a sin of the phase)."""
+    out = c.shape[0] * c.shape[1] * 2 * taps.n_sets * win
+    pairs = c.shape[0] * o.shape[2] * taps.n_sets * taps.k_taps
+    es = isinstance(taps, spread_kernel.EsTaps)
+    return (4.0 * (c.numel() + o.numel() + out),
+            2.0 * int((c >= 0).sum()) * taps.n_sets * taps.k_taps
+            + (12.0 if es else 22.0) * pairs, (1.0 if es else 3.0) * pairs)
+
+
 def place_work(wins, base, offsets, start, l_out, complex_out):
     """Bytes of one placement launch: the window cells that land in the
     cropped field read once (re and im), the bases, every field cell
@@ -1572,6 +1593,43 @@ def phase_echo_kernels(dev, setup) -> dict:
             ms=sum(q["ms"] for q in parts.values()),
             plain_ms=sum(q["plain_ms"] for q in parts.values()),
             library_ms=None, **bound(n_bytes, flops), per_chunk=parts)
+
+    # the taps formed in the kernel from the chunk's operands, against the
+    # values staging's windows of the values PyTorch forms from them
+    sw = spread_kernel.spread_windows_pallas
+    parts, work = {}, [0.0, 0.0, 0.0]
+    for part, (c, o, win, taps), (_, v, _) in (
+            ("main", ops["spread main taps"], ops["spread main"]),
+            ("edge", ops["spread edge taps"][0], ops["spread edge"][0])):
+        got = sw(c, o, win, taps=taps)
+        again = sw(c, o, win, taps=taps)
+        want = sw(c, v, win)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32)) \
+            and torch.equal(got.view(torch.int32), again.view(torch.int32))
+        assert same, part
+        w = spread_taps_work(c, o, win, taps)
+        work = [a + b for a, b in zip(work, w)]
+        parts[part] = dict(
+            max_abs_err=0.0, ms=median_ms(lambda: sw(c, o, win, taps=taps)),
+            values_ms=median_ms(lambda: sw(c, v, win)),
+            plain_ms=median_ms(lambda: spread_kernel.spread_windows_plain(
+                c, o, win, taps=taps)), read_mb=4.0 * (c.numel() + o.numel())
+            / 1e6, values_read_mb=4.0 * (c.numel() + v.numel()) / 1e6,
+            **bound(*w))
+        r = parts[part]
+        print(f"[10 echo] spread_taps {part}: cells {tuple(c.shape)}, "
+              f"operands {tuple(o.shape)}, win {win}; vs the values "
+              f"staging bit for bit, two launches bit-identical; "
+              f"{r['ms']:.3f} ms (values staging {r['values_ms']:.3f} ms) "
+              f"vs plain {r['plain_ms']:.3f} ms; reads {r['read_mb']:.0f} "
+              f"MB (values staging {r['values_read_mb']:.0f} MB); bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}, {w[0] / 1e6:.0f} "
+              f"MB)")
+        del got, again, want
+    rec["spread_taps"] = dict(
+        max_abs_err=0.0, ms=sum(q["ms"] for q in parts.values()),
+        plain_ms=sum(q["plain_ms"] for q in parts.values()),
+        library_ms=None, **bound(*work), per_chunk=parts)
 
     fr, fi, filt, nfft, rows = ops["conv"]
     got = fft_kernel.fft_conv_pallas(fr, fi, filt, nfft, out_rows=rows)
@@ -1722,7 +1780,7 @@ def phase_e2e(dev, setup) -> dict:
     raw = e2e_sim(dev, setup)
     torch.cuda.synchronize(dev)
     counts = launch_counts(ECHO_WRAPPERS)
-    want = {"spread": 2 * E2E_CHUNKS, "spread_qr": 0,
+    want = {"spread": 0, "spread_qr": 0, "spread_taps": 2 * E2E_CHUNKS,
             "fft_conv": E2E_CHUNKS, "place": 2 * E2E_CHUNKS,
             "echo_accumulate": 0}
     assert counts == want, counts
@@ -1756,7 +1814,7 @@ def phase_e2e(dev, setup) -> dict:
     torch.cuda.synchronize(dev)
     counts_qr = launch_counts(ECHO_WRAPPERS)
     assert counts_qr["spread_qr"] == 2 * E2E_CHUNKS \
-        and counts_qr["spread"] == 0 \
+        and counts_qr["spread"] == counts_qr["spread_taps"] == 0 \
         and counts_qr["place"] == 2 * E2E_CHUNKS, counts_qr
     qr_err = rel_err(raw_qr, raw)
     assert qr_err <= 1e-5, qr_err
@@ -1771,7 +1829,8 @@ def phase_e2e(dev, setup) -> dict:
           f"{ {k: v for k, v in counts_qr.items() if v} }, raw "
           f"{qr_err:.2e} of the peak from the roll order (<= 1e-5)")
     return {"spread": counts["spread"], "fft_conv": counts["fft_conv"],
-            "spread_qr": counts_qr["spread_qr"], "place": counts["place"]}
+            "spread_qr": counts_qr["spread_qr"], "place": counts["place"],
+            "spread_taps": counts["spread_taps"]}
 
 
 def phase_echo_gold(dev, sc, raw4, sc4):

@@ -27,8 +27,12 @@
 // Design: one block of 256 threads per (pulse, group), deterministic, no
 // float atomics, ~26 KB of shared memory at the main pass and ~36 KB at the
 // edge pass (six blocks an SM).
-//   1. Staging: the group's values go to shared memory by cp.async (16-byte
-//      copies where aligned), in flight while the cells are processed.
+//   1. Staging, one of three (a template argument): the group's values go
+//      to shared memory by cp.async (16-byte copies where aligned), in
+//      flight while the cells are processed; or the block forms them there
+//      from a few operands a target (the formed taps below), and the value
+//      tensor, 176 MB a main launch at the full-scale chunk, is never
+//      written or read.
 //   2. Count: an occupancy bitmask of the window (one bit a cell, win / 32
 //      words) by shared atomicOr; a prefix of the words' popcounts gives each
 //      occupied cell its index among the occupied cells, u; per u, shared
@@ -57,12 +61,48 @@
 // added the partial 0 + v: adding +0.0, or 0 + v for v, to a sum that
 // started at +0.0 never changes it (no such sum is ever -0.0). So the
 // windows are the first design's bit for bit.
+//
+// Formed taps (ops/cuda/spread_kernel.py::tap_sets is the same arithmetic
+// in PyTorch, which the NUFFT echo ran before on (pulse, target, tap)
+// tensors): per target the operands, (pc, rows, B) float32, target b of
+// group g in column g bg + b (a column past B is padding: a dropped
+// target, zeros); per (set, tap, target) one value pair, threads striding
+// over them target-fastest (coalesced loads, conflict-free stores).
+//   ES taps (the main pass; rows frac, a_re, a_im):
+//     u = (k - (K/2 - 1)) - frac, w = |u| < K/2 ?
+//     exp(beta (sqrt(clamp(1 - (2u/K)^2, 0, 1)) - 1)) : 0, values w a.
+//   Flank taps (the exact-edge pass; rows a_re, a_im, then e0, c0, c1 a
+//     set): ph = c0 + c1 k + c2 k^2, e = e0 + k / fs, a leading flank's gate
+//     e >= -1e-12 and d = e, a trailing one's e <= t_edge + 1e-12 and d =
+//     t_edge - e; tap = 0.5 + 0.5 cos(pi clamp(d / t_edge, 0, 1)); values
+//     (gate ? tap : 0) (cos ph a_re - sin ph a_im, cos ph a_im + sin ph
+//     a_re).
+// Each value is the PyTorch operators' on the card bit for bit: their
+// float32 operations in their order, one rounding each (the intrinsics keep
+// nvcc from contracting a product and a sum into an FMA), the same libm
+// functions (expf, sqrtf, cosf, sinf; no fast math), the Python scalars
+// rounded as PyTorch rounds them (to float32; a division by a scalar is the
+// product with its float32 reciprocal on the card). Steps 2-5 and their
+// order of sums are the values staging's, so are the windows.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Step 1's stagings.
+enum Staging : int { kValues = 0, kEsTaps = 1, kFlankTaps = 2 };
+
+// What the formed taps read besides their operands: the float32 constants
+// (ops/cuda/spread_kernel.py::_tap_args).
+struct TapArgs {
+  int n_targets;      // B: the operand rows' length
+  int grp;            // groups a pulse
+  int leading;        // flank taps: bit s set where set s is a leading flank
+  float beta, inv_k;  // ES taps: beta, 1 / K
+  float c2, fs, t_edge, inv_t_edge, pi, gate_lead, gate_trail;  // flank taps
+};
 
 __device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            bool wide) {
@@ -103,13 +143,85 @@ __device__ __forceinline__ int occupied_index(const unsigned* occ,
   return word_pre[i >> 5] + __popc(occ[i >> 5] & ((1u << (i & 31)) - 1u));
 }
 
-// One block per (pulse, group): cells (bg,) int32, vals (S, 2K, bg) float32,
-// out (2S, win) float32, all at offset blockIdx.x of their arrays.
-// K <= 30, bg < 2^15.
-template <bool kQr>
+// Step 1 of the formed taps: the group's values into s_val, (S, 2K, bg)
+// (see the head of this file). ops: the (pc, rows, B) operands; item =
+// pulse * grp + group.
+template <int kStaging>
+__device__ __forceinline__ void form_taps(const float* __restrict__ ops,
+                                          float* s_val, int item, int bg,
+                                          int n_sets, int k_taps,
+                                          const TapArgs& ta) {
+  const int n_b = ta.n_targets, p = item / ta.grp, g = item - p * ta.grp;
+  const int rows = kStaging == kEsTaps ? 3 : 2 + 3 * n_sets;
+  const float* op = ops + (size_t)p * rows * n_b;
+  const int n_items = n_sets * k_taps * bg;
+  // item i = sk bg + b, sk = s K + k, kept as (sk, b) while i strides
+  int sk = 0, b = (int)threadIdx.x;
+  while (b >= bg) {
+    b -= bg;
+    ++sk;
+  }
+  for (int i = (int)threadIdx.x; i < n_items; i += kThreads) {
+    const int s = sk / k_taps, k = sk - s * k_taps;
+    const int col = g * bg + b;
+    float re = 0.f, im = 0.f;
+    if (col < n_b) {
+      if (kStaging == kEsTaps) {
+        const float frac = __ldg(op + col), ar = __ldg(op + n_b + col),
+                    ai = __ldg(op + 2 * (size_t)n_b + col);
+        const float u = __fsub_rn((float)(k - (k_taps / 2 - 1)), frac);
+        const float h = __fmul_rn(__fmul_rn(2.f, u), ta.inv_k);
+        const float z2 =
+            fminf(fmaxf(__fsub_rn(1.f, __fmul_rn(h, h)), 0.f), 1.f);
+        const float w =
+            fabsf(u) < 0.5f * (float)k_taps
+                ? expf(__fmul_rn(ta.beta, __fsub_rn(__fsqrt_rn(z2), 1.f)))
+                : 0.f;
+        re = __fmul_rn(w, ar);
+        im = __fmul_rn(w, ai);
+      } else {
+        const float ar = __ldg(op + col), ai = __ldg(op + n_b + col);
+        const float* o = op + (size_t)(2 + 3 * s) * n_b + col;
+        const float e0 = __ldg(o), c0 = __ldg(o + n_b),
+                    c1 = __ldg(o + 2 * (size_t)n_b);
+        const float kf = (float)k;
+        const float ph = __fadd_rn(__fadd_rn(c0, __fmul_rn(c1, kf)),
+                                   __fmul_rn(__fmul_rn(ta.c2, kf), kf));
+        const float e = __fadd_rn(e0, __fdiv_rn(kf, ta.fs));
+        const bool lead = (ta.leading >> s) & 1;
+        const bool gate = lead ? e >= ta.gate_lead : e <= ta.gate_trail;
+        const float d = lead ? e : __fsub_rn(ta.t_edge, e);
+        const float z =
+            fminf(fmaxf(__fmul_rn(d, ta.inv_t_edge), 0.f), 1.f);
+        const float tap =
+            __fadd_rn(0.5f, __fmul_rn(0.5f, cosf(__fmul_rn(z, ta.pi))));
+        const float cs = cosf(ph), sn = sinf(ph);
+        const float rot_r = __fsub_rn(__fmul_rn(cs, ar), __fmul_rn(sn, ai));
+        const float rot_i = __fadd_rn(__fmul_rn(cs, ai), __fmul_rn(sn, ar));
+        const float t = gate ? tap : 0.f;
+        re = __fmul_rn(t, rot_r);
+        im = __fmul_rn(t, rot_i);
+      }
+    }
+    float* v = s_val + ((size_t)(2 * s) * k_taps + k) * bg + b;
+    v[0] = re;
+    v[(size_t)k_taps * bg] = im;
+    b += kThreads;
+    while (b >= bg) {
+      b -= bg;
+      ++sk;
+    }
+  }
+}
+
+// One block per (pulse, group): cells (bg,) int32, vals (S, 2K, bg) float32
+// (the values staging) or the operands (form_taps), out (2S, win) float32,
+// cells and out at offset blockIdx.x of their arrays. K <= 30, bg < 2^15.
+template <bool kQr, int kStaging>
 __global__ void __launch_bounds__(kThreads, 6) spread_windows_kernel(
     const int* __restrict__ cells, const float* __restrict__ vals,
-    float* __restrict__ out, int bg, int win, int n_sets, int k_taps) {
+    float* __restrict__ out, int bg, int win, int n_sets, int k_taps,
+    TapArgs ta) {
   extern __shared__ float4 smem4[];
   const int nv = n_sets * 2 * k_taps * bg;
   const int nw = (win + 31) >> 5;
@@ -133,17 +245,21 @@ __global__ void __launch_bounds__(kThreads, 6) spread_windows_kernel(
     return c >= 0 && c < win ? c : -1;
   };
 
-  // 1. staging: the values by cp.async (in flight until step 5), the cells,
-  // zeroed words and counts
-  const bool wide = ((nv & 3) == 0) && ((size_t)v_g & 15) == 0;
-  if (wide) {
-    for (int i = 4 * tid; i < nv; i += 4 * kThreads)
-      copy_async(s_val + i, v_g + i, true);
+  // 1. staging: the values by cp.async (in flight until step 5) or the
+  // formed taps; the cells, zeroed words and counts
+  if constexpr (kStaging == kValues) {
+    const bool wide = ((nv & 3) == 0) && ((size_t)v_g & 15) == 0;
+    if (wide) {
+      for (int i = 4 * tid; i < nv; i += 4 * kThreads)
+        copy_async(s_val + i, v_g + i, true);
+    } else {
+      for (int i = tid; i < nv; i += kThreads)
+        copy_async(s_val + i, v_g + i, false);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
   } else {
-    for (int i = tid; i < nv; i += kThreads)
-      copy_async(s_val + i, v_g + i, false);
+    form_taps<kStaging>(vals, s_val, (int)item, bg, n_sets, k_taps, ta);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
   for (int w = tid; w <= nw; w += kThreads) s_occ[w] = 0u;
   for (int u = tid; u < bg; u += kThreads) {
     s_cnt[u] = 0;
@@ -333,6 +449,23 @@ int smem_bytes(int bg, int win, int n_sets, int k_taps) {
   return 4 * (((nv + 3) & ~3) + 5 * bg + 2 * nw + 3);
 }
 
+using SpreadKernel = void (*)(const int*, const float*, float*, int, int,
+                              int, int, TapArgs);
+
+// One spread launch of pc x grp blocks (items) on the stream.
+int launch_spread(SpreadKernel kernel, const int* cells, const float* vals,
+                  float* out, int items, int bg, int win, int n_sets,
+                  int k_taps, const TapArgs& ta, void* stream) {
+  if (k_taps < 1 || k_taps > 30) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(bg, win, n_sets, k_taps);
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  kernel<<<items, kThreads, smem, (cudaStream_t)stream>>>(
+      cells, vals, out, bg, win, n_sets, k_taps, ta);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // The window placement: the group windows added into the field.
 //
@@ -464,16 +597,36 @@ extern "C" int spread_windows_launch(const int* cells, const float* vals,
                                      float* out, int items, int bg, int win,
                                      int n_sets, int k_taps, int qr,
                                      void* stream) {
-  if (k_taps < 1 || k_taps > 30) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(bg, win, n_sets, k_taps);
-  void (*kernel)(const int*, const float*, float*, int, int, int, int) =
-      qr ? spread_windows_kernel<true> : spread_windows_kernel<false>;
-  int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  kernel<<<items, kThreads, smem, (cudaStream_t)stream>>>(
-      cells, vals, out, bg, win, n_sets, k_taps);
-  return (int)cudaGetLastError();
+  return launch_spread(qr ? spread_windows_kernel<true, kValues>
+                          : spread_windows_kernel<false, kValues>,
+                       cells, vals, out, items, bg, win, n_sets, k_taps,
+                       TapArgs{}, stream);
+}
+
+// The formed taps (the roll order): ops (pc, rows, n_targets) float32,
+// staging 1 (ES taps, one set) or 2 (flank taps, bit s of leading set where
+// set s is a leading flank); the constants as TapArgs names them. Returns
+// the launch's CUDA error; cudaErrorInvalidValue for a shape or staging it
+// does not take.
+extern "C" int spread_taps_launch(
+    const int* cells, const float* ops, float* out, int pc, int grp, int bg,
+    int win, int n_sets, int k_taps, int staging, int n_targets, int leading,
+    float beta, float inv_k, float c2, float fs, float t_edge,
+    float inv_t_edge, float pi, float gate_lead, float gate_trail,
+    void* stream) {
+  if (pc < 1 || grp < 1 || bg < 1 || n_targets < 1 ||
+      (n_targets + grp - 1) / grp != bg || n_sets < 1 || n_sets > 8 ||
+      (staging == kEsTaps && n_sets != 1) ||
+      (staging != kEsTaps && staging != kFlankTaps))
+    return (int)cudaErrorInvalidValue;
+  const TapArgs ta = {n_targets, grp,   leading,    beta, inv_k,    c2,
+                      fs,        t_edge, inv_t_edge, pi,   gate_lead,
+                      gate_trail};
+  return launch_spread(staging == kEsTaps
+                           ? spread_windows_kernel<false, kEsTaps>
+                           : spread_windows_kernel<false, kFlankTaps>,
+                       cells, ops, out, pc * grp, bg, win, n_sets, k_taps, ta,
+                       stream);
 }
 
 // pc pulses of grp group windows, n_sets value sets at cell offsets off0 ..

@@ -27,6 +27,15 @@ row 2s the real and 2s + 1 the imaginary part of set s. The reference takes
 a list of per-set (pc, grp, 2K, bg) tensors and returns per-set pairs; the
 stacked layout lets one launch read every set.
 
+Formed taps (``taps=``, the roll order): the kernel forms the values
+itself from a few float32 operands a target, (pc, rows, B) with target b of
+group g in column g bg + b, and the value tensor never exists. Two
+stagings, each the float32 arithmetic of :func:`tap_sets` (the plain
+version's, operation for operation): :class:`EsTaps`, the NUFFT echo's
+main pass (rows frac, a_re, a_im: ES-kernel weights times the amplitude),
+and :class:`FlankTaps`, its exact-edge pass (rows a_re, a_im, then e0, c0,
+c1 of each set: raised-cosine gate flanks times the rotated amplitude).
+
 :func:`place_windows` adds the windows into the field at their bases (set
 s at its integer cell offset), in one launch of a kernel that replaces no
 Pallas kernel: the reference places them with jnp, a gather, add and store
@@ -35,6 +44,10 @@ of each group's rows, and :func:`place_windows_plain` is that loop.
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
@@ -61,25 +74,164 @@ def smem_bytes(bg: int, win: int, n_sets: int, k_taps: int) -> int:
     return 4 * (-(-nv // 4) * 4 + 5 * bg + 2 * nw + 3)
 
 
-def _check_shapes(name, c_ok, vals, win):
+@dataclass(frozen=True)
+class EsTaps:
+    """Formed taps of the NUFFT echo's main pass: one set of ``k_taps``
+    exponential-of-semicircle weights times the target's amplitude;
+    operand rows frac, a_re, a_im."""
+
+    k_taps: int
+    beta: float
+
+    n_sets = 1
+    rows = 3
+    staging = 1               # the kernel's kEsTaps
+
+
+@dataclass(frozen=True)
+class FlankTaps:
+    """Formed taps of the NUFFT echo's exact-edge pass: ``k_taps`` native
+    samples of a gate flank (raised cosine of width ``t_edge_s``, a leading
+    or a trailing flank a set) times the target's amplitude rotated by the
+    chirp phase c0 + c1 k + c2 k^2; operand rows a_re, a_im, then e0 (the
+    flank-local time of tap 0), c0 and c1 of each set."""
+
+    k_taps: int
+    fs_hz: float
+    c2: float                 # rad a tap^2
+    t_edge_s: float
+    leading: tuple            # per set
+
+    staging = 2               # the kernel's kFlankTaps
+
+    @property
+    def n_sets(self) -> int:
+        return len(self.leading)
+
+    @property
+    def rows(self) -> int:
+        return 2 + 3 * self.n_sets
+
+
+def es_weights(frac: torch.Tensor, k_taps: int, beta: float) -> torch.Tensor:
+    """The (..., K) float32 weights of taps k at u = (k - (K/2 - 1)) -
+    frac: exp(beta (sqrt(1 - (2u/K)^2) - 1)) on |u| < K/2, else 0."""
+    dev = frac.device
+    offs = torch.arange(k_taps, dtype=torch.int32, device=dev)
+    u = (offs.to(torch.float32) - (k_taps // 2 - 1)) - frac[..., None]
+    z2 = torch.clamp(1.0 - (2.0 * u / k_taps) ** 2, 0.0, 1.0)
+    b = torch.tensor(beta, dtype=torch.float32, device=dev)
+    return torch.where(torch.abs(u) < k_taps / 2.0,
+                       torch.exp(b * (torch.sqrt(z2) - 1.0)), 0.0)
+
+
+def flank_taps(e0, c0, c1, a_re, a_im, taps: FlankTaps, leading: bool):
+    """One flank's (gate, tap, rot_r, rot_i), each (..., K): tap k at
+    flank-local time e = e0 + k / fs is inside the gate where e >= 0
+    (leading) or e <= t_edge (trailing), up to 1e-12 s; tap, the flank
+    weight 1 - raised cosine of the distance to the gate edge over t_edge;
+    rot, the amplitude rotated by c0 + c1 k + c2 k^2."""
+    f32, dev = torch.float32, e0.device
+    offs_f = torch.arange(taps.k_taps, device=dev).to(f32)
+    c2 = torch.tensor(taps.c2, dtype=f32, device=dev)
+    fs32 = torch.tensor(taps.fs_hz, dtype=f32, device=dev)
+    t_edge_s = taps.t_edge_s
+    ph = c0[..., None] + c1[..., None] * offs_f + c2 * offs_f * offs_f
+    e = e0[..., None] + offs_f / fs32
+    if leading:
+        gate = e >= -1e-12
+        d = e
+    else:
+        gate = e <= t_edge_s + 1e-12
+        d = t_edge_s - e
+    z = torch.clamp(d / t_edge_s, 0.0, 1.0)
+    tap = 0.5 + 0.5 * torch.cos(math.pi * z)       # 1 - raised cosine
+    cs, sn = torch.cos(ph), torch.sin(ph)
+    ar, ai = a_re[..., None], a_im[..., None]
+    return gate, tap, cs * ar - sn * ai, cs * ai + sn * ar
+
+
+def tap_sets(ops: torch.Tensor, taps) -> list:
+    """The formed taps' value sets [(vr, vi) (pc, B, K) float32, ...] of
+    the (pc, rows, B) operands: what the kernel forms, in plain PyTorch."""
+    if isinstance(taps, EsTaps):
+        w = es_weights(ops[:, 0], taps.k_taps, taps.beta)
+        return [(w * ops[:, 1, :, None], w * ops[:, 2, :, None])]
+    sets = []
+    for s, leading in enumerate(taps.leading):
+        gate, tap, rot_r, rot_i = flank_taps(*ops[:, 2 + 3 * s:5 + 3 * s]
+                                             .unbind(1), ops[:, 0],
+                                             ops[:, 1], taps, leading)
+        sets.append((torch.where(gate, tap, 0.0) * rot_r,
+                     torch.where(gate, tap, 0.0) * rot_i))
+    return sets
+
+
+def pack_values(sets, grp: int) -> torch.Tensor:
+    """Value sets [(vr, vi) (pc, B, K), ...] as the kernel's (pc, grp, S,
+    2K, bg) float32, [re | im] on the tap axis, B padded with zeros to grp
+    bg targets."""
+    v = torch.stack([torch.cat([vr, vi], dim=-1) for vr, vi in sets],
+                    dim=1)                                   # (pc, S, B, 2K)
+    pc, n_sets, num_b, k2 = v.shape
+    bg = -(-num_b // grp)
+    v = torch.nn.functional.pad(v, (0, 0, 0, bg * grp - num_b))
+    return v.reshape(pc, n_sets, grp, bg, k2).permute(
+        0, 2, 1, 4, 3).to(torch.float32).contiguous()
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _tap_args(taps, num_b: int):
+    """The formed-taps launcher's ints (staging, B, leading bits) and
+    float32 constants (beta, 1 / K, c2, fs, t_edge, 1 / t_edge, pi, the
+    leading and the trailing gate's limits), each rounded as the PyTorch
+    operators of :func:`tap_sets` round their Python scalars on the card:
+    a scalar to float32, a division by a scalar as the product with its
+    float32 reciprocal."""
+    if isinstance(taps, EsTaps):
+        return ((taps.staging, num_b, 0),
+                (_f32(taps.beta), _f32(1.0 / taps.k_taps)) + (0.0,) * 7)
+    t_edge = _f32(taps.t_edge_s)
+    lead = sum(1 << s for s, a in enumerate(taps.leading) if a)
+    return ((taps.staging, num_b, lead),
+            (0.0, 0.0, _f32(taps.c2), _f32(taps.fs_hz), t_edge,
+             _f32(1.0 / t_edge), _f32(math.pi), _f32(-1e-12),
+             _f32(taps.t_edge_s + 1e-12)))
+
+
+def _check_shapes(name, c_ok, vals, win, taps=None):
     pc, grp, bg = c_ok.shape
+    if win < 1:
+        raise ValueError(f"{name}: win must be positive, got {win}")
+    if taps is not None:
+        if vals.dim() != 3 or vals.shape[:2] != (pc, taps.rows) \
+                or -(-vals.shape[2] // grp) != bg:
+            raise ValueError(
+                f"{name}: formed taps need operands (pc, rows, B) = ({pc}, "
+                f"{taps.rows}, B) with B / {grp} rounded up {bg}, got "
+                f"{tuple(vals.shape)}")
+        return pc, grp, bg, taps.n_sets, taps.k_taps
     if vals.dim() != 5 or vals.shape[:2] != (pc, grp) \
             or vals.shape[4] != bg or vals.shape[3] % 2:
         raise ValueError(
             f"{name}: values must be (pc, grp, S, 2K, bg) = ({pc}, {grp}, S,"
             f" 2K, {bg}), got {tuple(vals.shape)}")
-    if win < 1:
-        raise ValueError(f"{name}: win must be positive, got {win}")
     return pc, grp, bg, vals.shape[2], vals.shape[3] // 2
 
 
 def spread_windows_plain(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
-                         qr: bool = False) -> torch.Tensor:
+                         qr: bool = False, taps=None) -> torch.Tensor:
     """Plain version of :func:`spread_windows_pallas`: a float32 one-hot
     of the cells (per tap with ``qr``) contracted with the values, then
-    (without ``qr``) the roll chain over the taps, k = 0 first."""
+    (without ``qr``) the roll chain over the taps, k = 0 first. With
+    ``taps``, the values are :func:`tap_sets` of the operands ``vals``."""
     pc, grp, bg, n_sets, k_taps = _check_shapes("spread_windows_plain",
-                                                c_ok, vals, win)
+                                                c_ok, vals, win, taps)
+    if taps is not None:
+        vals = pack_values(tap_sets(vals, taps), grp)
     out = torch.empty((pc, grp, 2 * n_sets, win), dtype=torch.float32,
                       device=vals.device)
     iota = torch.arange(win, device=vals.device, dtype=torch.int32)
@@ -108,18 +260,25 @@ def spread_windows_plain(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
 
 
 def spread_windows_pallas(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
-                          qr: bool = False) -> torch.Tensor:
+                          qr: bool = False, taps=None) -> torch.Tensor:
     """The group windows (pc, grp, 2S, win) float32 of ``vals`` (pc, grp,
     S, 2K, bg) float32 at the window-relative tap-0 cells ``c_ok`` (pc, grp,
     bg) int32 (-1 drops a target). ``qr`` sums each window cell's taps and
     targets in one accumulator (the reference's digit-factorized
-    ``_kernel_qr``); otherwise taps add in the roll-chain order. Each
-    launch adds one to ``spread_windows_pallas.launches_qr`` with ``qr``,
-    else to ``spread_windows_pallas.launches``."""
+    ``_kernel_qr``); otherwise taps add in the roll-chain order. With
+    ``taps`` (an :class:`EsTaps` or :class:`FlankTaps`, the roll order)
+    ``vals`` holds the (pc, rows, B) float32 operands and the kernel forms
+    the values, :func:`tap_sets`' bit for bit. Each launch adds one to
+    ``spread_windows_pallas.launches_qr`` with ``qr``, to ``.launches_taps``
+    and the stage record's ``echo.spread_taps`` with ``taps``, else to
+    ``.launches``."""
     pc, grp, bg, n_sets, k_taps = _check_shapes("spread_windows_pallas",
-                                                c_ok, vals, win)
+                                                c_ok, vals, win, taps)
+    if taps is not None and qr:
+        raise ValueError("spread_windows_pallas: formed taps add in the roll"
+                         " order (qr=False)")
     if _build.on_cpu(c_ok):
-        return spread_windows_plain(c_ok, vals, win, qr)
+        return spread_windows_plain(c_ok, vals, win, qr, taps)
     if k_taps > K_MAX:
         raise ValueError(f"spread_windows_pallas: {k_taps} taps exceed the "
                          f"kernel's {K_MAX}")
@@ -134,9 +293,17 @@ def spread_windows_pallas(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
     _build.check("spread_windows_pallas", (c_ok,), (pc, grp, bg), dev,
                  torch.int32)
     _build.check("spread_windows_pallas", (vals,),
-                 (pc, grp, n_sets, 2 * k_taps, bg), dev)
+                 vals.shape if taps is not None
+                 else (pc, grp, n_sets, 2 * k_taps, bg), dev)
     out = torch.empty((pc, grp, 2 * n_sets, win), dtype=torch.float32,
                       device=dev)
+    if taps is not None:
+        ints, floats = _tap_args(taps, vals.shape[2])
+        _build.launch("spread_taps_launch", (c_ok, vals, out),
+                      (pc, grp, bg, win, n_sets, k_taps, *ints), floats)
+        spread_windows_pallas.launches_taps += 1
+        profiling.count("echo.spread_taps")
+        return out
     _build.launch("spread_windows_launch", (c_ok, vals, out),
                   (pc * grp, bg, win, n_sets, k_taps, int(qr)))
     if qr:
@@ -146,9 +313,11 @@ def spread_windows_pallas(c_ok: torch.Tensor, vals: torch.Tensor, win: int,
     return out
 
 
-# launches in the roll order and in the one-accumulator order
+# launches in the roll order of given values, in the one-accumulator order,
+# and in the roll order of formed taps
 spread_windows_pallas.launches = 0
 spread_windows_pallas.launches_qr = 0
+spread_windows_pallas.launches_taps = 0
 
 
 def _check_place(name, wins, base, offsets, start, l_out):

@@ -21,6 +21,11 @@ spreader in plain PyTorch: :func:`_spread_dense` with ``impl='xla'``),
 hand-written spread kernel of ``ops/cuda/spread_kernel.py``, in the roll or
 the one-accumulator order; its plain version for CPU tensors), or
 ``'auto'`` (``'dense_kernel'`` on the card, ``'scatter'`` on the CPU).
+Every dense spreader takes the pass as a few float32 operands a (pulse,
+target) (:class:`_Spread`); ``'dense_kernel'`` hands them to the spread
+kernel, which forms the taps itself, and the others form the (pulse,
+target, tap) values in PyTorch (``spread_kernel.tap_sets``): the same
+bits.
 ``conv``: ``'xla'`` (torch.fft), ``'pallas'`` (the FFT-conv kernel of
 ``ops/cuda/fft_kernel.py``; on a CPU tensor its plain version, or torch.fft
 where the kernel does not take the FFT length) or ``'auto'`` (the kernel on
@@ -37,6 +42,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +58,7 @@ _TWO_PI = 2.0 * math.pi
 # the dense spreaders and the _spread_dense route each takes
 _D_IMPL = {"dense": "xla", "dense_kernel": "pallas",
            "dense_kernel_qr": "pallas_qr"}
+_ES_TAPS = spread_kernel.EsTaps(_W, _BETA)     # the main pass's formed taps
 
 
 def _next_fast_len(n: int) -> int:
@@ -119,22 +126,11 @@ def _floor_div(x: torch.Tensor, m: int) -> torch.Tensor:
     return torch.div(x, m, rounding_mode="floor")
 
 
-def _pack_vals(val_sets, b_pad: int, grp: int) -> torch.Tensor:
-    """Every set's [re | im] taps (pc, B, 2K), padded to b_pad targets, as
-    the kernel's (pc, grp, S, 2K, bg) float32."""
-    v = torch.stack([torch.cat([vr, vi], dim=-1) for vr, vi, _ in val_sets],
-                    dim=1)                                   # (pc, S, B, 2K)
-    pc, n_sets, num_b, k2 = v.shape
-    v = torch.nn.functional.pad(v, (0, 0, 0, b_pad - num_b))
-    return v.reshape(pc, n_sets, grp, b_pad // grp, k2).permute(
-        0, 2, 1, 4, 3).to(torch.float32).contiguous()
-
-
-def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
-    """The group-window operands of :func:`_spread_dense`: (c_ok (pc, grp,
-    bg) int32 window-relative tap-0 cells, -1 for a dropped target; vals
-    (pc, grp, S, 2K, bg) float32; base (pc, grp) int32 each window's cell
-    in the padded field; lo rounded up to 128)."""
+def _cells(i0, k_max: int, l_out: int, win: int, grp: int, lo: int = 0):
+    """The group windows' cells of :func:`_spread_dense`: (c_ok (pc, grp,
+    bg) int32 window-relative tap-0 cells, -1 for a dropped target; base
+    (pc, grp) int32 each window's cell in the padded field; lo rounded up to
+    128), for value sets of at most ``k_max`` taps."""
     pc, num_b = i0.shape
     bg = -(-num_b // grp)
     b_pad = bg * grp
@@ -155,10 +151,19 @@ def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
     c_rel = i0g - base[:, :, None]
 
     # one cell list serves every value set (built with the widest tap margin)
-    k_max = max(v[0].shape[-1] for v in val_sets)
     ok = live & (c_rel >= 0) & (c_rel <= win - k_max)
     c_ok = torch.where(ok, c_rel, -1).to(torch.int32).contiguous()
-    return c_ok, _pack_vals(val_sets, b_pad, grp), base, lo
+    return c_ok, base, lo
+
+
+def _group_cells(i0, val_sets, l_out: int, win: int, grp: int, lo: int = 0):
+    """The group-window operands of :func:`_spread_dense`: :func:`_cells`'
+    (c_ok, base, lo) with the sets' values, (pc, grp, S, 2K, bg) float32,
+    between the cells and the bases."""
+    c_ok, base, lo = _cells(i0, max(v[0].shape[-1] for v in val_sets), l_out,
+                            win, grp, lo)
+    return c_ok, spread_kernel.pack_values([(vr, vi) for vr, vi, _ in
+                                            val_sets], grp), base, lo
 
 
 def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
@@ -196,6 +201,46 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
     return spread_kernel.place_windows(wins, base,
                                        [off for _, _, off in val_sets],
                                        win + lo, l_out, complex_out)
+
+
+class _Spread(NamedTuple):
+    """One pass's spread before any tap value exists: the tap-0 cells i0
+    (pc, B) int32, the (pc, rows, B) float32 operands of the formed taps
+    and their staging (``spread_kernel.EsTaps`` or ``FlankTaps``), each
+    set's cell offset, and :func:`_spread_dense`'s l_out, win, grp, lo."""
+
+    i0: torch.Tensor
+    ops: torch.Tensor
+    taps: object
+    offsets: tuple
+    l_out: int
+    win: int
+    grp: int
+    lo: int
+
+
+def _value_sets(sp: _Spread) -> list:
+    """The pass's value sets for :func:`_spread_dense`: (vr, vi, offset)
+    with the taps formed in PyTorch (``spread_kernel.tap_sets``)."""
+    return [(vr, vi, off) for (vr, vi), off in
+            zip(spread_kernel.tap_sets(sp.ops, sp.taps), sp.offsets)]
+
+
+def _spread(pl, sp: _Spread, complex_out: bool = False):
+    """The pass spread by the plan's dense spreader: 'dense_kernel' hands
+    the spread wrapper the operands (the kernel forms the taps on the card;
+    its plain version forms them in PyTorch on the CPU) and places the
+    windows as :func:`_spread_dense` does; the other dense spreaders
+    :func:`_spread_dense` the value sets."""
+    if pl.spreader != "dense_kernel":
+        return _spread_dense(sp.i0, _value_sets(sp), sp.l_out, sp.win, sp.grp,
+                             sp.lo, impl=pl.d_impl, complex_out=complex_out)
+    c_ok, base, lo = _cells(sp.i0, sp.taps.k_taps, sp.l_out, sp.win, sp.grp,
+                            sp.lo)
+    wins = spread_kernel.spread_windows_pallas(c_ok, sp.ops, sp.win,
+                                               taps=sp.taps)
+    return spread_kernel.place_windows(wins, base, list(sp.offsets),
+                                       sp.win + lo, sp.l_out, complex_out)
 
 
 def _wrap32(x64: torch.Tensor) -> torch.Tensor:
@@ -325,42 +370,33 @@ def _plan(tau_rel, opts, oversample: int = 2,
         t_edge_s=t_edge_s, delta=delta, share=abs(delta_f - delta) < 1e-6)
 
 
-def _es_weights(pl: _Plan, tau):
+def _es_cells(pl: _Plan, tau):
     """The chunk's impulses on the oversampled grid: tap-0 cells i0 (pc, B)
-    int32 and the ES weights (pc, B, W) float32 of their taps."""
-    dev = tau.device
+    int32 and each impulse's position past its cell, frac (pc, B)
+    float32."""
     s = (tau.to(torch.float64) + pl.x0) * (pl.opts.fs_hz * pl.os) + pl.lead
     s_fl = torch.floor(s)
-    i0 = s_fl.to(torch.int32) - (_W // 2 - 1)
-    frac = (s - s_fl).to(torch.float32)
-    # ES weights at u = pos - s = offs - (W/2-1) - frac
-    offs_w = torch.arange(_W, dtype=torch.int32, device=dev)
-    u = (offs_w.to(torch.float32) - (_W // 2 - 1)) - frac[:, :, None]
-    z2 = torch.clamp(1.0 - (2.0 * u / _W) ** 2, 0.0, 1.0)
-    beta = torch.tensor(_BETA, dtype=torch.float32, device=dev)
-    w = torch.where(torch.abs(u) < _W / 2.0,
-                    torch.exp(beta * (torch.sqrt(z2) - 1.0)), 0.0)
-    return i0, w
+    return s_fl.to(torch.int32) - (_W // 2 - 1), (s - s_fl).to(torch.float32)
 
 
-def _main_spread_call(pl: _Plan, i0, w, a_re, a_im):
-    """The main pass's :func:`_spread_dense` arguments (i0, val_sets, l_out,
-    win, grp, lo)."""
+def _main_spread(pl: _Plan, tau, a_re, a_im) -> _Spread:
+    """The main pass's spread: ES taps of (frac, a_re, a_im)."""
+    i0, frac = _es_cells(pl, tau)
     # clamp far-out cells near the grid edges: their taps land in the
     # margins (dropped, as the scatter path's ok-mask drops them) without
     # dragging their group's window away
     i0_d = torch.clamp(i0, -256, pl.l_imp + 256)
-    return (i0_d, [(w * a_re[:, :, None], w * a_im[:, :, None], 0)],
-            pl.l_imp, pl.win, pl.grp, 0)
+    return _Spread(i0_d, torch.stack([frac, a_re, a_im], dim=1), _ES_TAPS,
+                   (0,), pl.l_imp, pl.win, pl.grp, 0)
 
 
 def _main_field(pl: _Plan, tau, a_re, a_im):
     """The chunk's impulses spread onto the oversampled grid: (pc, l_imp)
     float32 re/im fields."""
-    i0, w = _es_weights(pl, tau)
     if pl.spreader != "scatter":
-        return _spread_dense(*_main_spread_call(pl, i0, w, a_re, a_im),
-                             impl=pl.d_impl)
+        return _spread(pl, _main_spread(pl, tau, a_re, a_im))
+    i0, frac = _es_cells(pl, tau)
+    w = spread_kernel.es_weights(frac, _W, _BETA)
     pc, l_imp, dev = tau.shape[0], pl.l_imp, tau.device
     pos = i0[:, :, None] + torch.arange(_W, dtype=torch.int32, device=dev)
     ok = (pos >= 0) & (pos < l_imp)
@@ -388,81 +424,74 @@ def _conv(pl: _Plan, fr, fi):
     return conv_c[:, pl.lead:pl.lead + ns * os_:os_]
 
 
-def _edge_flanks(pl: _Plan, tau, a_re, a_im):
-    """Exact native-rate samples of chirp x (rect - taper) at both gate
-    flanks: per flank (cell0 (pc, B) float64, the first native sample at or
-    after the flank's start; gate (pc, B, n_edge) bool; tap, the flank
-    weights; rot_r, rot_i, the rotated amplitude of each tap). The flank
-    phase is quadratic in the tap k, c0 + c1 k + c2 k^2, with c0 and c1
-    computed and wrapped per (pulse, target) in float64."""
-    opts, dev, f32 = pl.opts, tau.device, torch.float32
+def _flanks(pl: _Plan, tau):
+    """Both gate flanks of the exact-edge pass, leading then trailing, per
+    (pulse, target): cell0 (pc, B) float64, the first native sample at or
+    after the flank's start, and its taps' float32 operands e0 (tap 0's
+    flank-local time), c0 and c1 (the flank phase c0 + c1 k + c2 k^2 is
+    quadratic in the tap k; c0 and c1 computed and wrapped in float64)."""
+    opts, x0 = pl.opts, pl.x0
     tau64 = tau.to(torch.float64)
-    offs_f = torch.arange(pl.n_edge, device=dev)[None, None, :].to(f32)
-    c2 = torch.tensor(math.pi * opts.chirp_rate / (opts.fs_hz ** 2),
-                      dtype=f32, device=dev)
-    fs32 = torch.tensor(opts.fs_hz, dtype=f32, device=dev)
-    t_edge_s, x0 = pl.t_edge_s, pl.x0
-    ar, ai = a_re[:, :, None], a_im[:, :, None]
     flanks = []
-    for edge_off, leading in ((0.0, True),
-                              (opts.pulse_width_s - t_edge_s, False)):
+    for edge_off in (0.0, opts.pulse_width_s - pl.t_edge_s):
         # first native sample index at/after the flank start
         start = (tau64 + x0 + edge_off) * opts.fs_hz             # (pc, B)
         cell0 = torch.ceil(start - 1e-9)
         # flank-local coordinate of tap 0 (small f64 -> exact f32)
         e0 = cell0 / opts.fs_hz - tau64 - x0 - edge_off
         arg0 = e0 + edge_off + x0 - opts.chirp_shift
-        c0 = _wrap32(math.pi * opts.chirp_rate * arg0 * arg0)
-        c1 = _wrap32((_TWO_PI * opts.chirp_rate / opts.fs_hz) * arg0)
-        ph = (c0[:, :, None] + c1[:, :, None] * offs_f
-              + c2 * offs_f * offs_f)
-        e = e0.to(f32)[:, :, None] + offs_f / fs32
-        if leading:
-            gate = e >= -1e-12
-            d = e
-        else:
-            gate = e <= t_edge_s + 1e-12
-            d = t_edge_s - e
-        z = torch.clamp(d / t_edge_s, 0.0, 1.0)
-        tap = 0.5 + 0.5 * torch.cos(math.pi * z)       # 1 - raised cosine
-        cs, sn = torch.cos(ph), torch.sin(ph)
-        flanks.append((cell0, gate, tap, cs * ar - sn * ai, cs * ai + sn * ar))
+        flanks.append((cell0, e0.to(torch.float32),
+                       _wrap32(math.pi * opts.chirp_rate * arg0 * arg0),
+                       _wrap32((_TWO_PI * opts.chirp_rate / opts.fs_hz)
+                               * arg0)))
     return flanks
 
 
-def _edge_spread_calls(pl: _Plan, flanks):
-    """The dense spreaders' :func:`_spread_dense` arguments (i0, val_sets,
-    l_out, win, grp, lo) of the exact-edge pass: one call of both flanks on
-    a shared cell list where the flanks sit a whole number of samples apart,
-    else one call a flank."""
+def _flank_taps(pl: _Plan, leading: tuple):
+    """The flank taps of sets that are leading or trailing flanks."""
+    opts = pl.opts
+    return spread_kernel.FlankTaps(
+        pl.n_edge, opts.fs_hz, math.pi * opts.chirp_rate / (opts.fs_hz ** 2),
+        pl.t_edge_s, leading)
+
+
+def _edge_spreads(pl: _Plan, tau, a_re, a_im) -> list:
+    """The exact-edge pass's spreads: one of both flanks on a shared cell
+    list where the flanks sit a whole number of samples apart, else one a
+    flank."""
     ns = pl.opts.num_samples
-    vals = [(torch.where(gate, tap, 0.0) * rr, torch.where(gate, tap, 0.0)
-             * ri) for _, gate, tap, rr, ri in flanks]
+    flanks = _flanks(pl, tau)
     if pl.share:
         i0 = torch.clamp(flanks[0][0], -pl.delta - 256.0, ns + 256.0)
-        return [(i0.to(torch.int32), [(*vals[0], 0), (*vals[1], pl.delta)],
-                 ns, pl.win_e, pl.grp_e, pl.delta + 256)]
-    return [(torch.clamp(f[0], -256.0, ns + 256.0).to(torch.int32),
-             [(*v, 0)], ns, pl.win_e, pl.grp_e, 0)
-            for f, v in zip(flanks, vals)]
+        ops = torch.stack([a_re, a_im, *flanks[0][1:], *flanks[1][1:]],
+                          dim=1)
+        return [_Spread(i0.to(torch.int32), ops,
+                        _flank_taps(pl, (True, False)), (0, pl.delta), ns,
+                        pl.win_e, pl.grp_e, pl.delta + 256)]
+    return [_Spread(torch.clamp(f[0], -256.0, ns + 256.0).to(torch.int32),
+                    torch.stack([a_re, a_im, *f[1:]], dim=1),
+                    _flank_taps(pl, (leading,)), (0,), ns, pl.win_e, pl.grp_e,
+                    0)
+            for f, leading in zip(flanks, (True, False))]
 
 
 def _edge_exact(pl: _Plan, tau, a_re, a_im):
     """The exact-edge correction field of the chunk: (pc, Ns) complex64."""
     pc, ns, dev = tau.shape[0], pl.opts.num_samples, tau.device
-    flanks = _edge_flanks(pl, tau, a_re, a_im)
     if pl.spreader != "scatter":
-        # one call where the flanks share a cell list; else the two calls'
-        # fields add in call order
+        # one spread where the flanks share a cell list; else the two
+        # spreads' fields add in order
         corr = None
-        for call in _edge_spread_calls(pl, flanks):
-            e = _spread_dense(*call, impl=pl.d_impl, complex_out=True)
+        for sp in _edge_spreads(pl, tau, a_re, a_im):
+            e = _spread(pl, sp, complex_out=True)
             corr = e if corr is None else corr + e
         return corr
     corr_r = torch.zeros((pc * ns,), dtype=torch.float32, device=dev)
     corr_i = torch.zeros_like(corr_r)
     offs = torch.arange(pl.n_edge, device=dev)[None, None, :]
-    for cell0, gate, tap, rot_r, rot_i in flanks:
+    for (cell0, *ops), leading in zip(_flanks(pl, tau), (True, False)):
+        gate, tap, rot_r, rot_i = spread_kernel.flank_taps(
+            *ops, a_re, a_im, _flank_taps(pl, (leading,)), leading)
         nidx = cell0.to(torch.int64)[:, :, None] + offs
         ok = (nidx >= 0) & (nidx < ns)
         t_ok = torch.where(gate & ok, tap, 0.0)
@@ -491,9 +520,10 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
     wrapped carrier phase [rad]; amp: real amplitude. The target axis must
     be sorted by delay for the dense spreaders (the echo engine's freq
     branch sorts it). Pulses go in chunks sized from ``opts.max_elements``
-    (the reference's rule), bounding the (pc, B, W) spreading temporaries
-    and the (pc, l_fft) field. ``edge_taper`` > 0 enables the exact-edge
-    split; 0 restores the approximate mode (~-25 dB field floor).
+    (the reference's rule), bounding the spreading temporaries ((pc, B, W)
+    tap values where PyTorch forms them) and the (pc, l_fft) field.
+    ``edge_taper`` > 0 enables the exact-edge split; 0 restores the
+    approximate mode (~-25 dB field floor).
     ``spread_win`` / ``spread_grp`` (and ``*_edge`` for the exact-edge
     pass, whose window defaults to half the main one) size the dense
     spreaders' group windows.
@@ -524,9 +554,12 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
 def kernel_operands(tau_rel, carrier, amp, opts, **synth_kw) -> dict:
     """The operands that :func:`synthesize` (the same arguments) hands its
     kernel wrappers for its first pulse chunk, to time the kernels at the
-    path's shapes: ``"spread main"`` (c_ok, vals, win) and ``"spread
-    edge"``, a list of the same, one a :func:`_spread_dense` call of the
-    exact-edge pass, for ``spread_kernel.spread_windows_pallas``;
+    path's shapes: ``"spread main taps"`` (c_ok, ops, win, taps) and
+    ``"spread edge taps"``, a list of the same, one a spread of the
+    exact-edge pass, for ``spread_kernel.spread_windows_pallas(c_ok, ops,
+    win, taps=taps)`` (the 'dense_kernel' route); ``"spread main"`` (c_ok,
+    vals, win) and ``"spread edge"``, the same spreads with their values
+    formed in PyTorch, as the other dense spreaders hand them the wrapper;
     ``"conv"`` (fr, fi, filt, l_fft, rows) for
     ``fft_kernel.fft_conv_pallas``, the field planes as the column views of
     the padded field that :func:`synthesize` passes. The routes must be a
@@ -541,14 +574,20 @@ def kernel_operands(tau_rel, carrier, amp, opts, **synth_kw) -> dict:
     n = pl.pulse_chunk
     tau = tau_rel[:n]
     a_re, a_im = _rotated(carrier[:n], amp[:n])
-    i0, w = _es_weights(pl, tau)
-    main = _main_spread_call(pl, i0, w, a_re, a_im)
-    edge = _edge_spread_calls(pl, _edge_flanks(pl, tau, a_re, a_im))
-    fr, fi = _spread_dense(*main, impl=pl.d_impl)
+    main = _main_spread(pl, tau, a_re, a_im)
+    edge = _edge_spreads(pl, tau, a_re, a_im)
+    fr, fi = _spread(pl, main)
 
-    def spread_ops(i0_, sets, l_out, win, grp, lo):
-        return _group_cells(i0_, sets, l_out, win, grp, lo)[:2] + (win,)
+    def values(sp):
+        return _group_cells(sp.i0, _value_sets(sp), sp.l_out, sp.win, sp.grp,
+                            sp.lo)[:2] + (sp.win,)
 
-    return {"spread main": spread_ops(*main),
-            "spread edge": [spread_ops(*c) for c in edge],
+    def formed(sp):
+        return (_cells(sp.i0, sp.taps.k_taps, sp.l_out, sp.win, sp.grp,
+                       sp.lo)[0], sp.ops, sp.win, sp.taps)
+
+    return {"spread main": values(main),
+            "spread edge": [values(sp) for sp in edge],
+            "spread main taps": formed(main),
+            "spread edge taps": [formed(sp) for sp in edge],
             "conv": (fr, fi, pl.filt, pl.l_fft, pl.rows)}

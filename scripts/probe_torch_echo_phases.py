@@ -3,49 +3,47 @@
 
     python3 scripts/probe_torch_echo_phases.py [--parent DIR]  # GPU, repo root
 
-Builds copies of ``nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu``
-and ``csrc/fft_kernel.cu`` under ``build/probe_echo_phases/`` in which thread
-0 of every block records ``clock64()`` after each phase (and
-``%globaltimer`` and the SM id at its start and end), and runs them on the
-operands of ``chip_smoke.py``'s phase 10: the full-scale chain's first
-512-pulse chunk (``echo_freq.kernel_operands``). Per kernel it prints the
-span, the mean block time, the most blocks resident at once, the idle gap
-between blocks on an SM, and the mean SM cycles of each named phase. The
-spread: staging (values by cp.async, cells, zeroing) / count (occupancy
-bits, occupied-cell index, counts, least targets) / scan (one warp)
-and the barrier / rank (the stable list) / the values' arrival and the
-barrier / gather and store. The conv: loads and the columns' 16-point DFTs
-/ the columns' A-point DFTs, the push and the rows' 16-point DFTs / the
-rows' 8-point DFTs, the filter and the inverse 8-point DFTs / the rows'
-inverse 16-point DFTs and the push back / the columns' inverse A-point DFTs
-/ their inverse 16-point DFTs and the band stores. ptxas's registers and
-spills head each build.
+Builds copies of ``nis_sar_amtigmti_video_tpu_torch/csrc/spread_kernel.cu`` and
+``csrc/fft_kernel.cu`` under ``build/probe_echo_phases/`` in which thread 0 of
+every block records ``clock64()`` after each phase (and ``%globaltimer`` and
+the SM id at its start and end), and runs them on the operands of
+``chip_smoke.py``'s phase 10: the full-scale chain's first 512-pulse chunk
+(``echo_freq.kernel_operands``). Per kernel it prints the span, the mean block
+time, the most blocks resident at once, the idle gap between blocks on an SM,
+and the mean SM cycles of each named phase. The spread, with its values staged
+and with its taps formed (the path's operands of both passes): staging (values
+by cp.async or the taps formed, cells, zeroing) / count (occupancy bits,
+occupied-cell index, counts, least targets) / scan (one warp) and the barrier /
+rank (the stable list) / the values' arrival and the barrier / gather and
+store. The conv: loads and the columns' 16-point DFTs / the columns' A-point
+DFTs, the push and the rows' 16-point DFTs / the rows' 8-point DFTs, the filter
+and the inverse 8-point DFTs / the rows' inverse 16-point DFTs and the push
+back / the columns' inverse A-point DFTs / their inverse 16-point DFTs and the
+band stores. ptxas's registers and spills head each build.
 
 Then the times (CUDA events, median of 20 after a warm-up) of this tree's
-wrappers on the same operands: the spread's main and edge passes in both
-orders, the conv beside torch.fft's fft / multiply / ifft and beside each
-part's byte bound, and the VARIANTS (text substitutions on copies: the
-conv on one block an SM; the spread at 64 registers, four blocks an SM,
-with its values read from device memory in the gather, none staged, on 192
-or 384 threads, or with the targets of a cell that form one run in index
-order put in its list in parallel, the match loop ranking the rest). With
-``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git archive``
-unpacked under ``build/``) it also builds DIR's two sources as they are and
-marked (the first design's phases: the spread's staging / count / scan /
-rank / gather and store; the conv's loads / column FFT / scatter / row FFT
-/ filter / row inverse / twiddle / barrier / gather / column inverse /
-band store), times DIR's launchers on the same operands (its conv on
-contiguous copies of the field, the copies the sim pass made before, timed
-apart) and prints whether this tree's spread windows equal DIR's bit for
-bit (``torch.equal``) in both orders, and compares the SASS of forward
-spectra and the conv (``cuobjdump -sass`` of the package's library and of
-DIR's build, each instantiation's instructions with the addresses,
-encodings and label numbers left out): identical, or how many lines differ
-(the diffs under ``build/probe_echo_phases/``). A DIR whose spread or conv
-is already this tree's design is marked with this tree's marks and its
-conv launched through the package's wrapper. The card's name and power
-limit head the output. Imports neither JAX nor the JAX package.
-"""
+wrappers on the same operands: the spread's main and edge passes in both orders
+and with the taps formed, the conv beside torch.fft's fft / multiply / ifft and
+beside each part's byte bound, and the VARIANTS (text substitutions on copies:
+the conv on one block an SM; the spread at 64 registers, four blocks an SM,
+with its values read from device memory in the gather, none staged, on 192 or
+384 threads, or with the targets of a cell that form one run in index order put
+in its list in parallel, the match loop ranking the rest). With ``--parent
+DIR`` (a checkout of an earlier commit, e.g. a ``git archive`` unpacked under
+``build/``) it also builds DIR's two sources as they are and marked (the first
+design's phases: the spread's staging / count / scan / rank / gather and store;
+the conv's loads / column FFT / scatter / row FFT / filter / row inverse /
+twiddle / barrier / gather / column inverse / band store), times DIR's
+launchers on the same operands (its conv on contiguous copies of the field, the
+copies the sim pass made before, timed apart) and prints whether this tree's
+spread windows equal DIR's bit for bit (``torch.equal``) in both orders, and
+compares the SASS of forward spectra and the conv (``cuobjdump -sass`` of the
+package's library and of DIR's build, each instantiation's instructions with
+the addresses, encodings and label numbers left out): identical, or how many
+lines differ (the diffs under ``build/probe_echo_phases/``). A DIR whose spread
+or conv is already this tree's design is marked with this tree's marks and its
+conv launched through the package's wrapper. The card's name and power limit
+head the output. Imports neither JAX nor the JAX package."""
 
 from __future__ import annotations
 
@@ -399,6 +397,8 @@ def main():
                                     **echo.synth_options(opts))
     del fields
     spreads = {"main": ops["spread main"], "edge": ops["spread edge"][0]}
+    formed = {"main": ops["spread main taps"],
+              "edge": ops["spread edge taps"][0]}
     fr, fi, filt, nfft, rows = ops["conv"]
     torch.cuda.synchronize()
     print(f"[operands] spread main cells {tuple(spreads['main'][0].shape)}, "
@@ -413,7 +413,10 @@ def main():
     print("[phases] this tree")
     show_phases(libs["spread marked"],
                 [(f"spread {p}", lambda c=c, v=v, w=w: sw(c, v, w))
-                 for p, (c, v, w) in spreads.items()], SPREAD_PHASES)
+                 for p, (c, v, w) in spreads.items()]
+                + [(f"spread {p}, taps formed",
+                    lambda c=c, o=o, w=w, t=t: sw(c, o, w, taps=t))
+                   for p, (c, o, w, t) in formed.items()], SPREAD_PHASES)
     show_phases(libs["conv marked"],
                 [("conv", lambda: conv(fr, fi, filt, nfft, out_rows=rows))],
                 CONV_PHASES)
@@ -466,6 +469,12 @@ def main():
             print(f"[time] spread {p} ({order}): " + "; ".join(line)
                   + f"; byte bound {bound:.4f} ms ({b / 1e6:.0f} MB)")
             del got
+        c, o, w, t = formed[p]
+        b = 4.0 * (c.numel() + o.numel()) + b - 4.0 * (c.numel() + v.numel())
+        ms = median_ms(lambda: sw(c, o, w, taps=t), reps=20)
+        print(f"[time] spread {p} (taps formed): this tree {ms:.4f} ms; "
+              f"byte bound {b / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({b / 1e6:.0f} MB)")
 
     want = fft_kernel.fft_conv_plain(fr, fi, filt, nfft, out_rows=rows)
     field = torch.complex(fr, fi)

@@ -11,9 +11,11 @@ group's rows from its own pulses alone, bit for bit), the fast-BP accumulate
 kernels on synthetic operands (also on more tiles than the card holds at
 once, twice for the same bits) and at the VideoSAR full width, and the
 NUFFT echo's spread (both orders; cells sorted, reversed, nearly sorted,
-on one cell, at the window's ends), window placement (bit for bit, at a
-small shape and at the full-scale chain's first chunk, both passes; never
-the plain loop on the card) and FFT-conv kernels (every nfft, on
+on one cell, at the window's ends; the taps it forms, bit for bit against
+the values PyTorch forms, small and at the full-scale chain's first chunk,
+and no per-tap tensor on the echo's route), window placement (bit for bit,
+at a small shape and at the full-scale chain's first chunk, both passes;
+never the plain loop on the card) and FFT-conv kernels (every nfft, on
 column views of wider planes, bands at both ends) and the direct-echo
 kernel at small shapes and at the full-scale GMTI chain's (512-pulse
 chunks, nfft 65,536), with the freq and pallas echo backends end to end on
@@ -25,6 +27,7 @@ where no CUDA device is present (the kernels have no CPU mode). On a GPU
 machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q``."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1198,18 +1201,197 @@ def test_freq_synthesize_on_card_matches_cpu(dev, spreader):
         return (spread_kernel.spread_windows_pallas.launches,
                 spread_kernel.spread_windows_pallas.launches_qr,
                 fft_kernel.fft_conv_pallas.launches,
-                spread_kernel.place_windows.launches)
+                spread_kernel.place_windows.launches,
+                spread_kernel.spread_windows_pallas.launches_taps)
 
     before = counts()
     got = echo_freq.synthesize(*(a.to(dev) for a in cpu), _freq_kw(),
                                spreader=spreader)
     torch.cuda.synchronize()
     rises = tuple(a - b for a, b in zip(counts(), before))
-    # one chunk: the main spread, the shared two-set edge spread, the conv,
-    # the main and edge placements (every dense spreader)
-    assert rises == {"auto": (2, 0, 1, 2), "dense_kernel_qr": (0, 2, 1, 2),
-                     "dense": (0, 0, 1, 2)}[spreader]
+    # one chunk: the main spread, the shared two-set edge spread (formed
+    # taps on 'auto'), the conv, the main and edge placements (every dense
+    # spreader)
+    assert rises == {"auto": (0, 0, 1, 2, 2),
+                     "dense_kernel_qr": (0, 2, 1, 2, 0),
+                     "dense": (0, 0, 1, 2, 0)}[spreader]
     assert _rel(got.cpu(), want) <= 2e-5
+
+
+def _formed_case(dev, case, seed=21):
+    """(c_ok, ops, win, taps) of a formed-taps spread on synthetic operands:
+    'es' (the main pass's ES taps), 'es weights' (amplitude 1: the windows
+    are the weights), 'flanks' (both flanks of the full-scale waveform on
+    one cell list), 'leading' and 'trailing' (one flank a spread), 'flank
+    gate' (phase 0, amplitude 1: the windows are the gated flank weights),
+    'flank phase' (tap 0 at the leading gate's edge, weight 1: the windows
+    there are the rotated amplitudes). 8 pulses of 3 groups of 14 targets,
+    40 of them (2 padded); the cells sorted with duplicates, dropped (-1)
+    and at both ends of the window and past it; the isolated cases one
+    target every K cells."""
+    rng = np.random.default_rng(seed)
+    pc, grp, num_b = 8, 3, 40
+    bg = -(-num_b // grp)
+    fs, t_edge = 600e6, 4.0 / 600e6
+    if case.startswith("es"):
+        taps = spread_kernel.EsTaps(8, 2.30 * 8)
+    else:
+        leading = {"leading": (True,), "trailing": (False,)}.get(
+            case, (True, False))
+        c2 = 0.0 if case == "flank gate" else (math.pi * 500e6 / 20e-6
+                                               / fs ** 2)
+        taps = spread_kernel.FlankTaps(6, fs, c2, t_edge, leading)
+    k = taps.k_taps
+    isolated = case in ("es weights", "flank gate", "flank phase")
+    if isolated:
+        win = bg * k + 64
+        c = np.broadcast_to(np.arange(bg) * k, (pc, grp, bg)).copy()
+    else:
+        win = 256
+        c = np.sort(rng.integers(0, win - k + 1, (pc, grp, bg)), axis=-1)
+        c[:, :, 1::7] = c[:, :, 0::7][:, :, :c[:, :, 1::7].shape[-1]]
+        c[:, :, 3::11] = -1
+        c[:, :, 4::9] = rng.integers(0, 3, c[:, :, 4::9].shape)
+        c[:, :, 6::9] = rng.integers(win - k, win + 3, c[:, :, 6::9].shape)
+    amp = rng.normal(size=(2, pc, num_b))
+    if case in ("es weights", "flank gate"):
+        amp = np.stack([np.ones((pc, num_b)), np.zeros((pc, num_b))])
+    if isinstance(taps, spread_kernel.EsTaps):
+        frac = rng.uniform(0.0, 1.0, (pc, num_b))
+        frac[:, ::5] = 0.0                  # u = K/2 at the last tap
+        rows = [frac, *amp]
+    else:
+        rows = list(amp)
+        for _ in taps.leading:
+            # tap 0's flank-local time, around and inside both gate ends
+            e0 = rng.uniform(-3e-12, 1.0 / fs, (pc, num_b))
+            e0[:, ::4] = rng.choice([0.0, -5e-13, -1e-12, -2e-12, 1e-13],
+                                    e0[:, ::4].shape)
+            e0[:, 1::4] = t_edge - rng.integers(0, 6, e0[:, 1::4].shape) / fs \
+                + rng.choice([0.0, 5e-13, 1e-12, 2e-12, -1e-13],
+                             e0[:, 1::4].shape)
+            c0, c1 = rng.uniform(-np.pi, np.pi, (2, pc, num_b))
+            if case == "flank gate":
+                c0[:] = c1[:] = 0.0
+            elif case == "flank phase":
+                e0[:] = 0.0
+            rows += [e0, c0, c1]
+    ops = torch.from_numpy(np.stack(rows, axis=1).astype(np.float32))
+    return (torch.from_numpy(c.astype(np.int32)).to(dev), ops.to(dev), win,
+            taps)
+
+
+def _same_windows(got, want):
+    """Bit for bit, with the first differing cells in the message."""
+    a, b = got.view(torch.int32), want.view(torch.int32)
+    bad = (a != b).nonzero()
+    assert bad.shape[0] == 0, (
+        f"{bad.shape[0]} of {a.numel()} window cells differ; first "
+        + ", ".join(f"{tuple(i.tolist())}: {got[tuple(i)].item()!r} vs "
+                    f"{want[tuple(i)].item()!r}" for i in bad[:6]))
+
+
+@pytest.mark.parametrize("case", ["es", "es weights", "flanks", "leading",
+                                  "trailing", "flank gate", "flank phase"])
+def test_formed_taps_match_values_staging(dev, case):
+    """The formed-taps stagings against the values staging fed the values
+    PyTorch forms on the card from the same operands (the echo's operators
+    before the kernel formed its taps), bit for bit, twice the same bits:
+    dropped targets, cells at both window ends and past them, padded
+    targets, the ES weights alone, the flank's gate and weight alone, its
+    rotation alone."""
+    c, ops, win, taps = _formed_case(dev, case)
+    sw = spread_kernel.spread_windows_pallas
+    before = (sw.launches, sw.launches_taps)
+    got = sw(c, ops, win, taps=taps)
+    again = sw(c, ops, win, taps=taps)
+    vals = spread_kernel.pack_values(spread_kernel.tap_sets(ops, taps),
+                                     c.shape[1])
+    want = sw(c, vals, win)
+    torch.cuda.synchronize()
+    assert (sw.launches, sw.launches_taps) == (before[0] + 1, before[1] + 2)
+    assert float(want.abs().max()) > 0
+    _same_windows(got, want)
+    _same_windows(again, got)
+
+
+@pytest.fixture(scope="module")
+def fullscale_fields(dev):
+    """The full-scale chain's scalar fields of one 512-pulse chunk a
+    channel (config.ati_dpca(): 13,200 samples, fs 600 MHz, Tp 20 us, the
+    centred window; the destroyer turned by 90 degrees in 5,000 clutter
+    points) and its echo options."""
+    sc = config.ati_dpca()
+    g, c = sc.geometry, sc.collect
+    opts = dataclasses.replace(echo_opts_for(sc), backend="freq",
+                               endpoint_grid=False)
+    t0 = window_start_time(g.slant_range_m, opts, c.window_length_s,
+                           "centered")
+    scene = targets.PointTargets.concatenate(
+        [targets.destroyer().rotate_z(90.0),
+         ocean_clutter_field(np.random.default_rng(0))])
+    traj = orbit.make_trajectory(g, orbit.slow_time_grid(
+        512 / sc.radar.prf_hz, 512))
+    fields = echo.scalar_fields(traj, scene, opts, t_start=t0,
+                                rx_offsets=sc.channels.rx_offsets(),
+                                device=dev)
+    return fields, opts
+
+
+@pytest.mark.parametrize("part", ["main", "edge"])
+def test_formed_taps_match_values_staging_at_full_scale(dev, fullscale_fields,
+                                                        part):
+    """At the full-scale chain's first chunk (512 pulses, 16 groups of 315
+    targets; win 4,096 and 2,048) the spread of the formed taps equals the
+    values staging's of kernel_operands' values bit for bit."""
+    fields, opts = fullscale_fields
+    ops = echo_freq.kernel_operands(*fields, opts,
+                                    **echo.synth_options(opts))
+    if part == "main":
+        (c, v, win), (c_t, o_t, win_t, taps) = (ops["spread main"],
+                                                ops["spread main taps"])
+    else:
+        ((c, v, win),), ((c_t, o_t, win_t, taps),) = (ops["spread edge"],
+                                                      ops["spread edge taps"])
+    assert torch.equal(c, c_t) and win == win_t
+    assert tuple(c.shape) == (512, 16, 315)
+    got = spread_kernel.spread_windows_pallas(c_t, o_t, win_t, taps=taps)
+    want = spread_kernel.spread_windows_pallas(c, v, win)
+    torch.cuda.synchronize()
+    _same_windows(got, want)
+
+
+@pytest.mark.parametrize("flanks", ["shared", "apart"])
+def test_synthesize_forms_no_tap_tensor_on_card(dev, monkeypatch, flanks):
+    """On the card synthesize ('auto': the spread forms the taps) never
+    forms a tap in PyTorch or packs a value tensor: ES weights, flank taps,
+    tap sets and the packing raise if reached. Each chunk adds two formed-
+    taps launches to ``echo.spread_taps`` (both flanks on one cell list) or
+    three (one spread a flank) and none of values."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+
+    def per_tap(*a, **k):
+        raise AssertionError("a per-tap tensor was formed on the card")
+
+    for name in ("es_weights", "flank_taps", "tap_sets", "pack_values"):
+        monkeypatch.setattr(spread_kernel, name, per_tap)
+    rng = np.random.default_rng(14)
+    p, b = 40, 200
+    tau = np.sort(rng.uniform(5e-6, 5.5e-5, (p, b)), axis=1)
+    fields = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+              (tau, rng.uniform(-np.pi, np.pi, (p, b)),
+               rng.uniform(0.5, 2.0, (p, b)))]
+    opts = _freq_kw(pulse_width_s=2e-6 if flanks == "shared" else 2.01e-6)
+    sw = spread_kernel.spread_windows_pallas
+    before = (sw.launches, sw.launches_qr, sw.launches_taps)
+    with profiling.recording() as rec:
+        out = echo_freq.synthesize(*fields, opts, pulse_chunk=16)
+    torch.cuda.synchronize()
+    per_chunk = 2 if flanks == "shared" else 3
+    assert rec.counters["echo.spread_taps"] == 3 * per_chunk
+    assert (sw.launches, sw.launches_qr, sw.launches_taps) == (
+        before[0], before[1], before[2] + 3 * per_chunk)
+    assert bool(torch.isfinite(torch.view_as_real(out)).all())
 
 
 def _place_calls(fields, opts, **kw):
@@ -1243,24 +1425,9 @@ def _small_place_calls(dev):
 
 
 @pytest.fixture(scope="module")
-def fullscale_place_calls(dev):
-    """The placements of the full-scale chain's first 512-pulse chunk
-    (config.ati_dpca(): 13,200 samples, fs 600 MHz, Tp 20 us, the centred
-    window; the destroyer turned by 90 degrees in 5,000 clutter points)."""
-    sc = config.ati_dpca()
-    g, c = sc.geometry, sc.collect
-    opts = dataclasses.replace(echo_opts_for(sc), backend="freq",
-                               endpoint_grid=False)
-    t0 = window_start_time(g.slant_range_m, opts, c.window_length_s,
-                           "centered")
-    scene = targets.PointTargets.concatenate(
-        [targets.destroyer().rotate_z(90.0),
-         ocean_clutter_field(np.random.default_rng(0))])
-    traj = orbit.make_trajectory(g, orbit.slow_time_grid(
-        512 / sc.radar.prf_hz, 512))
-    fields = echo.scalar_fields(traj, scene, opts, t_start=t0,
-                                rx_offsets=sc.channels.rx_offsets(),
-                                device=dev)
+def fullscale_place_calls(fullscale_fields):
+    """The placements of the full-scale chain's first 512-pulse chunk."""
+    fields, opts = fullscale_fields
     return _place_calls(fields, opts, **echo.synth_options(opts))
 
 

@@ -275,7 +275,9 @@ def test_kernel_operands_are_the_first_chunks(conv_case, monkeypatch,
                                               spreader):
     """kernel_operands gives exactly what synthesize hands the spread and
     conv wrappers for its first pulse chunk (two chunks of 2 pulses here):
-    the main spread, the one shared-flank edge spread and the conv."""
+    the main spread, the one shared-flank edge spread and the conv; the
+    formed taps' operands on 'dense_kernel', the values on
+    'dense_kernel_qr'."""
     opts, fields, _ = conv_case
     tau, car, amp = map(torch.from_numpy, fields)
     kw = dict(spreader=spreader, conv="pallas", pulse_chunk=2)
@@ -283,9 +285,9 @@ def test_kernel_operands_are_the_first_chunks(conv_case, monkeypatch,
     spread, conv = (spread_kernel.spread_windows_pallas,
                     fft_kernel.fft_conv_pallas)
 
-    def spread_rec(c_ok, vals, win, qr=False):
-        seen["spread"].append((c_ok, vals, win, qr))
-        return spread(c_ok, vals, win, qr)
+    def spread_rec(c_ok, vals, win, qr=False, taps=None):
+        seen["spread"].append((c_ok, vals, win, qr, taps))
+        return spread(c_ok, vals, win, qr, taps)
 
     def conv_rec(fr, fi, filt, nfft, out_rows=None):
         seen["conv"].append((fr, fi, filt, nfft, out_rows))
@@ -298,10 +300,19 @@ def test_kernel_operands_are_the_first_chunks(conv_case, monkeypatch,
     ops = echo_freq.kernel_operands(tau, car, amp, opts, **kw)
     assert len(ops["spread edge"]) == 1
     qr = spreader == "dense_kernel_qr"
-    for (c, v, win), (c_s, v_s, win_s, qr_s) in zip(
-            [ops["spread main"], *ops["spread edge"]], seen["spread"][:2]):
-        assert torch.equal(c, c_s) and torch.equal(v, v_s)
-        assert (win, qr) == (win_s, qr_s)
+    for (c, v, win), (c_t, o_t, win_t, taps), (c_s, v_s, win_s, qr_s,
+                                               taps_s) in zip(
+            [ops["spread main"], *ops["spread edge"]],
+            [ops["spread main taps"], *ops["spread edge taps"]],
+            seen["spread"][:2]):
+        assert torch.equal(c, c_s) and torch.equal(c_t, c_s)
+        assert (win, win_t, qr) == (win_s, win_s, qr_s)
+        assert torch.equal(v, spread_kernel.pack_values(
+            spread_kernel.tap_sets(o_t, taps), c.shape[1]))
+        if qr:
+            assert torch.equal(v, v_s) and taps_s is None
+        else:
+            assert torch.equal(o_t, v_s) and taps == taps_s
     fr, fi, filt, nfft, rows = ops["conv"]
     fr_s, fi_s, filt_s, nfft_s, rows_s = seen["conv"][0]
     assert torch.equal(fr, fr_s) and torch.equal(fi, fi_s)

@@ -11,6 +11,8 @@ window placement kernel's per-cell walk held bit for bit to its plain
 version, and that to the row loop it replaced, with synthesize's bits and
 kernel_operands' shapes unchanged by it. On the CPU no kernel launches."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -116,12 +118,12 @@ def test_row_check_takes_views_and_refuses_strided_rows():
         fft_kernel._check_rows("t", (fr.double(),), (3, 50), cpu)
 
 
-def _freq_case():
+def _freq_case(b=48):
     opts = echo.EchoOpts(fc_hz=9.65e9, chirp_rate=50e6 / 2e-6,
                          pulse_width_s=2e-6, fs_hz=60e6, num_samples=4000,
                          endpoint_grid=False, backend="freq")
     rng = np.random.default_rng(11)
-    p, b = 3, 48
+    p = 3
     tau = np.sort(rng.uniform(5e-6, 5.5e-5, (p, b)), axis=1)
     car = rng.uniform(-np.pi, np.pi, (p, b))
     amp = rng.uniform(0.5, 2.0, (p, b))
@@ -373,11 +375,11 @@ def _old_spread_dense(i0, val_sets, l_out, win, grp, lo=0, impl="xla"):
 def _old_edge_exact(pl, tau, a_re, a_im):
     """_edge_exact's dense branch before the placement kernel."""
     pc, ns, dev = tau.shape[0], pl.opts.num_samples, tau.device
-    flanks = echo_freq._edge_flanks(pl, tau, a_re, a_im)
+    flanks = _parent_edge_flanks(pl, tau, a_re, a_im)
     assert pl.spreader != "scatter"
     corr_r = torch.zeros((pc, ns), dtype=torch.float32, device=dev)
     corr_i = torch.zeros_like(corr_r)
-    for call in echo_freq._edge_spread_calls(pl, flanks):
+    for call in _parent_edge_spread_calls(pl, flanks):
         er, ei = _old_spread_dense(*call, impl=pl.d_impl)
         corr_r = corr_r + er
         corr_i = corr_i + ei
@@ -520,6 +522,156 @@ def test_place_windows_refuses_bad_operands():
         spread_kernel.place_windows(wins, base, offsets, win + lo, 0)
 
 
+# --------------------------------------------------------------------------
+# the NUFFT echo's per-tap operands as ops/echo_freq.py formed them in
+# PyTorch before the spread kernel formed the taps, verbatim (module names
+# through echo_freq, so that a test's monkeypatch of _spread_dense reaches
+# them)
+# --------------------------------------------------------------------------
+
+def _parent_pack_vals(val_sets, b_pad: int, grp: int) -> torch.Tensor:
+    """Every set's [re | im] taps (pc, B, 2K), padded to b_pad targets, as
+    the kernel's (pc, grp, S, 2K, bg) float32."""
+    v = torch.stack([torch.cat([vr, vi], dim=-1) for vr, vi, _ in val_sets],
+                    dim=1)                                   # (pc, S, B, 2K)
+    pc, n_sets, num_b, k2 = v.shape
+    v = torch.nn.functional.pad(v, (0, 0, 0, b_pad - num_b))
+    return v.reshape(pc, n_sets, grp, b_pad // grp, k2).permute(
+        0, 2, 1, 4, 3).to(torch.float32).contiguous()
+
+
+def _parent_es_weights(pl, tau):
+    """The chunk's impulses on the oversampled grid: tap-0 cells i0 (pc, B)
+    int32 and the ES weights (pc, B, W) float32 of their taps."""
+    _W, _BETA = echo_freq._W, echo_freq._BETA
+    dev = tau.device
+    s = (tau.to(torch.float64) + pl.x0) * (pl.opts.fs_hz * pl.os) + pl.lead
+    s_fl = torch.floor(s)
+    i0 = s_fl.to(torch.int32) - (_W // 2 - 1)
+    frac = (s - s_fl).to(torch.float32)
+    # ES weights at u = pos - s = offs - (W/2-1) - frac
+    offs_w = torch.arange(_W, dtype=torch.int32, device=dev)
+    u = (offs_w.to(torch.float32) - (_W // 2 - 1)) - frac[:, :, None]
+    z2 = torch.clamp(1.0 - (2.0 * u / _W) ** 2, 0.0, 1.0)
+    beta = torch.tensor(_BETA, dtype=torch.float32, device=dev)
+    w = torch.where(torch.abs(u) < _W / 2.0,
+                    torch.exp(beta * (torch.sqrt(z2) - 1.0)), 0.0)
+    return i0, w
+
+
+def _parent_main_spread_call(pl, i0, w, a_re, a_im):
+    """The main pass's :func:`_spread_dense` arguments (i0, val_sets, l_out,
+    win, grp, lo)."""
+    i0_d = torch.clamp(i0, -256, pl.l_imp + 256)
+    return (i0_d, [(w * a_re[:, :, None], w * a_im[:, :, None], 0)],
+            pl.l_imp, pl.win, pl.grp, 0)
+
+
+def _parent_main_field(pl, tau, a_re, a_im):
+    """The chunk's impulses spread onto the oversampled grid: (pc, l_imp)
+    float32 re/im fields."""
+    _W = echo_freq._W
+    i0, w = _parent_es_weights(pl, tau)
+    if pl.spreader != "scatter":
+        return echo_freq._spread_dense(
+            *_parent_main_spread_call(pl, i0, w, a_re, a_im), impl=pl.d_impl)
+    pc, l_imp, dev = tau.shape[0], pl.l_imp, tau.device
+    pos = i0[:, :, None] + torch.arange(_W, dtype=torch.int32, device=dev)
+    ok = (pos >= 0) & (pos < l_imp)
+    wv = torch.where(ok, w, 0.0)
+    flat = (torch.arange(pc, device=dev)[:, None, None] * l_imp
+            + torch.clamp(pos, 0, l_imp - 1)).reshape(-1)
+    fr, fi = (torch.zeros(pc * l_imp, dtype=torch.float32,
+                          device=dev).index_add_(
+        0, flat, (wv * a[:, :, None]).reshape(-1)).reshape(pc, l_imp)
+        for a in (a_re, a_im))
+    return fr, fi
+
+
+def _parent_edge_flanks(pl, tau, a_re, a_im):
+    """Exact native-rate samples of chirp x (rect - taper) at both gate
+    flanks: per flank (cell0 (pc, B) float64, the first native sample at or
+    after the flank's start; gate (pc, B, n_edge) bool; tap, the flank
+    weights; rot_r, rot_i, the rotated amplitude of each tap)."""
+    _wrap32, _TWO_PI = echo_freq._wrap32, echo_freq._TWO_PI
+    opts, dev, f32 = pl.opts, tau.device, torch.float32
+    tau64 = tau.to(torch.float64)
+    offs_f = torch.arange(pl.n_edge, device=dev)[None, None, :].to(f32)
+    c2 = torch.tensor(math.pi * opts.chirp_rate / (opts.fs_hz ** 2),
+                      dtype=f32, device=dev)
+    fs32 = torch.tensor(opts.fs_hz, dtype=f32, device=dev)
+    t_edge_s, x0 = pl.t_edge_s, pl.x0
+    ar, ai = a_re[:, :, None], a_im[:, :, None]
+    flanks = []
+    for edge_off, leading in ((0.0, True),
+                              (opts.pulse_width_s - t_edge_s, False)):
+        # first native sample index at/after the flank start
+        start = (tau64 + x0 + edge_off) * opts.fs_hz             # (pc, B)
+        cell0 = torch.ceil(start - 1e-9)
+        # flank-local coordinate of tap 0 (small f64 -> exact f32)
+        e0 = cell0 / opts.fs_hz - tau64 - x0 - edge_off
+        arg0 = e0 + edge_off + x0 - opts.chirp_shift
+        c0 = _wrap32(math.pi * opts.chirp_rate * arg0 * arg0)
+        c1 = _wrap32((_TWO_PI * opts.chirp_rate / opts.fs_hz) * arg0)
+        ph = (c0[:, :, None] + c1[:, :, None] * offs_f
+              + c2 * offs_f * offs_f)
+        e = e0.to(f32)[:, :, None] + offs_f / fs32
+        if leading:
+            gate = e >= -1e-12
+            d = e
+        else:
+            gate = e <= t_edge_s + 1e-12
+            d = t_edge_s - e
+        z = torch.clamp(d / t_edge_s, 0.0, 1.0)
+        tap = 0.5 + 0.5 * torch.cos(math.pi * z)       # 1 - raised cosine
+        cs, sn = torch.cos(ph), torch.sin(ph)
+        flanks.append((cell0, gate, tap, cs * ar - sn * ai, cs * ai + sn * ar))
+    return flanks
+
+
+def _parent_edge_spread_calls(pl, flanks):
+    """The dense spreaders' :func:`_spread_dense` arguments (i0, val_sets,
+    l_out, win, grp, lo) of the exact-edge pass: one call of both flanks on
+    a shared cell list where the flanks sit a whole number of samples apart,
+    else one call a flank."""
+    ns = pl.opts.num_samples
+    vals = [(torch.where(gate, tap, 0.0) * rr, torch.where(gate, tap, 0.0)
+             * ri) for _, gate, tap, rr, ri in flanks]
+    if pl.share:
+        i0 = torch.clamp(flanks[0][0], -pl.delta - 256.0, ns + 256.0)
+        return [(i0.to(torch.int32), [(*vals[0], 0), (*vals[1], pl.delta)],
+                 ns, pl.win_e, pl.grp_e, pl.delta + 256)]
+    return [(torch.clamp(f[0], -256.0, ns + 256.0).to(torch.int32),
+             [(*v, 0)], ns, pl.win_e, pl.grp_e, 0)
+            for f, v in zip(flanks, vals)]
+
+
+def _parent_edge_exact(pl, tau, a_re, a_im):
+    """The exact-edge correction field of the chunk: (pc, Ns) complex64."""
+    pc, ns, dev = tau.shape[0], pl.opts.num_samples, tau.device
+    flanks = _parent_edge_flanks(pl, tau, a_re, a_im)
+    if pl.spreader != "scatter":
+        corr = None
+        for call in _parent_edge_spread_calls(pl, flanks):
+            e = echo_freq._spread_dense(*call, impl=pl.d_impl,
+                                        complex_out=True)
+            corr = e if corr is None else corr + e
+        return corr
+    corr_r = torch.zeros((pc * ns,), dtype=torch.float32, device=dev)
+    corr_i = torch.zeros_like(corr_r)
+    offs = torch.arange(pl.n_edge, device=dev)[None, None, :]
+    for cell0, gate, tap, rot_r, rot_i in flanks:
+        nidx = cell0.to(torch.int64)[:, :, None] + offs
+        ok = (nidx >= 0) & (nidx < ns)
+        t_ok = torch.where(gate & ok, tap, 0.0)
+        pos = torch.clamp(nidx, 0, ns - 1)
+        flat = (torch.arange(pc, device=dev)[:, None, None] * ns
+                + pos).reshape(-1)
+        corr_r.index_add_(0, flat, (t_ok * rot_r).reshape(-1))
+        corr_i.index_add_(0, flat, (t_ok * rot_i).reshape(-1))
+    return torch.complex(corr_r, corr_i).reshape(pc, ns)
+
+
 @pytest.mark.parametrize("flanks", ["shared", "apart"])
 @pytest.mark.parametrize("spreader", ["dense", "dense_kernel"])
 def test_synthesize_bits_unchanged_by_the_placement(monkeypatch, spreader,
@@ -535,6 +687,7 @@ def test_synthesize_bits_unchanged_by_the_placement(monkeypatch, spreader,
     assert pl.share == (flanks == "shared")
     after = echo_freq.synthesize(*fields, opts, **kw)
     monkeypatch.setattr(echo_freq, "_spread_dense", _old_spread_dense)
+    monkeypatch.setattr(echo_freq, "_main_field", _parent_main_field)
     monkeypatch.setattr(echo_freq, "_edge_exact", _old_edge_exact)
     before = echo_freq.synthesize(*fields, opts, **kw)
     assert np.array_equal(_bits(torch.view_as_real(after)),
@@ -563,3 +716,154 @@ def test_kernel_operands_shapes():
         assert f.stride(0) % 128 == 0
     assert (tuple(filt.shape), nfft, rows) == ((pl.l_fft,), pl.l_fft,
                                                pl.rows)
+    # the formed taps' operands: (pc, rows, B) beside the same cells
+    num_b = fields[0].shape[1]
+    c_t, o_t, win_t, taps = ops["spread main taps"]
+    assert torch.equal(c_t, c) and win_t == win
+    assert tuple(o_t.shape) == (pc, 3, num_b) and taps.k_taps == echo_freq._W
+    (ce_t, oe_t, win_et, taps_e), = ops["spread edge taps"]
+    assert torch.equal(ce_t, ce) and win_et == win_e
+    assert tuple(oe_t.shape) == (pc, 8, num_b) and taps_e.leading == (
+        True, False)
+
+
+def _parent_spreads(pl, fields):
+    """The parent's _spread_dense calls (i0, val_sets, l_out, win, grp, lo)
+    of the first chunk: the main pass's, then the exact-edge pass's."""
+    tau = fields[0][:pl.pulse_chunk]
+    a_re, a_im = echo_freq._rotated(*(f[:pl.pulse_chunk] for f in
+                                      fields[1:]))
+    i0, w = _parent_es_weights(pl, tau)
+    return [_parent_main_spread_call(pl, i0, w, a_re, a_im),
+            *_parent_edge_spread_calls(pl, _parent_edge_flanks(
+                pl, tau, a_re, a_im))]
+
+
+@pytest.mark.parametrize("num_b", [48, 50])
+@pytest.mark.parametrize("flanks", ["shared", "apart"])
+def test_formed_taps_plain_equals_parent_values(flanks, num_b):
+    """spread_windows_pallas with formed taps on CPU tensors (its plain
+    version) gives, from the operands synthesize now builds, the cells,
+    values and windows of the parent's per-tap operands (_es_weights,
+    _edge_flanks, _pack_vals) and spread_windows_plain, bit for bit: the
+    ES taps, the flank taps on one cell list or one spread a flank, with
+    and without padded targets (50 in 16 groups of 4: 14 padded)."""
+    opts, fields = _freq_case(num_b)
+    if flanks == "apart":
+        opts = echo.EchoOpts(**{**opts.__dict__, "pulse_width_s": 2.01e-6})
+    pl = echo_freq._plan(fields[0], opts, spreader="dense_kernel",
+                         conv="xla")
+    assert pl.share == (flanks == "shared")
+    tau = fields[0][:pl.pulse_chunk]
+    a_re, a_im = echo_freq._rotated(*(f[:pl.pulse_chunk] for f in
+                                      fields[1:]))
+    new = [echo_freq._main_spread(pl, tau, a_re, a_im),
+           *echo_freq._edge_spreads(pl, tau, a_re, a_im)]
+    old = _parent_spreads(pl, fields)
+    assert len(new) == len(old) == (2 if flanks == "shared" else 3)
+    for sp, (i0, val_sets, l_out, win, grp, lo) in zip(new, old):
+        assert torch.equal(sp.i0, i0)
+        assert (sp.l_out, sp.win, sp.grp, sp.lo) == (l_out, win, grp, lo)
+        assert list(sp.offsets) == [off for _, _, off in val_sets]
+        c_ok, base, lo_r = echo_freq._cells(sp.i0, sp.taps.k_taps, l_out,
+                                            win, grp, lo)
+        c_old, _, base_old, lo_old = echo_freq._group_cells(
+            i0, val_sets, l_out, win, grp, lo)
+        assert torch.equal(c_ok, c_old) and torch.equal(base, base_old)
+        assert lo_r == lo_old
+        bg = c_ok.shape[2]
+        v_old = _parent_pack_vals(val_sets, bg * grp, grp)
+        v_new = spread_kernel.pack_values(
+            spread_kernel.tap_sets(sp.ops, sp.taps), grp)
+        assert np.array_equal(_bits(v_new), _bits(v_old))
+        got = spread_kernel.spread_windows_pallas(c_ok, sp.ops, win,
+                                                  taps=sp.taps)
+        want = spread_kernel.spread_windows_plain(c_old, v_old, win)
+        assert np.abs(want.numpy()).max() > 0
+        assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("flanks", ["shared", "apart"])
+@pytest.mark.parametrize("spreader", ["scatter", "dense", "dense_kernel",
+                                      "dense_kernel_qr"])
+def test_synthesize_bits_unchanged_by_the_formed_taps(monkeypatch, spreader,
+                                                      flanks):
+    """synthesize on the CPU gives the bits it gave when _main_field and
+    _edge_exact formed every tap in PyTorch (the parent's, monkeypatched
+    in), on every spreader: both flanks on one cell list or one spread a
+    flank."""
+    opts, fields = _freq_case(50)
+    if flanks == "apart":
+        opts = echo.EchoOpts(**{**opts.__dict__, "pulse_width_s": 2.01e-6})
+    kw = dict(spreader=spreader, conv="xla")
+    after = echo_freq.synthesize(*fields, opts, **kw)
+    monkeypatch.setattr(echo_freq, "_main_field", _parent_main_field)
+    monkeypatch.setattr(echo_freq, "_edge_exact", _parent_edge_exact)
+    before = echo_freq.synthesize(*fields, opts, **kw)
+    assert float(before.abs().max()) > 0
+    assert np.array_equal(_bits(torch.view_as_real(after)),
+                          _bits(torch.view_as_real(before)))
+
+
+def test_formed_taps_refuse_bad_operands(monkeypatch):
+    """The formed taps refuse operands of another shape, the one-accumulator
+    order, and (on the card's route) too many taps or too much shared
+    memory, before any launch."""
+    opts, fields = _freq_case(50)
+    kw = dict(spreader="dense_kernel", conv="pallas")
+    ops = echo_freq.kernel_operands(*fields, opts, **kw)
+    c, o, win, taps = ops["spread main taps"]
+    (ce, oe, win_e, taps_e), = ops["spread edge taps"]
+    sw = spread_kernel.spread_windows_pallas
+    for bad in (o[:, :2], o[:1], o[:, :, :40], o[:, :, None]):
+        with pytest.raises(ValueError, match="formed taps need operands"):
+            sw(c, bad, win, taps=taps)
+    with pytest.raises(ValueError, match="formed taps need operands"):
+        sw(ce, oe, win_e, taps=spread_kernel.FlankTaps(
+            taps_e.k_taps, taps_e.fs_hz, taps_e.c2, taps_e.t_edge_s,
+            (True,)))
+    with pytest.raises(ValueError, match="roll order"):
+        sw(c, o, win, qr=True, taps=taps)
+
+    def no_launch(*a, **k):
+        raise AssertionError("launched")
+
+    # the card's route on CPU tensors: its checks run, no launch is reached
+    monkeypatch.setattr(_build, "on_cpu", lambda x: False)
+    monkeypatch.setattr(_build, "launch", no_launch)
+    before = sw.launches_taps
+    with pytest.raises(ValueError, match="taps exceed"):
+        sw(c, o, win, taps=spread_kernel.EsTaps(31, taps.beta))
+    pc = oe.shape[0]
+    big = torch.zeros((pc, 8, 5000))
+    big_c = torch.zeros((pc, 1, 5000), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        sw(big_c, big, win_e, taps=taps_e)
+    assert sw.launches_taps == before
+
+
+@pytest.mark.parametrize("fs,chirp,t_edge_n", [(600e6, 500e6 / 20e-6, 4.0),
+                                               (60e6, 50e6 / 2e-6, 4.0),
+                                               (150e6, 120e6 / 2e-6, 2.5)])
+def test_formed_taps_kernel_constants(fs, chirp, t_edge_n):
+    """The constants the formed taps read are the float32 numbers PyTorch's
+    operators of tap_sets use on the card: each Python scalar rounded to
+    float32 (beta, c2, fs, t_edge, pi, the gates' limits) and a division
+    by a scalar as the product with its float32 reciprocal (1 / K, 1 /
+    t_edge)."""
+    f32 = np.float32
+    taps = spread_kernel.FlankTaps(6, fs, math.pi * chirp / fs ** 2,
+                                   t_edge_n / fs, (True, False))
+    ints, floats = spread_kernel._tap_args(taps, 5000)
+    assert ints == (2, 5000, 1)
+    t32 = f32(taps.t_edge_s)
+    want = (0.0, 0.0, f32(taps.c2), f32(fs), t32, f32(1) / t32, f32(math.pi),
+            f32(-1e-12), f32(taps.t_edge_s + 1e-12))
+    assert floats == tuple(float(x) for x in want)
+    trailing = spread_kernel.FlankTaps(6, fs, taps.c2, taps.t_edge_s,
+                                       (False,))
+    assert spread_kernel._tap_args(trailing, 7)[0] == (2, 7, 0)
+    es_ints, es_floats = spread_kernel._tap_args(
+        spread_kernel.EsTaps(8, 18.4), 5000)
+    assert es_ints == (1, 5000, 0)
+    assert es_floats == (float(f32(18.4)), 0.125) + (0.0,) * 7
