@@ -26,7 +26,7 @@ raises and the exit code is non-zero:
   3c. upstream the same four kernels, and the raw balance, K1, K2 single
               and K3, at the upstream's CPI, 7,199 x 13,200 (chirp-z
               azimuth, mixed-radix range) and 7,200 x 13,200, with the
-              tables built once: each vs its plain version to the card
+              axis plans built once: each vs its plain version to the card
               tests' bounds, its launches from counters reset just before
               one call (2 for a chirp-z column pass), its ms beside its
               byte bound
@@ -166,6 +166,7 @@ import numpy as np
 import torch
 
 import oracle
+from bench_torch.peaks import bound_by, bound_ms
 from nis_sar_amtigmti_video_tpu_torch import config
 from nis_sar_amtigmti_video_tpu_torch.gmti import dpca, fused
 from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import CfarParams
@@ -274,16 +275,6 @@ ECHO_WRAPPERS = {
 ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL, **ECHO_WRAPPERS}
 # the wrapper attribute counting an entry's launches, where not .launches
 COUNTER = {"spread_qr": "launches_qr", "spread_taps": "launches_taps"}
-# the card's peaks for the bounds (H100 SXM data sheet, full power limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-# sin and cos results a second: the special-function units return 16 a
-# clock per SM against 128 f32 FMAs (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0), and an FMA is 2 of
-# F32_FLOPS
-SFU_PER_S = F32_FLOPS / 16
-# dense TF32 tensor-core operations a second (H100 SXM data sheet)
-TF32_FLOPS = 495e12
 # f32 planes of N^2 each kernel reads plus writes (PR 1's bytes column)
 GMTI_PLANES = {"K1g": 8, "K2 pair": 8, "K3g": 13, "K4": 9}
 # and the single-channel kernels' (phase 3b's bytes)
@@ -372,9 +363,9 @@ def phase_kernels(dev) -> dict:
     f, x = kernel_inputs(dev)
     cp = CfarParams()
     h_out, h_in = cp.guard + cp.train, cp.guard
-    # the per-configuration tables, built once as the main path's GmtiCpi
+    # the per-configuration plans, built once as the main path's GmtiCpi
     # holds them (the wrappers would otherwise rebuild them per call)
-    tw = csa_kernel.twiddle_table(N, dev)
+    az, rg = csa_kernel.azimuth_plan(N, dev), csa_kernel.range_plan(N, dev)
     counts = gmti_kernel.cfar_counts(N, N, h_out, h_in, dev)
     rec = {}
 
@@ -384,14 +375,14 @@ def phase_kernels(dev) -> dict:
         rec[name].update(ms=ms, plain_ms=plain_ms)
 
     # K1g
-    got = gmti_kernel.k1_gmti_planes(*x, f, twiddles=tw)
+    got = gmti_kernel.k1_gmti_planes(*x, f, plan=az)
     ref = gmti_kernel.k1_gmti_plain(*x, f)
     err = max(rel_err(a, b) for a, b in zip(got[:4], ref[:4]))
     bal = rel_err(torch.stack(got[4:]), torch.stack(ref[4:]))
     assert err <= 1e-4 and bal <= 1e-4, (err, bal)
     rec["K1g"] = dict(max_abs_err=max(float((a - b).abs().max())
                                       for a, b in zip(got[:4], ref[:4])))
-    timed("K1g", lambda: gmti_kernel.k1_gmti_planes(*x, f, twiddles=tw),
+    timed("K1g", lambda: gmti_kernel.k1_gmti_planes(*x, f, plan=az),
           lambda: gmti_kernel.k1_gmti_plain(*x, f))
     # cuFFT's azimuth transform of both channels, built outside the timing
     xc = torch.stack([torch.complex(x[0], x[1]), torch.complex(x[2], x[3])])
@@ -408,13 +399,13 @@ def phase_kernels(dev) -> dict:
     del got, ref
 
     # K2 pair
-    got = csa_kernel.k2_pair_call(*z, f, twiddles=tw)
+    got = csa_kernel.k2_pair_call(*z, f, plan=rg)
     ref = csa_kernel.k2_pair_plain(*z, f)
     err = max(rel_err(a, b) for a, b in zip(got, ref))
     assert err <= 1e-4, err
     rec["K2 pair"] = dict(max_abs_err=max(float((a - b).abs().max())
                                           for a, b in zip(got, ref)))
-    timed("K2 pair", lambda: csa_kernel.k2_pair_call(*z, f, twiddles=tw),
+    timed("K2 pair", lambda: csa_kernel.k2_pair_call(*z, f, plan=rg),
           lambda: csa_kernel.k2_pair_plain(*z, f))
     # the composed torch.fft range pass of both channels as a stack, the
     # phases built outside the timing
@@ -438,7 +429,7 @@ def phase_kernels(dev) -> dict:
     cal = torch.atan2(xs[1], xs[0])
     cal_cs = torch.stack([torch.cos(cal), torch.sin(cal)])
     got = gmti_kernel.k3_gmti_planes(*z, cal_cs, h_out=h_out, h_in=h_in,
-                                     twiddles=tw)
+                                     plan=az)
     ref = gmti_kernel.k3_gmti_plain(*z, cal_cs, h_out=h_out, h_in=h_in)
     errs = {i: rel_err(got[i], ref[i]) for i in (0, 1, 2, 3, 5, 6, 7, 8, 9)}
     assert max(errs.values()) <= 1e-4, errs
@@ -451,7 +442,7 @@ def phase_kernels(dev) -> dict:
     rec["K3g"] = dict(max_abs_err=max(float((got[i] - ref[i]).abs().max())
                                       for i in errs))
     timed("K3g", lambda: gmti_kernel.k3_gmti_planes(
-        *z, cal_cs, h_out=h_out, h_in=h_in, twiddles=tw),
+        *z, cal_cs, h_out=h_out, h_in=h_in, plan=az),
         lambda: gmti_kernel.k3_gmti_plain(*z, cal_cs, h_out=h_out,
                                           h_in=h_in))
     share = bound(GMTI_PLANES["K3g"] * 4.0 * N * N, 0.0)["bound_ms"] \
@@ -495,7 +486,7 @@ def phase_upstream(dev) -> dict:
     """K1g, the K2 pair, K3g and K4, and the split route's raw balance, K1,
     K2 single and K3 (channel 1), at the upstream's CPI (UPSTREAM_SHAPES)
     on phase 3's seeded planes and slice factors at that shape, each stage
-    fed the plain result of the stage before, the tables built once as
+    fed the plain result of the stage before, the axis plans built once as
     GmtiCpi holds them: each against its plain version to the card tests'
     bounds (planes 1e-4 of the peak, balance angle 1e-5 rad, K3g's ATI
     phase 1e-3 rad on strong pixels, K4's SNR rtol 1e-4, phase mask exact,
@@ -507,8 +498,8 @@ def phase_upstream(dev) -> dict:
     out = {}
     for n_az, n_rg in UPSTREAM_SHAPES:
         f, x = kernel_inputs(dev, n_az, n_rg)
-        az = csa_kernel.azimuth_tables(n_az, dev)
-        rg = csa_kernel.range_tables(n_rg, dev)
+        az = csa_kernel.azimuth_plan(n_az, dev)
+        rg = csa_kernel.range_plan(n_rg, dev)
         counts = gmti_kernel.cfar_counts(n_az, n_rg, h_out, h_in, dev)
         key = f"{n_az}x{n_rg}"
 
@@ -516,7 +507,7 @@ def phase_upstream(dev) -> dict:
             reset_launches()
             got = kernel()
             launches = launch_counts({**WRAPPERS, **CSA_WRAPPERS})[name]
-            assert launches == (csa_kernel.column_launches(n_az)
+            assert launches == (az.launches
                                 if name in ("K1g", "K3g", "K1", "K3")
                                 else 1), launches
             want = plain()
@@ -544,7 +535,7 @@ def phase_upstream(dev) -> dict:
             return planes_err(got, want, range(4))
 
         ref = run("K1g", lambda: gmti_kernel.k1_gmti_planes(
-            *x, f, twiddles=az), lambda: gmti_kernel.k1_gmti_plain(*x, f),
+            *x, f, plan=az), lambda: gmti_kernel.k1_gmti_plain(*x, f),
             k1g_check)
 
         def balance_check(got, want):
@@ -557,20 +548,20 @@ def phase_upstream(dev) -> dict:
 
         run("balance", lambda: gmti_kernel.raw_balance(*x),
             lambda: gmti_kernel.raw_balance_plain(*x), balance_check)
-        run("K1", lambda: csa_kernel.k1_call(x[0], x[1], f, twiddles=az),
+        run("K1", lambda: csa_kernel.k1_call(x[0], x[1], f, plan=az),
             lambda: csa_kernel.k1_plain(x[0], x[1], f),
             lambda got, want: planes_err(got, want, range(2)))
         z, xs = ref[:4], ref[4:]
         del x, ref
         run("K2 single",
-            lambda: csa_kernel.k2_call(z[0], z[1], f, twiddles=rg),
+            lambda: csa_kernel.k2_call(z[0], z[1], f, plan=rg),
             lambda: csa_kernel.k2_plain(z[0], z[1], f),
             lambda got, want: planes_err(got, want, range(2)))
         z = run("K2 pair",
-                lambda: csa_kernel.k2_pair_call(*z, f, twiddles=rg),
+                lambda: csa_kernel.k2_pair_call(*z, f, plan=rg),
                 lambda: csa_kernel.k2_pair_plain(*z, f),
                 lambda got, want: planes_err(got, want, range(4)))
-        run("K3", lambda: csa_kernel.k3_call(z[0], z[1], twiddles=az),
+        run("K3", lambda: csa_kernel.k3_call(z[0], z[1], plan=az),
             lambda: csa_kernel.k3_plain(z[0], z[1]),
             lambda got, want: planes_err(got, want, range(2)))
         cal = torch.atan2(xs[1], xs[0])
@@ -585,7 +576,7 @@ def phase_upstream(dev) -> dict:
             return err
 
         p3 = run("K3g", lambda: gmti_kernel.k3_gmti_planes(
-            *z, cal_cs, h_out=h_out, h_in=h_in, twiddles=az),
+            *z, cal_cs, h_out=h_out, h_in=h_in, plan=az),
             lambda: gmti_kernel.k3_gmti_plain(*z, cal_cs, h_out=h_out,
                                               h_in=h_in), k3g_check)
         del z
@@ -613,7 +604,7 @@ def phase_csa_kernels(dev) -> dict:
     phase 3's inputs (K2 and K3 fed the plain result of the stage before),
     and K1 / K2 single / K3 bit for bit against their two-channel twins."""
     f, x = kernel_inputs(dev)
-    tw = csa_kernel.twiddle_table(N, dev)
+    az, rg = csa_kernel.azimuth_plan(N, dev), csa_kernel.range_plan(N, dev)
     plane_bytes, fft_ops = 4.0 * N * N, 5.0 * N * N * math.log2(N)
     rec = {}
 
@@ -637,11 +628,11 @@ def phase_csa_kernels(dev) -> dict:
               f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
 
     # K1 (channel 1) against K1g's channel 1; cuFFT's azimuth fft beside it
-    pair = gmti_kernel.k1_gmti_planes(*x, f, twiddles=tw)
+    pair = gmti_kernel.k1_gmti_planes(*x, f, plan=az)
     xc = torch.complex(x[0], x[1])
-    record("K1", csa_kernel.k1_call(x[0], x[1], f, twiddles=tw),
+    record("K1", csa_kernel.k1_call(x[0], x[1], f, plan=az),
            csa_kernel.k1_plain(x[0], x[1], f), pair[:2],
-           lambda: csa_kernel.k1_call(x[0], x[1], f, twiddles=tw),
+           lambda: csa_kernel.k1_call(x[0], x[1], f, plan=az),
            lambda: csa_kernel.k1_plain(x[0], x[1], f),
            4 * plane_bytes, fft_ops + 10.0 * N * N,
            lib=lambda: torch.fft.fft(xc, dim=0))
@@ -654,12 +645,12 @@ def phase_csa_kernels(dev) -> dict:
 
     # K2 single (channel 1) against the K2 pair's channel 1; the composed
     # torch.fft range pass of channel 1 beside it
-    pair = csa_kernel.k2_pair_call(*z, f, twiddles=tw)
+    pair = csa_kernel.k2_pair_call(*z, f, plan=rg)
     phi2, phi3 = csa_kernel._k2_phases(f)
     zc = torch.complex(z[0], z[1])
-    record("K2 single", csa_kernel.k2_call(z[0], z[1], f, twiddles=tw),
+    record("K2 single", csa_kernel.k2_call(z[0], z[1], f, plan=rg),
            csa_kernel.k2_plain(z[0], z[1], f), pair[:2],
-           lambda: csa_kernel.k2_call(z[0], z[1], f, twiddles=tw),
+           lambda: csa_kernel.k2_call(z[0], z[1], f, plan=rg),
            lambda: csa_kernel.k2_plain(z[0], z[1], f),
            4 * plane_bytes, 2 * fft_ops + 20.0 * N * N,
            lib=lambda: composed_range_pass(zc, phi2, phi3))
@@ -674,11 +665,11 @@ def phase_csa_kernels(dev) -> dict:
     # half-widths touch); cuFFT's azimuth ifft beside it
     cal_cs = torch.tensor([1.0, 0.0], device=dev)
     g3 = gmti_kernel.k3_gmti_planes(*y, cal_cs, h_out=10, h_in=2,
-                                    twiddles=tw)
+                                    plan=az)
     yc = torch.complex(y[0], y[1])
-    record("K3", csa_kernel.k3_call(y[0], y[1], twiddles=tw),
+    record("K3", csa_kernel.k3_call(y[0], y[1], plan=az),
            csa_kernel.k3_plain(y[0], y[1]), g3[:2],
-           lambda: csa_kernel.k3_call(y[0], y[1], twiddles=tw),
+           lambda: csa_kernel.k3_call(y[0], y[1], plan=az),
            lambda: csa_kernel.k3_plain(y[0], y[1]),
            4 * plane_bytes, fft_ops + 2.0 * N * N,
            lib=lambda: torch.fft.ifft(yc, dim=0))
@@ -966,16 +957,10 @@ def phase_golden(raw, sc, t0):
 
 def bound(n_bytes: float, n_flops: float, n_sfu: float = 0.0,
           n_tc: float = 0.0) -> dict:
-    """The least time of the work on the card: the larger of its bytes over
-    the memory rate and its operations, f32 operations over the f32 peak,
-    sin / cos results over the special-function units' rate or TF32
-    tensor-core operations over their peak, whichever takes longest (the
-    units issue side by side)."""
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = max(n_flops / F32_FLOPS, n_sfu / SFU_PER_S,
-              n_tc / TF32_FLOPS) * 1e3
-    return dict(bound_ms=max(t_b, t_f),
-                bound_by="bytes" if t_b >= t_f else "operations")
+    """The least time of the work on the card and which side sets it, by
+    the benchmark's peaks (bench_torch/peaks.py)."""
+    work = dict(n_bytes=n_bytes, n_flops=n_flops, n_sfu=n_sfu, n_tc=n_tc)
+    return dict(bound_ms=bound_ms(**work), bound_by=bound_by(**work))
 
 
 def videosar_setup():

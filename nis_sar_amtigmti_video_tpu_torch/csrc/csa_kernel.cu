@@ -228,7 +228,7 @@ __device__ __forceinline__ void pass_dft(float2 (&u)[R],
 // most five roundings a twiddle. A warp's load of W^(m k) spreads over ~2k
 // 128-byte lines as m runs over its threads, so loads cost more than the
 // products: with six loads a pass the kernel took 11 % longer, with fifteen
-// twice as long (scripts/probe_torch_k2_phases.py).
+// twice as long (timed on the H100 when K2 was redesigned; CHANGES.md).
 template <int N, bool INV, int R>
 __device__ __forceinline__ void twiddle_row(float2 (&u)[R],
                                             const float2* __restrict__ tw,
@@ -617,66 +617,47 @@ int k2_dispatch(const K2Args& a, int n_az, int n_rg, int nch, void* stream) {
 
 }  // namespace
 
-// Launch K2 pair / K2 over (n_az, n_rg) planes on `stream`; n_rg a power of
-// two in [64, 4096], n_az a multiple of 4096 / n_rg. Each returns
+// Launch K2 pair / K2 over (n_az, n_rg) planes on `stream`
+// (ops/cuda/csa_kernel.py::RangePlan). With passes == 0, the register plan:
+// n_rg a power of two in [64, 4096], n_az a multiple of 4096 / n_rg, `tw`
+// the half table, `order` and `radix` null. Else the mixed-radix plan: n_rg
+// in [64, 16384] with prime factors 2, 3, 5, 7, 11, 13, `tw` the full n_rg-
+// point table, `order` the forward transform's frequency at each position,
+// `radix` the plan's `passes` radices in the forward order. Each returns
 // cudaGetLastError() after the launch.
+static int k2_plan_run(K2Args a, const int* order, const int* radix,
+                       int n_az, int n_rg, int passes, int nch,
+                       void* stream) {
+  if (passes == 0) return k2_dispatch(a, n_az, n_rg, nch, stream);
+  a.twf = a.tw;
+  a.tw = nullptr;
+  a.order = order;
+  a.radix = radix;
+  return k2_mixed_run(a, n_az, n_rg, passes, nch, stream);
+}
+
 extern "C" int k2_pair_launch(
     const float* x1r, const float* x1i, const float* x2r, const float* x2i,
     const float* fr, const float* alpha, const float* beta,
     const float* cphase, const float* dr, const float* usq,
     const float* rphase, const float* g, const float* c3, const float2* tw,
-    float* o1r, float* o1i, float* o2r, float* o2i, int n_az, int n_rg,
-    void* stream) {
+    const int* order, const int* radix, float* o1r, float* o1i, float* o2r,
+    float* o2i, int n_az, int n_rg, int passes, void* stream) {
   const K2Args a{x1r, x1i, x2r, x2i, fr,  alpha, beta, cphase, dr,
                  usq, rphase, g, c3, tw,  o1r,   o1i,  o2r,    o2i};
-  return k2_dispatch(a, n_az, n_rg, 2, stream);
+  return k2_plan_run(a, order, radix, n_az, n_rg, passes, 2, stream);
 }
 
 extern "C" int k2_launch(
     const float* xr, const float* xi, const float* fr, const float* alpha,
     const float* beta, const float* cphase, const float* dr,
     const float* usq, const float* rphase, const float* g, const float* c3,
-    const float2* tw, float* o_re, float* o_im, int n_az, int n_rg,
-    void* stream) {
+    const float2* tw, const int* order, const int* radix, float* o_re,
+    float* o_im, int n_az, int n_rg, int passes, void* stream) {
   const K2Args a{xr,  xi,     nullptr, nullptr, fr,   alpha,   beta,
                  cphase, dr, usq,     rphase,  g,    c3,      tw,
                  o_re, o_im, nullptr, nullptr};
-  return k2_dispatch(a, n_az, n_rg, 1, stream);
-}
-
-// Launch K2 pair / K2 on the mixed-radix plan over (n_az, n_rg) planes:
-// n_rg in [64, 16384] with prime factors 2, 3, 5, 7, 11, 13; `twf` the
-// full n_rg-point table, `order` the forward transform's frequency at each
-// position, `radix` the npass radices of the plan in the forward order,
-// all on the device (ops/cuda/csa_kernel.py::range_tables).
-extern "C" int k2_pair_mixed_launch(
-    const float* x1r, const float* x1i, const float* x2r, const float* x2i,
-    const float* fr, const float* alpha, const float* beta,
-    const float* cphase, const float* dr, const float* usq,
-    const float* rphase, const float* g, const float* c3, const float2* twf,
-    const int* order, const int* radix, float* o1r, float* o1i, float* o2r,
-    float* o2i, int n_az, int n_rg, int npass, void* stream) {
-  K2Args a{x1r, x1i, x2r, x2i, fr,  alpha, beta, cphase, dr,
-           usq, rphase, g, c3, nullptr, o1r, o1i, o2r, o2i};
-  a.twf = twf;
-  a.order = order;
-  a.radix = radix;
-  return k2_mixed_run(a, n_az, n_rg, npass, 2, stream);
-}
-
-extern "C" int k2_mixed_launch(
-    const float* xr, const float* xi, const float* fr, const float* alpha,
-    const float* beta, const float* cphase, const float* dr,
-    const float* usq, const float* rphase, const float* g, const float* c3,
-    const float2* twf, const int* order, const int* radix, float* o_re,
-    float* o_im, int n_az, int n_rg, int npass, void* stream) {
-  K2Args a{xr,  xi,     nullptr, nullptr, fr,   alpha,   beta,
-           cphase, dr, usq,     rphase,  g,    c3,      nullptr,
-           o_re, o_im, nullptr, nullptr};
-  a.twf = twf;
-  a.order = order;
-  a.radix = radix;
-  return k2_mixed_run(a, n_az, n_rg, npass, 1, stream);
+  return k2_plan_run(a, order, radix, n_az, n_rg, passes, 1, stream);
 }
 
 // Message of a CUDA error code returned by a launcher.

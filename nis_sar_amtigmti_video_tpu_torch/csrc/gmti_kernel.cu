@@ -57,7 +57,7 @@
 // reads the n_az rows (rows n_az .. m - 1 are zeros), multiplies each by
 // the chirp c[n] = exp(-/+ j pi n^2 / n_az), runs the forward column pass
 // and writes the spectrum times the convolution kernel's spectrum H (a
-// table: ops/cuda/csa_kernel.py::chirpz_tables) to m-row planes. Stage 2
+// table: ops/cuda/csa_kernel.py::azimuth_plan) to m-row planes. Stage 2
 // reads those, runs the inverse column pass (1 / m), keeps rows below
 // n_az times the chirp again, and does what the kernel's one launch does
 // at a power of two: Phi1 (K1, K1g), the stores (K3) or every product and
@@ -104,9 +104,7 @@ namespace {
 // The kernels are built for two blocks an SM (one block's loads overlap
 // the other's transforms; at most 128 registers a thread, where the
 // 32 x 32 split would take ~140), and the gather runs two tasks at a time
-// to keep more DSMEM loads in flight. The probe
-// scripts/probe_torch_column_plan.py times both, and the plans, against
-// their alternatives, which it builds from a copy of this file.
+// to keep more DSMEM loads in flight.
 
 constexpr int kColThreads = 256;
 
@@ -889,96 +887,55 @@ struct K3gLaunch {
   }
 };
 
+// The column pass's launchers (ops/cuda/csa_kernel.py::AzimuthPlan): at m
+// == n_az, a power of two, one launch of the direct pass; else the chirp-z
+// transform of n_az points on m, stage 1 then stage 2 on `stream`, through
+// the caller's (m, n_rg) planes c* (null at m == n_az). `cols`, `cluster`
+// and `smem` are the column plan's at m; `tw` is the m-point table, `chirp`
+// (n_az) and `spec` (m) the direction's chirp-z tables (null at m == n_az).
+template <typename L>
+static int column_run(const L& l, int n_az, int m, int cluster) {
+  return m != n_az ? chirpz_dispatch(m, cluster, l)
+                   : column_dispatch(n_az, cluster, l);
+}
+
 extern "C" int k1g_launch(
-    const float* x1r, const float* x1i, const float* x2r, const float* x2i,
-    const float* u, const float* c1, const float* w, const float2* tw,
-    float* z1r, float* z1i, float* z2r, float* z2i, float* bal, int n_az,
-    int n_rg, int balance, int cols, int cluster, int smem, void* stream) {
-  return column_dispatch(
-      n_az, cluster,
-      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, nullptr, z1r, z1i, z2r, z2i,
-                  bal, n_az, n_az, n_rg, balance, cols, smem, stream});
-}
-
-extern "C" int k1_launch(const float* xr, const float* xi, const float* u,
-                         const float* c1, const float* w, const float2* tw,
-                         float* zr, float* zi, int n_az, int n_rg, int cols,
-                         int cluster, int smem, void* stream) {
-  return column_dispatch(
-      n_az, cluster,
-      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, nullptr, zr, zi, nullptr,
-                  nullptr, nullptr, n_az, n_az, n_rg, 0, cols, smem,
-                  stream});
-}
-
-extern "C" int k3_launch(const float* zr, const float* zi, const float2* tw,
-                         float* sr, float* si, int n_az, int n_rg, int cols,
-                         int cluster, int smem, void* stream) {
-  return column_dispatch(
-      n_az, cluster,
-      K3Launch{zr, zi, tw, nullptr, nullptr, nullptr, nullptr, sr, si, n_az,
-               n_az, n_rg, cols, smem, stream});
-}
-
-extern "C" int k3g_launch(
-    const float* z1r, const float* z1i, const float* z2r, const float* z2i,
-    const float* cal_cs, const float2* tw, float* s1r, float* s1i,
-    float* s2r, float* s2i, float* ph, float* mag, float* pw, float* cso,
-    float* csi, float* peaks, int n_az, int n_rg, int h_out, int h_in,
-    int cols, int cluster, int smem, void* stream) {
-  return column_dispatch(
-      n_az, cluster,
-      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, nullptr, nullptr, nullptr,
-                nullptr, nullptr, nullptr, s1r, s1i, s2r, s2i, ph, mag, pw,
-                cso, csi, peaks, n_az, n_az, n_rg, cols, smem, h_out, h_in,
-                stream});
-}
-
-// The chirp-z launchers: the same kernels at an n_az that is not a power
-// of two, as stage 1 then stage 2 on `stream`, through (m, n_rg) planes
-// c* of the caller's (m the chirp-z length, with `cluster` and `smem` the
-// column plan's at m); `tw` the m-point table, `chirp` (n_az) and `spec`
-// (m) the direction's tables (ops/cuda/csa_kernel.py::chirpz_tables).
-extern "C" int k1g_chirpz_launch(
     const float* x1r, const float* x1i, const float* x2r, const float* x2i,
     const float* u, const float* c1, const float* w, const float2* tw,
     const float2* chirp, const float2* spec, float* c1r, float* c1i,
     float* c2r, float* c2i, float* z1r, float* z1i, float* z2r, float* z2i,
     float* bal, int n_az, int m, int n_rg, int balance, int cols,
     int cluster, int smem, void* stream) {
-  return chirpz_dispatch(
-      m, cluster,
+  return column_run(
       K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, c1r, c1i,
                   c2r, c2i, z1r, z1i, z2r, z2i, bal, m, n_az, n_rg, balance,
-                  cols, smem, stream});
+                  cols, smem, stream},
+      n_az, m, cluster);
 }
 
-extern "C" int k1_chirpz_launch(
+extern "C" int k1_launch(
     const float* xr, const float* xi, const float* u, const float* c1,
     const float* w, const float2* tw, const float2* chirp,
     const float2* spec, float* cr, float* ci, float* zr, float* zi, int n_az,
     int m, int n_rg, int cols, int cluster, int smem, void* stream) {
-  return chirpz_dispatch(
-      m, cluster,
+  return column_run(
       K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, chirp, spec, cr,
                   ci, nullptr, nullptr, zr, zi, nullptr, nullptr, nullptr, m,
-                  n_az, n_rg, 0, cols, smem, stream});
+                  n_az, n_rg, 0, cols, smem, stream},
+      n_az, m, cluster);
 }
 
-extern "C" int k3_chirpz_launch(
+extern "C" int k3_launch(
     const float* zr, const float* zi, const float2* tw, const float2* chirp,
     const float2* spec, float* cr, float* ci, float* sr, float* si,
     int n_az, int m, int n_rg, int cols, int cluster, int smem,
     void* stream) {
-  return chirpz_dispatch(
-      m, cluster,
-      K3Launch{zr, zi, tw, chirp, spec, cr, ci, sr, si, m, n_az, n_rg, cols,
-               smem, stream});
+  return column_run(K3Launch{zr, zi, tw, chirp, spec, cr, ci, sr, si, m,
+                             n_az, n_rg, cols, smem, stream},
+                    n_az, m, cluster);
 }
 
-extern "C" int k3g_chirpz_launch(
+extern "C" int k3g_launch(
     const float* z1r, const float* z1i, const float* z2r, const float* z2i,
     const float* cal_cs, const float2* tw, const float2* chirp,
     const float2* spec, float* c1r, float* c1i, float* c2r, float* c2i,
@@ -986,11 +943,11 @@ extern "C" int k3g_chirpz_launch(
     float* pw, float* cso, float* csi, float* peaks, int n_az, int m,
     int n_rg, int h_out, int h_in, int cols, int cluster, int smem,
     void* stream) {
-  return chirpz_dispatch(
-      m, cluster,
+  return column_run(
       K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, c1r, c1i, c2r,
                 c2i, s1r, s1i, s2r, s2i, ph, mag, pw, cso, csi, peaks, m,
-                n_az, n_rg, cols, smem, h_out, h_in, stream});
+                n_az, n_rg, cols, smem, h_out, h_in, stream},
+      n_az, m, cluster);
 }
 
 extern "C" int k4_launch(

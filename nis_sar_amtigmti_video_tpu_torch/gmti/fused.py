@@ -72,21 +72,12 @@ def gmti_product_step(s1, s2, *, balance: bool = True,
     return cal, phase, dmag, det
 
 
-def _map_tables(fn, tables):
-    """``fn`` applied to a table tensor, or to each tensor of a table
-    tuple (``csa_kernel.ChirpZ`` / ``MixedRadix``)."""
-    if isinstance(tables, torch.Tensor):
-        return fn(tables)
-    return type(tables)(*(fn(t) for t in tables))
-
-
 class GmtiCpi(nn.Module):
     """The kernel-path CPI with its per-configuration state, which
     ``.to(device)`` moves: the 1-D ``CsaFactors`` vectors and the CFAR
-    count vectors as buffers, and the tables the kernels read, as the
-    wrappers take them: ``az`` (``csa_kernel.azimuth_tables``: a twiddle
-    table, or the chirp-z tables) and ``rg`` (``range_tables``: a twiddle
-    table, or the mixed-radix plan's tables)."""
+    count vectors as buffers, and the kernels' axis plans, as the wrappers
+    take them: ``az`` (``csa_kernel.azimuth_plan``) and ``rg``
+    (``csa_kernel.range_plan``)."""
 
     def __init__(self, f: CsaFactors,
                  cfar_params: cfar_mod.CfarParams | None = None):
@@ -96,11 +87,11 @@ class GmtiCpi(nn.Module):
         for name in CsaFactors._fields:
             self.register_buffer(name, getattr(f, name))
         dev = f.u.device
-        self.az = csa_kernel.azimuth_tables(n_az, dev)
-        self.rg = csa_kernel.range_tables(n_rg, dev)
+        self.az = csa_kernel.azimuth_plan(n_az, dev)
+        self.rg = csa_kernel.range_plan(n_rg, dev)
         # the CPI's axis transforms (forward and inverse) by each method
-        self.chirpz_axes = 2 * csa_kernel.chirpz(n_az)
-        self.mixed_radix_axes = 2 * csa_kernel.k2_mixed(n_rg)
+        self.chirpz_axes = 2 * (self.az.m != n_az)
+        self.mixed_radix_axes = 2 * (self.rg.passes > 0)
         p = self.cfar_params
         for name, v in zip(("ch_o", "ch_i", "cw_o", "cw_i"),
                            gmti_kernel.cfar_counts(n_az, n_rg,
@@ -110,8 +101,7 @@ class GmtiCpi(nn.Module):
 
     def _apply(self, fn, recurse=True):
         super()._apply(fn, recurse)
-        self.az = _map_tables(fn, self.az)
-        self.rg = _map_tables(fn, self.rg)
+        self.az, self.rg = self.az.map(fn), self.rg.map(fn)
         return self
 
     def factors(self) -> CsaFactors:
@@ -120,9 +110,9 @@ class GmtiCpi(nn.Module):
     def _k12(self, xr, xi, f: CsaFactors):
         """K1 then K2 single on one channel's raw planes."""
         with span("focus.k1"):
-            zr, zi = csa_kernel.k1_call(xr, xi, f, twiddles=self.az)
+            zr, zi = csa_kernel.k1_call(xr, xi, f, plan=self.az)
         with span("focus.k2"):
-            return csa_kernel.k2_call(zr, zi, f, twiddles=self.rg)
+            return csa_kernel.k2_call(zr, zi, f, plan=self.rg)
 
     def forward(self, x1r, x1i, x2r, x2i, *, balance: bool = True,
                 mask_threshold: float = 0.05, k1_impl: str = "fused2ch"):
@@ -144,10 +134,10 @@ class GmtiCpi(nn.Module):
                 z1r, z1i, z2r, z2i, xs_re, xs_im = \
                     gmti_kernel.k1_gmti_planes(x1r, x1i, x2r, x2i, f,
                                                balance=balance,
-                                               twiddles=self.az)
+                                               plan=self.az)
             with span("focus.k2"):
                 z1r, z1i, z2r, z2i = csa_kernel.k2_pair_call(
-                    z1r, z1i, z2r, z2i, f, twiddles=self.rg)
+                    z1r, z1i, z2r, z2i, f, plan=self.rg)
         else:
             if balance:
                 with span("focus.balance"):
@@ -162,7 +152,7 @@ class GmtiCpi(nn.Module):
             (s1r, s1i, s2r, s2i, ph_raw, mag, power, cso, csi,
              peaks) = gmti_kernel.k3_gmti_planes(
                 z1r, z1i, z2r, z2i, cal_cs, h_out=h_out, h_in=h_in,
-                twiddles=self.az)
+                plan=self.az)
         del z1r, z1i, z2r, z2i      # free the K2 planes before K4's outputs
         thr = (mask_threshold ** 2) * torch.max(peaks)
         with span("focus.k4"):

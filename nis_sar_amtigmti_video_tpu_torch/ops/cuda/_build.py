@@ -16,10 +16,10 @@ checkout; the file name carries a hash of the sources and flags, so a second
 run reuses the library and an edited source rebuilds it. No fast math: the
 kernels rely on the accurate ``sincosf``/``atan2f`` and IEEE division.
 
-Each C launcher takes its tensor pointers, then its int arguments, then its
-float arguments (if any), then the CUDA stream, and returns
-``cudaGetLastError()`` after the launch; :func:`launch` raises on a non-zero
-code. Nothing here allocates or synchronises: the wrappers allocate outputs
+Each C launcher takes its tensor pointers (null for a tensor passed as
+None), then its int arguments, then its float arguments (if any), then the
+CUDA stream, and returns ``cudaGetLastError()`` after the launch;
+:func:`launch` raises on a non-zero code. Nothing here allocates or synchronises: the wrappers allocate outputs
 with ``torch.empty`` and the launch goes on PyTorch's current stream.
 """
 
@@ -124,12 +124,13 @@ def stream_handle(dev: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def launch(name: str, tensors: Sequence[torch.Tensor],
+def launch(name: str, tensors: Sequence[torch.Tensor | None],
            ints: Sequence[int], floats: Sequence[float] = (),
            doubles: Sequence[float] = ()) -> None:
-    """Call C launcher ``name`` with the tensors' data pointers, the ints,
-    the floats (C ``float``), the doubles (C ``double``) and the current
-    stream of the tensors' device; raise on a CUDA error."""
+    """Call C launcher ``name`` with the tensors' data pointers (a null
+    pointer for None; the first is a tensor), the ints, the floats (C
+    ``float``), the doubles (C ``double``) and the current stream of the
+    first tensor's device; raise on a CUDA error."""
     lib = library()
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
@@ -139,7 +140,8 @@ def launch(name: str, tensors: Sequence[torch.Tensor],
     fn.restype = ctypes.c_int
     dev = tensors[0].device
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in tensors), *(int(i) for i in ints),
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                 *(int(i) for i in ints),
                  *(float(f) for f in floats), *(float(f) for f in doubles),
                  stream_handle(dev))
     if err != 0:

@@ -18,10 +18,17 @@ CUDA tensors it launches the kernel or raises. The kernels write new
 tensors and never the caller's inputs. The reference's TPU knobs (``mode``,
 ``k2_variant``, ``lead_variant``, ``k2_rows``) are layout and precision
 twins of the same function and have no counterpart here.
+
+Which transform runs a CPI axis is one plan object a side,
+:func:`azimuth_plan` (the direct column pass, or a chirp-z transform) and
+:func:`range_plan` (K2's register or mixed-radix plan): the wrappers here
+and in ``gmti_kernel.py`` take it as ``plan=`` and hand its tables to one C
+launcher a kernel, which picks the dispatch from them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -79,13 +86,6 @@ def chirpz_length(n: int) -> int:
     """The power-of-two length of the chirp-z transform's circular
     convolution for an n-point DFT: the least one of at least 2 n - 1."""
     return 1 << (2 * n - 2).bit_length()
-
-
-def column_launches(n_az: int) -> int:
-    """Kernel launches of one column-pass call (K1 / K1g, K3 / K3g): the
-    chirp-z transform's two stages, else one. The wrappers' ``.launches``
-    counters add this."""
-    return 2 if chirpz(n_az) else 1
 
 
 def column_length(n_az: int) -> int:
@@ -241,7 +241,7 @@ def column_plan(n_az: int, n_rg: int, nch: int,
     for K1 and K3, 8 for K1g and K3g, in clusters of 8 blocks of 68 KB
     (K1, K3), 70 KB (K1g) and 93 KB (K3g), two blocks an SM: for K3 / K3g
     the fastest of the plans timed on the H100
-    (scripts/probe_torch_column_plan.py)."""
+    (PERF.md §6, rows 3 and 10)."""
     if not supported(n_az, n_rg):
         raise ValueError(f"column_plan: shape {(n_az, n_rg)} not supported")
     n = column_length(n_az)
@@ -278,41 +278,105 @@ def full_twiddle_table(n: int, device=None) -> torch.Tensor:
     return torch.from_numpy(tw).to(device=device)
 
 
-class MixedRadix(NamedTuple):
-    """K2's tables at a mixed-radix n_rg: the full n-point twiddle table,
-    the plan's frequency at each position of a row (:func:`mixed_order`)
-    and the plan's radices in the forward order (:func:`mixed_radices`),
-    both int32. The kernel runs the passes these radices name, so the
-    order and the passes come from the one rule."""
-    twiddles: torch.Tensor
-    order: torch.Tensor
-    radices: torch.Tensor
+class _Plan:
+    """What the axis plans share: their tensors, one move over them and the
+    check of their tables."""
+
+    def tensors(self) -> dict:
+        """The plan's tensors by field (the fields that are None left out)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+
+    def map(self, fn):
+        """The plan with ``fn`` applied to each of its tensors (``.to()``
+        of a module that holds it)."""
+        return dataclasses.replace(
+            self, **{k: fn(v) for k, v in self.tensors().items()})
+
+    def _check_tables(self, name: str, device, tables: dict) -> None:
+        """Each field of ``tables`` a contiguous tensor of its (shape,
+        dtype) on ``device``, or None where that is None."""
+        for field, want in tables.items():
+            t = getattr(self, field)
+            if want is None and t is None:
+                continue
+            if (want is None or not isinstance(t, torch.Tensor)
+                    or (t.shape, t.dtype) != want or t.device != device
+                    or not t.is_contiguous()):
+                raise ValueError(f"{name}: the plan's {field} must be "
+                                 + ("None" if want is None else
+                                    f"a contiguous {want[1]} table of shape "
+                                    f"{want[0]} on {device}"))
 
 
-class ChirpZ(NamedTuple):
-    """The column pass's tables for a chirp-z DFT of n points on m =
-    :func:`chirpz_length` (n) points: ``tw`` the m-point twiddle table,
-    and for the forward DFT (``fwd_*``) and the inverse with its 1/n
-    (``inv_*``) the chirp (n,) and the spectrum of the convolution's
-    kernel (m,), complex64. Forward: X[k] = c[k] (1/m) IDFT_m(DFT_m(c x)
-    H)[k] with c[k] = exp(-j pi k^2 / n) and H the DFT of exp(j pi j^2 /
-    n) for |j| < n, wrapped into m; the inverse conjugates c and H and
-    scales H by 1/n."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class AzimuthPlan(_Plan):
+    """How the column pass (K1 / K1g forward, K3 / K3g inverse) runs an
+    n-point azimuth DFT: on m = n points where n is a power of two (one
+    launch), else as a chirp-z transform on m = :func:`chirpz_length` (n)
+    points (two launches through (m, n_rg) planes). ``tw`` is the m-point
+    :func:`twiddle_table`; at a chirp-z side the forward DFT (``fwd_*``) and
+    the inverse with its 1/n (``inv_*``) have the chirp (n,) and the
+    spectrum of the convolution's kernel (m,), complex64 (None at a power
+    of two). Forward: X[k] = c[k] (1/m) IDFT_m(DFT_m(c x) H)[k] with c[k] =
+    exp(-j pi k^2 / n) and H the DFT of exp(j pi j^2 / n) for |j| < n,
+    wrapped into m; the inverse conjugates c and H and scales H by 1/n."""
+    n: int
+    m: int
     tw: torch.Tensor
-    fwd_chirp: torch.Tensor
-    fwd_spec: torch.Tensor
-    inv_chirp: torch.Tensor
-    inv_spec: torch.Tensor
+    fwd_chirp: torch.Tensor | None = None
+    fwd_spec: torch.Tensor | None = None
+    inv_chirp: torch.Tensor | None = None
+    inv_spec: torch.Tensor | None = None
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of one column-pass call: 1, or the chirp-z
+        transform's two stages."""
+        return 1 if self.m == self.n else 2
+
+    def check(self, name: str, n: int, device) -> None:
+        """Raises ValueError unless this is :func:`azimuth_plan` (n) with its
+        tables on ``device``; call it as ``AzimuthPlan.check(plan, ...)``,
+        so that any other object is refused."""
+        m = column_length(n)
+        if not isinstance(self, AzimuthPlan) or (self.n, self.m) != (n, m):
+            raise ValueError(f"{name}: needs the azimuth plan of {n} points")
+        c64 = torch.complex64
+        chirp, spec = ((n,), c64), ((m,), c64)
+        if m == n:
+            chirp = spec = None
+        self._check_tables(name, device, dict(
+            tw=((m // 2,), c64), fwd_chirp=chirp, fwd_spec=spec,
+            inv_chirp=chirp, inv_spec=spec))
+
+    def tables(self, inverse: bool) -> tuple:
+        """(table, chirp, spectrum) of a launch's direction; the chirp and
+        the spectrum are None at a power of two."""
+        if inverse:
+            return self.tw, self.inv_chirp, self.inv_spec
+        return self.tw, self.fwd_chirp, self.fwd_spec
+
+    def planes(self, n_rg: int, nch: int, device) -> list:
+        """The (m, n_rg) float32 planes between the chirp-z stages, two a
+        channel; None for each at a power of two."""
+        if self.m == self.n:
+            return [None] * (2 * nch)
+        return [torch.empty((self.m, n_rg), dtype=torch.float32,
+                            device=device) for _ in range(2 * nch)]
 
 
-def chirpz_tables(n: int, device=None) -> ChirpZ:
-    """The :class:`ChirpZ` tables of an n-point azimuth DFT: the chirp
-    from k^2 mod 2n (exact in int64), then float64, the spectra by
-    float64 FFT; each rounded once to complex64 (on the host once per
-    n, then copied to ``device``)."""
-    return ChirpZ(twiddle_table(chirpz_length(n), device),
-                  *(t.to(device=device, copy=True)
-                    for t in _chirpz_host(n)))
+def azimuth_plan(n: int, device=None) -> AzimuthPlan:
+    """The :class:`AzimuthPlan` of n-point azimuth transforms on ``device``:
+    the chirp from k^2 mod 2n (exact in int64), then float64, the spectra by
+    float64 FFT, each rounded once to complex64 (on the host once per n,
+    then copied)."""
+    if not chirpz(n):
+        return AzimuthPlan(n, n, twiddle_table(n, device))
+    m = chirpz_length(n)
+    return AzimuthPlan(n, m, twiddle_table(m, device),
+                       *(t.to(device=device, copy=True)
+                         for t in _chirpz_host(n)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -328,76 +392,49 @@ def _chirpz_host(n: int) -> tuple:
                            np.fft.fft(np.conj(h)) / n))
 
 
-def azimuth_tables(n_az: int, device=None):
-    """What the column pass reads for n_az-point azimuth transforms: the
-    n_az-point :func:`twiddle_table` at a power of two, else the
-    :class:`ChirpZ` tables."""
-    return chirpz_tables(n_az, device) if chirpz(n_az) else \
-        twiddle_table(n_az, device)
+@dataclasses.dataclass(frozen=True, eq=False)
+class RangePlan(_Plan):
+    """How K2 runs its n-point range DFTs: the register plan
+    (:func:`k2_plan`) at a power of two up to 4096, reading the n-point
+    :func:`twiddle_table` (n / 2 entries); else the mixed-radix plan,
+    reading the :func:`full_twiddle_table`, ``order`` (the plan's frequency
+    at each position of a row, :func:`mixed_order`) and ``radices`` (the
+    plan's passes in the forward order, :func:`mixed_radices`), both int32
+    and None on the register plan. The kernel runs the passes these
+    radices name, so the order and the passes come from the one rule."""
+    n: int
+    tw: torch.Tensor
+    order: torch.Tensor | None = None
+    radices: torch.Tensor | None = None
+
+    @property
+    def passes(self) -> int:
+        """The mixed-radix plan's passes; 0 on the register plan."""
+        return 0 if self.radices is None else self.radices.numel()
+
+    def check(self, name: str, n: int, device) -> None:
+        """Raises ValueError unless this is :func:`range_plan` (n) with its
+        tables on ``device``; call it as ``RangePlan.check(plan, ...)``, so
+        that any other object is refused."""
+        if not isinstance(self, RangePlan) or self.n != n:
+            raise ValueError(f"{name}: needs the range plan of {n} points")
+        i32, c64 = torch.int32, torch.complex64
+        if k2_mixed(n):
+            tables = dict(tw=((n,), c64), order=((n,), i32),
+                          radices=((len(mixed_radices(n)),), i32))
+        else:
+            tables = dict(tw=((n // 2,), c64), order=None, radices=None)
+        self._check_tables(name, device, tables)
 
 
-def range_tables(n_rg: int, device=None):
-    """What K2 reads for n_rg-point range transforms: the n_rg-point
-    :func:`twiddle_table` for its register plan, else the
-    :class:`MixedRadix` tables."""
-    if not k2_mixed(n_rg):
-        return twiddle_table(n_rg, device)
-    return MixedRadix(full_twiddle_table(n_rg, device),
-                      torch.from_numpy(mixed_order(n_rg)).to(device=device),
-                      torch.tensor(mixed_radices(n_rg), dtype=torch.int32,
-                                   device=device))
-
-
-def _check_table(name: str, t, shape, dtype, device) -> None:
-    if (not isinstance(t, torch.Tensor) or t.dtype != dtype
-            or t.shape != shape or t.device != device
-            or not t.is_contiguous()):
-        raise ValueError(f"{name}: twiddles must hold contiguous {dtype} "
-                         f"tables of shape {shape} on {device}")
-
-
-def azimuth_tables_for(name: str, twiddles, n_az: int, device):
-    """``twiddles`` checked as :func:`azimuth_tables` (n_az) on
-    ``device``, or new tables when None."""
-    if twiddles is None:
-        return azimuth_tables(n_az, device)
-    if not chirpz(n_az):
-        return twiddles_for(name, twiddles, n_az, device)
-    if not isinstance(twiddles, ChirpZ):
-        raise ValueError(f"{name}: n_az {n_az} needs the ChirpZ tables")
-    m = chirpz_length(n_az)
-    for t, shape in zip(twiddles, ((m // 2,), (n_az,), (m,), (n_az,),
-                                   (m,))):
-        _check_table(name, t, shape, torch.complex64, device)
-    return twiddles
-
-
-def range_tables_for(name: str, twiddles, n_rg: int, device):
-    """``twiddles`` checked as :func:`range_tables` (n_rg) on ``device``,
-    or new tables when None."""
-    if twiddles is None:
-        return range_tables(n_rg, device)
-    if not k2_mixed(n_rg):
-        return twiddles_for(name, twiddles, n_rg, device)
-    if not isinstance(twiddles, MixedRadix):
-        raise ValueError(f"{name}: n_rg {n_rg} needs the MixedRadix tables")
-    _check_table(name, twiddles.twiddles, (n_rg,), torch.complex64, device)
-    _check_table(name, twiddles.order, (n_rg,), torch.int32, device)
-    _check_table(name, twiddles.radices, (len(mixed_radices(n_rg)),),
-                 torch.int32, device)
-    return twiddles
-
-
-def twiddles_for(name: str, twiddles, n: int, device) -> torch.Tensor:
-    """``twiddles`` checked as the n-point table on ``device``, or a new
-    table when None."""
-    if twiddles is None:
-        return twiddle_table(n, device)
-    if (twiddles.dtype != torch.complex64 or twiddles.shape != (n // 2,)
-            or twiddles.device != device or not twiddles.is_contiguous()):
-        raise ValueError(f"{name}: twiddles must be the contiguous "
-                         f"complex64 ({n // 2},) table on {device}")
-    return twiddles
+def range_plan(n: int, device=None) -> RangePlan:
+    """The :class:`RangePlan` of n-point range transforms on ``device``."""
+    if not k2_mixed(n):
+        return RangePlan(n, twiddle_table(n, device))
+    return RangePlan(n, full_twiddle_table(n, device),
+                     torch.from_numpy(mixed_order(n)).to(device=device),
+                     torch.tensor(mixed_radices(n), dtype=torch.int32,
+                                  device=device))
 
 
 def _k2_phases(f: CsaFactors):
@@ -416,48 +453,47 @@ def _range_pass(xr, xi, phi2, phi3):
     return s.real.contiguous(), s.imag.contiguous()
 
 
-def k2_pair_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
-    """Plain version of :func:`k2_pair_call` (torch.fft; ``twiddles`` is
+def k2_pair_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, plan=None):
+    """Plain version of :func:`k2_pair_call` (torch.fft; ``plan`` is
     accepted for the same signature and unused)."""
     phi2, phi3 = _k2_phases(f)
     return (*_range_pass(x1r, x1i, phi2, phi3),
             *_range_pass(x2r, x2i, phi2, phi3))
 
 
-def _k2_args(name, planes, f: CsaFactors, twiddles):
-    """Checks the planes and factors of a K2 launch; returns (the launcher's
-    name suffix, the factor tensors and tables in the launcher's order, its
-    ints): '', the twiddle table and (n_az, n_rg) for the register plan;
-    '_mixed', the full table, the order and the radices and (n_az, n_rg,
-    passes) for the mixed-radix plan."""
+def _k2_args(name, planes, f: CsaFactors, plan):
+    """Checks the planes, factors and plan of a K2 launch; returns the
+    factor tensors and the plan's tables in the launcher's order, and its
+    ints (n_az, n_rg, passes)."""
     n_az, n_rg = plane_shape(name, planes[0])
     dev = planes[0].device
     _build.check(name, planes, (n_az, n_rg), dev)
     usq = f.u * f.u
     _build.check(name, (f.fr, f.cphase, f.dr, usq), (n_rg,), dev)
     _build.check(name, (f.alpha, f.beta, f.rphase, f.g, f.c3), (n_az,), dev)
-    tab = range_tables_for(name, twiddles, n_rg, dev)
-    fac = (f.fr, f.alpha, f.beta, f.cphase, f.dr, usq, f.rphase, f.g, f.c3)
-    if k2_mixed(n_rg):
-        return "_mixed", (*fac, *tab), (n_az, n_rg, tab.radices.numel())
-    return "", (*fac, tab), (n_az, n_rg)
+    if plan is None:
+        plan = range_plan(n_rg, dev)
+    RangePlan.check(plan, name, n_rg, dev)
+    return ((f.fr, f.alpha, f.beta, f.cphase, f.dr, usq, f.rphase, f.g,
+             f.c3, plan.tw, plan.order, plan.radices),
+            (n_az, n_rg, plan.passes))
 
 
-def k2_pair_call(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
+def k2_pair_call(x1r, x1i, x2r, x2i, f: CsaFactors, *, plan=None):
     """K2 for both channels: per azimuth row, range FFT -> x Phi2 -> range
     IFFT (1/N) -> x Phi3; :func:`k2_call`'s kernel on twice the blocks, one
     channel a block (:func:`k2_plan`, or the mixed-radix plan of
     :func:`mixed_radices`).
 
-    (n_az, n_rg) float32 planes in, four planes out. ``twiddles``: the
-    :func:`range_tables` of n_rg (built when None). CPU tensors run
+    (n_az, n_rg) float32 planes in, four planes out. ``plan``: the
+    :func:`range_plan` of n_rg (built when None). CPU tensors run
     :func:`k2_pair_plain`; CUDA tensors launch the kernel."""
     if _build.on_cpu(x1r):
         return k2_pair_plain(x1r, x1i, x2r, x2i, f)
     planes = (x1r, x1i, x2r, x2i)
-    plan, fac, ints = _k2_args("k2_pair_call", planes, f, twiddles)
+    tables, ints = _k2_args("k2_pair_call", planes, f, plan)
     out = [torch.empty_like(x1r) for _ in range(4)]
-    _build.launch(f"k2_pair{plan}_launch", (*planes, *fac, *out), ints)
+    _build.launch("k2_pair_launch", (*planes, *tables, *out), ints)
     k2_pair_call.launches += 1
     return tuple(out)
 
@@ -465,22 +501,22 @@ def k2_pair_call(x1r, x1i, x2r, x2i, f: CsaFactors, *, twiddles=None):
 k2_pair_call.launches = 0
 
 
-def k2_plain(xr, xi, f: CsaFactors, *, twiddles=None):
+def k2_plain(xr, xi, f: CsaFactors, *, plan=None):
     """Plain version of :func:`k2_call`."""
     return _range_pass(xr, xi, *_k2_phases(f))
 
 
-def k2_call(xr, xi, f: CsaFactors, *, twiddles=None):
+def k2_call(xr, xi, f: CsaFactors, *, plan=None):
     """K2 for one channel: :func:`k2_pair_call`'s kernel on one channel's
     blocks, so its result is the pair's for that channel bit for bit.
 
-    (n_az, n_rg) float32 planes in, two planes out. ``twiddles``: the
-    :func:`range_tables` of n_rg (built when None)."""
+    (n_az, n_rg) float32 planes in, two planes out. ``plan``: the
+    :func:`range_plan` of n_rg (built when None)."""
     if _build.on_cpu(xr):
         return k2_plain(xr, xi, f)
-    plan, fac, ints = _k2_args("k2_call", (xr, xi), f, twiddles)
+    tables, ints = _k2_args("k2_call", (xr, xi), f, plan)
     out = [torch.empty_like(xr) for _ in range(2)]
-    _build.launch(f"k2{plan}_launch", (xr, xi, *fac, *out), ints)
+    _build.launch("k2_launch", (xr, xi, *tables, *out), ints)
     k2_call.launches += 1
     return tuple(out)
 
@@ -492,7 +528,7 @@ k2_call.launches = 0
 # K1 and K3: the single-channel azimuth passes
 # --------------------------------------------------------------------------
 
-def k1_plain(xr, xi, f: CsaFactors, *, twiddles=None):
+def k1_plain(xr, xi, f: CsaFactors, *, plan=None):
     """Plain version of :func:`k1_call`."""
     du = f.u[None, :] - f.w[:, None]
     z = torch.fft.fft(torch.complex(xr, xi), dim=0) \
@@ -500,31 +536,15 @@ def k1_plain(xr, xi, f: CsaFactors, *, twiddles=None):
     return z.real.contiguous(), z.imag.contiguous()
 
 
-def chirpz_planes(n_az: int, n_rg: int, nch: int, device):
-    """The (m, n_rg) float32 planes between the chirp-z stages, two a
-    channel (m = :func:`chirpz_length` (n_az))."""
-    m = chirpz_length(n_az)
-    return [torch.empty((m, n_rg), dtype=torch.float32, device=device)
-            for _ in range(2 * nch)]
-
-
-def chirpz_args(tables: ChirpZ, inverse: bool):
-    """(m-point table, chirp, spectrum) of a chirp-z launch's direction."""
-    if inverse:
-        return tables.tw, tables.inv_chirp, tables.inv_spec
-    return tables.tw, tables.fwd_chirp, tables.fwd_spec
-
-
-def k1_call(xr, xi, f: CsaFactors, *, twiddles=None):
+def k1_call(xr, xi, f: CsaFactors, *, plan=None):
     """Azimuth FFT of one channel times Phi1 = exp(j c1(a) (u(r) - w(a))^2),
     Phi1 on natural azimuth frequencies: the forward column pass on tiles of
     adjacent columns (:func:`column_plan` with ``forward``), K1g's for one
     channel on the same split of n_az, so its result is K1g's for that
-    channel bit for bit. At an n_az that is not a power of two, the
-    chirp-z transform: two launches through (m, n_rg) planes.
+    channel bit for bit; by chirp-z where ``plan`` takes it.
 
-    (n_az, n_rg) float32 planes in, two planes out. ``twiddles``: the
-    :func:`azimuth_tables` of n_az (built when None)."""
+    (n_az, n_rg) float32 planes in, two planes out. ``plan``: the
+    :func:`azimuth_plan` of n_az (built when None)."""
     if _build.on_cpu(xr):
         return k1_plain(xr, xi, f)
     n_az, n_rg = plane_shape("k1_call", xr)
@@ -532,25 +552,23 @@ def k1_call(xr, xi, f: CsaFactors, *, twiddles=None):
     _build.check("k1_call", (xr, xi), (n_az, n_rg), dev)
     _build.check("k1_call", (f.u,), (n_rg,), dev)
     _build.check("k1_call", (f.c1, f.w), (n_az,), dev)
-    tab = azimuth_tables_for("k1_call", twiddles, n_az, dev)
+    if plan is None:
+        plan = azimuth_plan(n_az, dev)
+    AzimuthPlan.check(plan, "k1_call", n_az, dev)
     out = [torch.empty_like(xr) for _ in range(2)]
-    plan = column_plan(n_az, n_rg, 1, forward=True)
-    if chirpz(n_az):
-        _build.launch("k1_chirpz_launch",
-                      (xr, xi, f.u, f.c1, f.w, *chirpz_args(tab, False),
-                       *chirpz_planes(n_az, n_rg, 1, dev), *out),
-                      (n_az, chirpz_length(n_az), n_rg, *plan))
-    else:
-        _build.launch("k1_launch", (xr, xi, f.u, f.c1, f.w, tab, *out),
-                      (n_az, n_rg, *plan))
-    k1_call.launches += column_launches(n_az)
+    _build.launch("k1_launch",
+                  (xr, xi, f.u, f.c1, f.w, *plan.tables(inverse=False),
+                   *plan.planes(n_rg, 1, dev), *out),
+                  (n_az, plan.m, n_rg,
+                   *column_plan(n_az, n_rg, 1, forward=True)))
+    k1_call.launches += plan.launches
     return tuple(out)
 
 
 k1_call.launches = 0
 
 
-def k3_plain(xr, xi, *, twiddles=None, out=None):
+def k3_plain(xr, xi, *, plan=None, out=None):
     """Plain version of :func:`k3_call`."""
     s = torch.fft.ifft(torch.complex(xr, xi), dim=0)
     if out is None:
@@ -560,34 +578,31 @@ def k3_plain(xr, xi, *, twiddles=None, out=None):
     return tuple(out)
 
 
-def k3_call(xr, xi, *, twiddles=None, out=None):
+def k3_call(xr, xi, *, plan=None, out=None):
     """Inverse azimuth FFT (1/N) of one channel: K3g's column pass (the same
     transform on the same :func:`column_plan` split), so its result is K3g's
-    SLC for that channel bit for bit; the chirp-z transform at an n_az that
-    is not a power of two.
+    SLC for that channel bit for bit; by chirp-z where ``plan`` takes it.
 
     (n_az, n_rg) float32 planes in, two planes out: new ones, or ``out``, a
     pair of contiguous planes of that shape to write (and return).
-    ``twiddles``: the :func:`azimuth_tables` of n_az (built when None)."""
+    ``plan``: the :func:`azimuth_plan` of n_az (built when None)."""
     if _build.on_cpu(xr):
         return k3_plain(xr, xi, out=out)
     n_az, n_rg = plane_shape("k3_call", xr)
     dev = xr.device
     _build.check("k3_call", (xr, xi), (n_az, n_rg), dev)
-    tab = azimuth_tables_for("k3_call", twiddles, n_az, dev)
+    if plan is None:
+        plan = azimuth_plan(n_az, dev)
+    AzimuthPlan.check(plan, "k3_call", n_az, dev)
     if out is None:
         out = [torch.empty_like(xr) for _ in range(2)]
     else:
         _build.check("k3_call", out, (n_az, n_rg), dev)
-    plan = column_plan(n_az, n_rg, 1)
-    if chirpz(n_az):
-        _build.launch("k3_chirpz_launch",
-                      (xr, xi, *chirpz_args(tab, True),
-                       *chirpz_planes(n_az, n_rg, 1, dev), *out),
-                      (n_az, chirpz_length(n_az), n_rg, *plan))
-    else:
-        _build.launch("k3_launch", (xr, xi, tab, *out), (n_az, n_rg, *plan))
-    k3_call.launches += column_launches(n_az)
+    _build.launch("k3_launch",
+                  (xr, xi, *plan.tables(inverse=True),
+                   *plan.planes(n_rg, 1, dev), *out),
+                  (n_az, plan.m, n_rg, *column_plan(n_az, n_rg, 1)))
+    k3_call.launches += plan.launches
     return tuple(out)
 
 
@@ -600,7 +615,7 @@ k3_call.launches = 0
 
 def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
     """Planes-native CSA: re/im float32 (..., n_az, n_rg) raw -> re/im SLC,
-    K1 -> K2 -> K3 per plane, the twiddle tables built once per call. This
+    K1 -> K2 -> K3 per plane, the two axis plans built once per call. This
     is the hot entry (the formation-only stream holds planes end to end).
 
     Raises ValueError at shapes the kernels do not take (:func:`supported`)
@@ -613,13 +628,13 @@ def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
     xr = xr.reshape(-1, n_az, n_rg).contiguous()
     xi = xi.reshape(-1, n_az, n_rg).contiguous()
     dev = xr.device
-    tw_az, tw_rg = azimuth_tables(n_az, dev), range_tables(n_rg, dev)
+    az, rg = azimuth_plan(n_az, dev), range_plan(n_rg, dev)
     # K3 writes each SLC plane straight into its slot of the batch
     out_r, out_i = torch.empty_like(xr), torch.empty_like(xi)
     for zr, zi, sr, si in zip(xr, xi, out_r, out_i):
-        zr, zi = k1_call(zr, zi, f, twiddles=tw_az)
-        zr, zi = k2_call(zr, zi, f, twiddles=tw_rg)
-        k3_call(zr, zi, twiddles=tw_az, out=(sr, si))
+        zr, zi = k1_call(zr, zi, f, plan=az)
+        zr, zi = k2_call(zr, zi, f, plan=rg)
+        k3_call(zr, zi, plan=az, out=(sr, si))
     return (out_r.reshape(lead + (n_az, n_rg)),
             out_i.reshape(lead + (n_az, n_rg)))
 

@@ -27,8 +27,7 @@ from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import _count_1d, _window_sum
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda.csa_kernel import (
-    azimuth_tables_for, chirpz, chirpz_args, chirpz_length, chirpz_planes,
-    column_launches, column_plan, plane_shape)
+    AzimuthPlan, azimuth_plan, column_plan, plane_shape)
 
 
 # --------------------------------------------------------------------------
@@ -36,7 +35,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.cuda.csa_kernel import (
 # --------------------------------------------------------------------------
 
 def k1_gmti_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
-                  twiddles=None):
+                  plan=None):
     """Plain version of :func:`k1_gmti_planes`."""
     du = f.u[None, :] - f.w[:, None]
     phi1 = expj(f.c1[:, None] * du * du)
@@ -53,7 +52,7 @@ def k1_gmti_plain(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
 
 
 def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
-                   twiddles=None):
+                   plan=None):
     """Two-channel K1 + raw balance sums in one pass: the forward column
     pass on tiles of adjacent columns (``column_plan(..., 2,
     forward=True)``).
@@ -63,10 +62,9 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     sum(x1 conj x2) over the raw pair (zeros when balance=False) as 0-d
     tensors. The kernel writes each column's sum, from the two spectra by
     Parseval (sum_k X1 conj X2 / n_az) and reduced in a fixed order, so two
-    launches give the same bits; the columns are summed here. At an n_az
-    that is not a power of two, the chirp-z transform in two launches
-    through (m, n_rg) planes (the sums from the first's spectra, / m).
-    ``twiddles``: the ``azimuth_tables`` of n_az (built when None)."""
+    launches give the same bits; the columns are summed here. By chirp-z
+    where ``plan`` takes it (the sums from the first stage's spectra, / m).
+    ``plan``: the ``azimuth_plan`` of n_az (built when None)."""
     if _build.on_cpu(x1r):
         return k1_gmti_plain(x1r, x1i, x2r, x2i, f, balance=balance)
     n_az, n_rg = plane_shape("k1_gmti_planes", x1r)
@@ -74,21 +72,18 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     _build.check("k1_gmti_planes", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
     _build.check("k1_gmti_planes", (f.u,), (n_rg,), dev)
     _build.check("k1_gmti_planes", (f.c1, f.w), (n_az,), dev)
-    tab = azimuth_tables_for("k1_gmti_planes", twiddles, n_az, dev)
+    if plan is None:
+        plan = azimuth_plan(n_az, dev)
+    AzimuthPlan.check(plan, "k1_gmti_planes", n_az, dev)
     out = [torch.empty_like(x1r) for _ in range(4)]
     bal = torch.empty((2, n_rg), dtype=torch.float32, device=dev)
-    plan = column_plan(n_az, n_rg, 2, forward=True)
-    if chirpz(n_az):
-        _build.launch("k1g_chirpz_launch",
-                      (x1r, x1i, x2r, x2i, f.u, f.c1, f.w,
-                       *chirpz_args(tab, False),
-                       *chirpz_planes(n_az, n_rg, 2, dev), *out, bal),
-                      (n_az, chirpz_length(n_az), n_rg, int(balance), *plan))
-    else:
-        _build.launch("k1g_launch", (x1r, x1i, x2r, x2i, f.u, f.c1, f.w, tab,
-                                     *out, bal),
-                      (n_az, n_rg, int(balance), *plan))
-    k1_gmti_planes.launches += column_launches(n_az)
+    _build.launch("k1g_launch",
+                  (x1r, x1i, x2r, x2i, f.u, f.c1, f.w,
+                   *plan.tables(inverse=False), *plan.planes(n_rg, 2, dev),
+                   *out, bal),
+                  (n_az, plan.m, n_rg, int(balance),
+                   *column_plan(n_az, n_rg, 2, forward=True)))
+    k1_gmti_planes.launches += plan.launches
     # per-column sums -> two scalars
     xs = torch.sum(bal, dim=1)
     return (*out, xs[0], xs[1])
@@ -183,7 +178,7 @@ raw_balance.launches = 0
 # --------------------------------------------------------------------------
 
 def k3_gmti_plain(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int, h_in: int,
-                  twiddles=None):
+                  plan=None):
     """Plain version of :func:`k3_gmti_planes`."""
     s1 = torch.fft.ifft(torch.complex(x1r, x1i), dim=0)
     s2 = torch.fft.ifft(torch.complex(x2r, x2i), dim=0)
@@ -203,7 +198,7 @@ def k3_gmti_plain(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int, h_in: int,
 
 
 def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
-                   h_in: int, twiddles=None):
+                   h_in: int, plan=None):
     """Inverse azimuth FFT (1/N) of both channels' K2 outputs with the GMTI
     products written from the same pass.
 
@@ -211,9 +206,8 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     Returns (s1r, s1i, s2r, s2i, phase_unmasked, mag1_sq, power,
     colsum_outer, colsum_inner, peaks): the colsums are the azimuth halves
     of the CFAR box sums of ``power`` (half-widths h_out, h_in); ``peaks``
-    is the (n_rg,) max |s1|^2 of each range column. At an n_az that is not
-    a power of two, the chirp-z transform in two launches through (m,
-    n_rg) planes. ``twiddles``: the ``azimuth_tables`` of n_az (built when
+    is the (n_rg,) max |s1|^2 of each range column. By chirp-z where
+    ``plan`` takes it. ``plan``: the ``azimuth_plan`` of n_az (built when
     None)."""
     if _build.on_cpu(x1r):
         return k3_gmti_plain(x1r, x1i, x2r, x2i, cal_cos_sin, h_out=h_out,
@@ -222,21 +216,17 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     dev = x1r.device
     _build.check("k3_gmti_planes", (x1r, x1i, x2r, x2i), (n_az, n_rg), dev)
     _build.check("k3_gmti_planes", (cal_cos_sin,), (2,), dev)
-    tab = azimuth_tables_for("k3_gmti_planes", twiddles, n_az, dev)
+    if plan is None:
+        plan = azimuth_plan(n_az, dev)
+    AzimuthPlan.check(plan, "k3_gmti_planes", n_az, dev)
     out = [torch.empty_like(x1r) for _ in range(9)]
     peaks = torch.empty((n_rg,), dtype=torch.float32, device=dev)
-    plan = column_plan(n_az, n_rg, 2)
-    if chirpz(n_az):
-        _build.launch("k3g_chirpz_launch",
-                      (x1r, x1i, x2r, x2i, cal_cos_sin,
-                       *chirpz_args(tab, True),
-                       *chirpz_planes(n_az, n_rg, 2, dev), *out, peaks),
-                      (n_az, chirpz_length(n_az), n_rg, h_out, h_in, *plan))
-    else:
-        _build.launch("k3g_launch", (x1r, x1i, x2r, x2i, cal_cos_sin, tab,
-                                     *out, peaks),
-                      (n_az, n_rg, h_out, h_in, *plan))
-    k3_gmti_planes.launches += column_launches(n_az)
+    _build.launch("k3g_launch",
+                  (x1r, x1i, x2r, x2i, cal_cos_sin, *plan.tables(inverse=True),
+                   *plan.planes(n_rg, 2, dev), *out, peaks),
+                  (n_az, plan.m, n_rg, h_out, h_in,
+                   *column_plan(n_az, n_rg, 2)))
+    k3_gmti_planes.launches += plan.launches
     return (*out, peaks)
 
 

@@ -3,13 +3,15 @@
 bit on one GPU.
 
     python3 scripts/probe_torch_cpi_bits.py [--root DIR] [--n 4096]
+                                             [--n-rg N_RG]
 
 Imports ``nis_sar_amtigmti_video_tpu_torch`` from DIR (the checkout this
 script sits in unless given), builds its kernels there, and runs K1g, the
-K2 pair, K3g and K4 in a chain on seeded (n, n) planes with the slice
-waveform's CSA factors (BW 120 MHz, fs 150 MHz), each kernel fed the one
-before. Prints one JSON line: the sha256 of each kernel's output tensors,
-in order. Two trees whose kernels compute the same bits print the same
+K2 pair, K3g and K4 in a chain on seeded (n, n_rg) planes (n_rg = n unless
+given) with the slice waveform's CSA factors (BW 120 MHz, fs 150 MHz), each
+kernel fed the one before, and the split route's K1, K2 single and K3 on the
+first channel in a chain of their own. Prints one JSON line: the sha256 of
+each kernel's output tensors, in order. Two trees whose kernels compute the same bits print the same
 line. Needs a CUDA device.
 """
 
@@ -26,6 +28,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--n", type=int, default=4096)
+    ap.add_argument("--n-rg", type=int, default=None)
     a = ap.parse_args()
     sys.path.insert(0, str(Path(a.root).resolve()))
     import numpy as np
@@ -36,13 +39,14 @@ def main():
                                                            gmti_kernel)
 
     dev, n = torch.device("cuda", 0), a.n
+    n_rg = a.n_rg or n
     f = csa.csa_factors(csa.CsaParams(
         wavelength_m=0.031, chirp_rate=120e6 / 2e-6, fs_hz=150e6,
         prf_hz=6000.0, velocity_mps=7600.0, range_ref_m=6e5,
         t_start_fast=2 * 6e5 / 299792458.0 - 2e-6, num_pulses=n,
-        num_samples=n), dev)
+        num_samples=n_rg), dev)
     rng = np.random.default_rng(0)
-    x = [torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32))
+    x = [torch.from_numpy(rng.standard_normal((n, n_rg), dtype=np.float32))
          .to(dev) for _ in range(4)]
     cp = CfarParams()
     h_out, h_in = cp.guard + cp.train, cp.guard
@@ -66,7 +70,13 @@ def main():
                                         0.05 ** 2 * k3[9].max(),
                                         h_out=h_out, h_in=h_in)
     out["K4"] = digest(k4)
-    print(json.dumps({"n": n, "root": a.root, "sha256": out}))
+    del k1, k2, k3, k4
+    z = csa_kernel.k1_call(x[0], x[1], f)
+    out["K1"] = digest(z)
+    z = csa_kernel.k2_call(*z, f)
+    out["K2 single"] = digest(z)
+    out["K3"] = digest(csa_kernel.k3_call(*z))
+    print(json.dumps({"n": n, "n_rg": n_rg, "root": a.root, "sha256": out}))
 
 
 if __name__ == "__main__":

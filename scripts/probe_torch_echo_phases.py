@@ -63,6 +63,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke  # noqa: E402
+from bench_torch.peaks import HBM_BYTES_PER_S  # noqa: E402
 from nis_sar_amtigmti_video_tpu_torch.ops import echo, echo_freq  # noqa
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (  # noqa: E402
     _build, fft_kernel, spread_kernel)
@@ -196,7 +197,6 @@ VARIANTS = {
         ("constexpr int kThreads = 256;", "constexpr int kThreads = 384;"),
         ("__launch_bounds__(kThreads, 6)", "__launch_bounds__(kThreads, 4)")]),
 }
-HBM_BYTES_PER_S = chip_smoke.HBM_BYTES_PER_S
 
 
 def _mark(src: str, marks) -> str:

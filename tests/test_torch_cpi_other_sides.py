@@ -1,7 +1,7 @@
 """The GMTI CPI's kernel route at CPI sides that are not powers of two, on
 the CPU (the kernels' plain versions): the family ``csa_kernel.supported``
 takes and refuses, the plans the kernels are launched with there, the
-tables ``GmtiCpi`` holds, and ``focus_and_products(path="kernel_fused")``
+axis plans ``GmtiCpi`` holds and their check, and ``focus_and_products(path="kernel_fused")``
 at a 90 x 165 CPI against the composed route and against the plain float64
 reference of the benchmark (bench_torch/reference/gmti_products.py)."""
 
@@ -68,16 +68,18 @@ def test_chirpz_lengths():
     assert tck.chirpz_length(7199) == tck.chirpz_length(7200) == 16384
     assert tck.chirpz_length(65) == 256 and tck.chirpz_length(4097) == 16384
     assert not tck.chirpz(4096) and tck.chirpz(4097)
-    assert tck.column_launches(4096) == 1 and tck.column_launches(7199) == 2
+    assert tck.azimuth_plan(4096).launches == 1
+    assert tck.azimuth_plan(7199).launches == 2
     assert not tck.k2_mixed(4096) and tck.k2_mixed(8192)
     assert tck.k2_mixed(13200) and tck.k2_mixed(96)
 
 
 @pytest.mark.parametrize("shape", [(90, 165), (64, 128), (97, 8192)])
 def test_gmti_cpi_tables(shape):
-    """GmtiCpi holds the tables its kernels read: a twiddle table of the
-    transform's length or, where the plans take them, the chirp-z and
-    mixed-radix tables, which .to() moves; counts the axes."""
+    """GmtiCpi holds the axis plans its kernels read: the direct column
+    pass or the chirp-z transform's (its length, tables and launches), the
+    register or the mixed-radix plan (its tables and passes), which .to()
+    moves tensor by tensor; counts the axes."""
     n_az, n_rg = shape
     f = csa.csa_factors(csa.CsaParams(
         wavelength_m=0.03, chirp_rate=6e13, fs_hz=150e6, prf_hz=6000.0,
@@ -85,24 +87,57 @@ def test_gmti_cpi_tables(shape):
         num_pulses=n_az, num_samples=n_rg))
     cpi = fused.GmtiCpi(f)
     az, rg = cpi.az, cpi.rg
+    assert isinstance(az, tck.AzimuthPlan) and isinstance(rg, tck.RangePlan)
+    assert (az.n, rg.n) == shape
     if tck.chirpz(n_az):
         m = tck.chirpz_length(n_az)
-        assert isinstance(az, tck.ChirpZ) and az.tw.shape == (m // 2,)
-        assert az.fwd_chirp.shape == (n_az,) and az.inv_spec.shape == (m,)
+        assert az.m == m and az.tw.shape == (m // 2,) and az.launches == 2
+        assert az.fwd_chirp.shape == az.inv_chirp.shape == (n_az,)
+        assert az.fwd_spec.shape == az.inv_spec.shape == (m,)
         assert cpi.chirpz_axes == 2
     else:
-        assert az.shape == (n_az // 2,) and cpi.chirpz_axes == 0
+        assert az.m == n_az and az.tw.shape == (n_az // 2,)
+        assert az.launches == 1 and set(az.tensors()) == {"tw"}
+        assert cpi.chirpz_axes == 0
     if tck.k2_mixed(n_rg):
-        assert isinstance(rg, tck.MixedRadix)
-        assert rg.twiddles.shape == rg.order.shape == (n_rg,)
+        assert rg.tw.shape == rg.order.shape == (n_rg,)
         assert rg.radices.tolist() == list(tck.mixed_radices(n_rg))
+        assert rg.passes == len(tck.mixed_radices(n_rg))
         assert cpi.mixed_radix_axes == 2
     else:
-        assert rg.shape == (n_rg // 2,) and cpi.mixed_radix_axes == 0
+        assert rg.tw.shape == (n_rg // 2,) and rg.passes == 0
+        assert rg.order is None and rg.radices is None
+        assert cpi.mixed_radix_axes == 0
     cpi.to("meta")
-    for tab in (cpi.az, cpi.rg):
-        for t in (tab,) if isinstance(tab, torch.Tensor) else tab:
-            assert t.device.type == "meta"
+    for plan, was in ((cpi.az, az), (cpi.rg, rg)):
+        assert set(plan.tensors()) == set(was.tensors())
+        assert all(t.device.type == "meta" for t in plan.tensors().values())
+        assert all(t.device.type == "cpu" for t in was.tensors().values())
+
+
+def _plan_for(axis, n, device="cpu"):
+    return (tck.azimuth_plan if axis == "azimuth" else tck.range_plan)(
+        n, device)
+
+
+@pytest.mark.parametrize("n", [128, 165])
+@pytest.mark.parametrize("axis", ["azimuth", "range"])
+@pytest.mark.parametrize("wrong", ["another length", "the other axis",
+                                   "another device"])
+def test_plan_check_refuses(axis, n, wrong):
+    """A plan's check takes the plan its wrapper would build and refuses
+    one built for another length, the other axis's plan (at 128 the two
+    tables have one shape) and one whose tables are on another device."""
+    cls = tck.AzimuthPlan if axis == "azimuth" else tck.RangePlan
+    cpu = torch.device("cpu")
+    cls.check(_plan_for(axis, n), "k", n, cpu)
+    plan = {"another length": _plan_for(axis, 2 * n),
+            "the other axis": _plan_for(
+                "range" if axis == "azimuth" else "azimuth", n),
+            "another device": _plan_for(axis, n).map(
+                lambda t: t.to("meta"))}[wrong]
+    with pytest.raises(ValueError, match="^k: "):
+        cls.check(plan, "k", n, cpu)
 
 
 def _scenario(fft_impl):

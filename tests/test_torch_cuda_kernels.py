@@ -4,7 +4,7 @@ balance; K1, K2 single and K3, also bit for bit against their two-channel
 twins) at 256^2 and at the slice's 4096^2, K3 and K3g also on rectangular
 planes, twice for the same bits and at their columns' edges, K2 and its
 pair at every row length they take and on rectangular planes, twice and
-with a passed twiddle table for the same bits, the fast-BP recentre
+with a passed axis plan for the same bits, the fast-BP recentre
 kernels at nfft 16,384 and 65,536 and at the VideoSAR reference shape
 (2,500 x 22,004 samples, nfft 32,768, presum 4; also each presum
 group's rows from its own pulses alone, bit for bit), the fast-BP accumulate
@@ -113,6 +113,9 @@ def test_k1g_matches_plain(dev, n):
     assert _rel(torch.stack(got[4:]), torch.stack(want[4:])) <= 1e-4
     nb = gmti_kernel.k1_gmti_planes(*x, f, balance=False)
     assert float(nb[4]) == 0.0 and float(nb[5]) == 0.0
+    plan = csa_kernel.azimuth_plan(x[0].shape[0], dev)
+    passed = gmti_kernel.k1_gmti_planes(*x, f, plan=plan)
+    assert all(torch.equal(a, b) for a, b in zip(got, passed))
 
 
 @pytest.mark.parametrize("n", [(4096, 256), (256, 64)])
@@ -146,7 +149,7 @@ K2_SHAPES = [64, 128, 256, 512, 1024, 2048, 4096, (64, 4096), (4096, 64)]
 @pytest.mark.parametrize("n", K2_SHAPES)
 def test_k2_pair_matches_plain(dev, n):
     """Within 1e-4 of the peak of the plain version; a second launch, and
-    one given the twiddle table the wrapper would build, give the same
+    one given the range plan the wrapper would build, give the same
     bits."""
     f, x = _factors(n, dev), _planes(n, dev, 1)
     before = csa_kernel.k2_pair_call.launches
@@ -157,8 +160,8 @@ def test_k2_pair_matches_plain(dev, n):
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-4
     again = csa_kernel.k2_pair_call(*x, f)
-    tw = csa_kernel.twiddle_table(x[0].shape[1], dev)
-    passed = csa_kernel.k2_pair_call(*x, f, twiddles=tw)
+    plan = csa_kernel.range_plan(x[0].shape[1], dev)
+    passed = csa_kernel.k2_pair_call(*x, f, plan=plan)
     for i, (a, b, c) in enumerate(zip(got, again, passed)):
         assert torch.equal(a, b) and torch.equal(a, c), i
 
@@ -180,6 +183,10 @@ def test_k3g_matches_plain(dev, n):
     strong = want[5] > 1e-2 * want[5].max()
     d = torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi) - np.pi
     assert float(d[strong].abs().max()) < 1e-3
+    plan = csa_kernel.azimuth_plan(x[0].shape[0], dev)
+    passed = gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT, h_in=H_IN,
+                                        plan=plan)
+    assert all(torch.equal(a, b) for a, b in zip(got, passed))
 
 
 @pytest.mark.parametrize("n", [(4096, 256), (256, 64)])
@@ -250,16 +257,19 @@ def test_k1_matches_plain_and_k1g(dev, n):
     pair = gmti_kernel.k1_gmti_planes(*x, f)
     for a, b in zip(got, pair[:2]):
         assert torch.equal(a, b)
+    plan = csa_kernel.azimuth_plan(x[0].shape[0], dev)
+    passed = csa_kernel.k1_call(x[0], x[1], f, plan=plan)
+    assert all(torch.equal(a, b) for a, b in zip(got, passed))
 
 
 @pytest.mark.parametrize("n", K2_SHAPES)
 def test_k2_matches_plain_and_pair(dev, n):
     """K2 on each channel within 1e-4 of the peak of the plain version and
     bit for bit the pair's planes for it; a second launch and a passed
-    twiddle table give the same bits."""
+    range plan give the same bits."""
     f, x = _factors(n, dev), _planes(n, dev, 5)
     pair = csa_kernel.k2_pair_call(*x, f)
-    tw = csa_kernel.twiddle_table(x[0].shape[1], dev)
+    plan = csa_kernel.range_plan(x[0].shape[1], dev)
     for ch in (0, 1):
         xr, xi = x[2 * ch], x[2 * ch + 1]
         before = csa_kernel.k2_call.launches
@@ -269,7 +279,7 @@ def test_k2_matches_plain_and_pair(dev, n):
         for a, b in zip(got, csa_kernel.k2_plain(xr, xi, f)):
             assert _rel(a, b) <= 1e-4, ch
         again = csa_kernel.k2_call(xr, xi, f)
-        passed = csa_kernel.k2_call(xr, xi, f, twiddles=tw)
+        passed = csa_kernel.k2_call(xr, xi, f, plan=plan)
         for a, b, c, d in zip(got, pair[2 * ch:2 * ch + 2], again, passed):
             assert torch.equal(a, b), ch
             assert torch.equal(a, c) and torch.equal(a, d), ch
@@ -429,19 +439,20 @@ ODD_IDS = [f"{a}x{b}" for a, b in ODD_SHAPES]
 def test_column_kernels_match_plain_at_other_sides(dev, n):
     """K1g, K1, K3g and K3 against their plain versions (1e-4 of the peak;
     the ATI phase on strong pixels 1e-3 rad), the one-channel kernels bit
-    for bit their pairs' channel, two launches the same bits."""
+    for bit their pairs' channel, two launches (the second given the plan)
+    the same bits."""
     assert csa_kernel.supported(*n)
     f, x = _factors(n, dev), _planes(n, dev, 21)
+    plan = csa_kernel.azimuth_plan(n[0], dev)
     before = gmti_kernel.k1_gmti_planes.launches
     got = gmti_kernel.k1_gmti_planes(*x, f)
-    assert gmti_kernel.k1_gmti_planes.launches \
-        == before + csa_kernel.column_launches(n[0])
+    assert gmti_kernel.k1_gmti_planes.launches == before + plan.launches
     want = gmti_kernel.k1_gmti_plain(*x, f)
     for a, b in zip(got[:4], want[:4]):
         assert _rel(a, b) <= 1e-4
     d = float(torch.atan2(got[5], got[4]) - torch.atan2(want[5], want[4]))
     assert abs(d) <= 1e-5
-    again = gmti_kernel.k1_gmti_planes(*x, f)
+    again = gmti_kernel.k1_gmti_planes(*x, f, plan=plan)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     one = csa_kernel.k1_call(x[0], x[1], f)
     assert all(torch.equal(a, b) for a, b in zip(one, got[:2]))
@@ -471,9 +482,9 @@ def test_k2_k4_and_balance_match_plain_at_other_sides(dev, n):
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-4
     del want
-    tab = csa_kernel.range_tables(n[1], dev)
+    plan = csa_kernel.range_plan(n[1], dev)
     for ch in (0, 1):
-        one = csa_kernel.k2_call(x[2 * ch], x[2 * ch + 1], f, twiddles=tab)
+        one = csa_kernel.k2_call(x[2 * ch], x[2 * ch + 1], f, plan=plan)
         assert all(torch.equal(a, b)
                    for a, b in zip(one, got[2 * ch:2 * ch + 2])), ch
     del got, one

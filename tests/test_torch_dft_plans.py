@@ -4,12 +4,13 @@ kernels read, and held to NumPy's float64 FFT.
 
 * K2's mixed-radix plan (``csrc/csa_kernel.cu``, ``k2_kernel<0>``): the
   forward transform decimates in frequency, in place, one pass per radix of
-  ``csa_kernel.mixed_radices``; the spectrum lies at the positions of
-  ``csa_kernel.mixed_order``; the inverse runs the passes backwards with
-  conjugate twiddles and leaves the natural order.
+  ``csa_kernel.mixed_radices`` (the tables of ``csa_kernel.range_plan``);
+  the spectrum lies at the positions of ``csa_kernel.mixed_order``; the
+  inverse runs the passes backwards with conjugate twiddles and leaves the
+  natural order.
 * The chirp-z azimuth transform (``csrc/gmti_kernel.cu``, the column pass's
   two stages): the chirp, the convolution's spectrum and the m-point
-  twiddle table of ``csa_kernel.chirpz_tables``, the column pass's split of
+  twiddle table of ``csa_kernel.azimuth_plan``, the column pass's split of
   m into CS x QA x QB (``column_split``), a forward transform, the product
   with the spectrum, an inverse transform and the chirp again.
 
@@ -77,9 +78,8 @@ def test_mixed_radix_plan_is_the_dft(n):
     rng = np.random.default_rng(n)
     x = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
          ).astype(np.complex64)
-    tab = tck.range_tables(n) if tck.k2_mixed(n) else None
-    tw = tab.twiddles.numpy() if tab is not None else \
-        tck.full_twiddle_table(n).numpy()
+    plan = tck.range_plan(n)
+    tw = (plan.tw if plan.passes else tck.full_twiddle_table(n)).numpy()
     order = tck.mixed_order(n)
     got = mixed_forward(x, tw)
     want = np.fft.fft(x.astype(np.complex128), axis=-1)
@@ -87,7 +87,7 @@ def test_mixed_radix_plan_is_the_dft(n):
     assert err < 2e-6
     back = mixed_forward(got, tw, inverse=True)
     assert np.abs(back / n - x).max() / np.abs(x).max() < 2e-6
-    assert tab is None or np.array_equal(tab.order.numpy(), order)
+    assert not plan.passes or np.array_equal(plan.order.numpy(), order)
 
 
 def test_mixed_radices_and_order():
@@ -139,16 +139,14 @@ def column_dft(x, tw, cs, inverse):
     return v.reshape(m, -1).astype(np.complex64)
 
 
-def chirpz_dft(x, tables, inverse):
-    """The two stages of the column pass's chirp-z transform over x's rows:
-    stage 1 the chirped rows, zero beyond n, forward, times the spectrum;
-    stage 2 the inverse over m, 1 / m, the chirp again, rows below n."""
-    n = x.shape[0]
-    tw = tables.tw.numpy()
-    m = 2 * tw.shape[0]
+def chirpz_dft(x, plan, inverse):
+    """The two stages of the column pass's chirp-z transform over x's rows
+    with an ``azimuth_plan``'s tables: stage 1 the chirped rows, zero
+    beyond n, forward, times the spectrum; stage 2 the inverse over m,
+    1 / m, the chirp again, rows below n."""
+    n, m = x.shape[0], plan.m
     cs = tck.column_plan(n, 64, 1).cluster
-    chirp = (tables.inv_chirp if inverse else tables.fwd_chirp).numpy()
-    spec = (tables.inv_spec if inverse else tables.fwd_spec).numpy()
+    tw, chirp, spec = (t.numpy() for t in plan.tables(inverse))
     a = np.zeros((m,) + x.shape[1:], np.complex64)
     a[:n] = x * chirp[:, None]
     a = column_dft(a, tw, cs, False) * spec[:, None]
@@ -166,13 +164,14 @@ def test_chirpz_plan_is_the_dft(n):
     rng = np.random.default_rng(n + 1)
     x = (rng.standard_normal((n, 8)) + 1j * rng.standard_normal((n, 8))
          ).astype(np.complex64)
-    tables = tck.chirpz_tables(n)
+    plan = tck.azimuth_plan(n)
     m = tck.chirpz_length(n)
+    assert plan.m == m and plan.launches == 2
     assert m >= 2 * n - 1 and m & (m - 1) == 0 and m < 4 * n
     x64 = x.astype(np.complex128)
     for inverse, want in ((False, np.fft.fft(x64, axis=0)),
                           (True, np.fft.ifft(x64, axis=0))):
-        got = chirpz_dft(x, tables, inverse)
+        got = chirpz_dft(x, plan, inverse)
         assert np.abs(got - want).max() / np.abs(want).max() < 5e-6
 
 

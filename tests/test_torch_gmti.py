@@ -344,16 +344,16 @@ def test_gmti_cpi_matches_pallas_cpi(kernel_chain):
 
 def test_gmti_cpi_module_state():
     """GmtiCpi keeps the per-configuration state (buffers, and the
-    kernels' tables, which .to() moves with them) and gives the functional
-    entry's result."""
+    kernels' axis plans, which .to() moves with them) and gives the
+    functional entry's result."""
     _, tf = _slice_factors(64, 128)
     cpi = fused.GmtiCpi(tf, CP)
     names = {n for n, _ in cpi.named_buffers()}
     assert set(tcsa.CsaFactors._fields) <= names
     assert {"ch_o", "ch_i", "cw_o", "cw_i"} <= names
-    assert cpi.az.shape == (32,) and cpi.rg.shape == (64,)
+    assert cpi.az.tw.shape == (32,) and cpi.rg.tw.shape == (64,)
     moved = fused.GmtiCpi(tf, CP).to("meta")
-    assert moved.az.device.type == moved.rg.device.type == "meta"
+    assert moved.az.tw.device.type == moved.rg.tw.device.type == "meta"
     rng = np.random.default_rng(9)
     x = [_t(rng.standard_normal((64, 128)).astype(np.float32))
          for _ in range(4)]
