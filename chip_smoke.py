@@ -28,8 +28,8 @@ raises and the exit code is non-zero:
               azimuth, mixed-radix range) and 7,200 x 13,200, with the
               axis plans built once: each vs its plain version to the card
               tests' bounds, its launches from counters reset just before
-              one call (2 for a chirp-z column pass), its ms beside its
-              byte bound
+              one call (one each, the chirp-z column passes too), its ms
+              beside its byte bound
   3b. csa     K1, K2 single, K3 and the raw balance on the same inputs vs
               their plain versions (<= 1e-4 of the peak, balance angle
               <= 1e-5 rad); K1, K2 single and K3 bit for bit against K1g, K2
@@ -491,7 +491,7 @@ def phase_upstream(dev) -> dict:
     bounds (planes 1e-4 of the peak, balance angle 1e-5 rad, K3g's ATI
     phase 1e-3 rad on strong pixels, K4's SNR rtol 1e-4, phase mask exact,
     dmag rtol 1e-6); its launches, from the counters reset just before one
-    call (the chirp-z column passes launch twice); its time (CUDA events,
+    call (one each, the chirp-z column passes too); its time (CUDA events,
     median of 5 after a warm-up) beside its byte bound."""
     cp = CfarParams()
     h_out, h_in = cp.guard + cp.train, cp.guard
@@ -507,9 +507,7 @@ def phase_upstream(dev) -> dict:
             reset_launches()
             got = kernel()
             launches = launch_counts({**WRAPPERS, **CSA_WRAPPERS})[name]
-            assert launches == (az.launches
-                                if name in ("K1g", "K3g", "K1", "K3")
-                                else 1), launches
+            assert launches == 1, launches
             want = plain()
             err = check(got, want)
             ms = median_ms(kernel)

@@ -51,20 +51,25 @@
 // after the DPCA shift = 23 x 313, or 7,200) run as chirp-z transforms
 // (Bluestein) of the CPI's own length, on the column pass of m points, m
 // the least power of two of at least 2 n_az - 1 (16,384 for both): no
-// padding of the data, the DFT of n_az points exactly. Each kernel runs it
-// in two launches of the same template at STAGE 1 and 2 (the column pass
-// needs the whole column of one transform before the next starts). Stage 1
-// reads the n_az rows (rows n_az .. m - 1 are zeros), multiplies each by
-// the chirp c[n] = exp(-/+ j pi n^2 / n_az), runs the forward column pass
-// and writes the spectrum times the convolution kernel's spectrum H (a
-// table: ops/cuda/csa_kernel.py::azimuth_plan) to m-row planes. Stage 2
-// reads those, runs the inverse column pass (1 / m), keeps rows below
-// n_az times the chirp again, and does what the kernel's one launch does
-// at a power of two: Phi1 (K1, K1g), the stores (K3) or every product and
+// padding of the data, the DFT of n_az points exactly, in one launch of the
+// kernel's chirp-z instantiation (STAGE kChirpZ), the m-point spectrum never
+// leaving the cluster's shared memory (chirpz_convolve): it reads the n_az
+// rows (rows n_az .. m - 1 are zeros), multiplies each by the chirp c[n] =
+// exp(-/+ j pi n^2 / n_az), runs the forward column pass with its gather on
+// the output rows j = rank (mod CS), multiplies by the convolution kernel's
+// spectrum H (a table: ops/cuda/csa_kernel.py::azimuth_plan), and holds the
+// values in registers across a cluster barrier; since Q is a multiple of CS,
+// those are the rows rank + CS q the block's own inverse pass A reads, so it
+// writes them into its own Y and runs the inverse column pass (1 / m) there.
+// Then it keeps rows below n_az times the chirp again and does what the
+// direct launch does: Phi1 (K1, K1g), the stores (K3) or every product and
 // the box sums (K3g, its windows clipped to n_az). K1g's balance sums come
-// from stage 1's spectra (Parseval, 1 / m). m = 8192 and 16,384, and the
-// azimuth side 8192 itself, split over clusters of 16 blocks (non-portable
-// on the H100; 16,384 as 16 x 32 x 32, one block an SM for K3g's 181 KB).
+// from the forward spectra (Parseval, 1 / m). Each value meets the same
+// arithmetic in the same order as it would in two launches that carried the
+// spectrum through (m, n_rg) planes in device memory. m = 8192 and 16,384, and
+// the azimuth side 8192 itself, split over clusters of 16 blocks
+// (non-portable on the H100; 16,384 as 16 x 32 x 32, one block an SM: the
+// chirp-z blocks of 512 threads, K3g's with 182 KB of shared memory).
 // A last tile of columns past n_rg (a range side that is not a multiple of
 // the tile) reads its last column again and stores nothing past the edge.
 // No float atomics anywhere: the balance kernel's last block sums the
@@ -112,10 +117,27 @@ struct Tile {
   int n_rg, cols, log2cols, col0, rank;
 };
 
-// The kernels' chirp-z stages: 0 none (one launch, n_az a power of two), 1
-// the chirp, the forward pass and x H into m-row planes, 2 the inverse
-// pass, the chirp and the kernel's own output
-constexpr int kDirect = 0, kChirpIn = 1, kChirpOut = 2;
+// The kernels' instantiations: the direct column pass (n_az a power of two),
+// or the chirp-z transform of n_az points on the m-point pass
+constexpr int kDirect = 0, kChirpZ = 1;
+
+// Where pass A reads its QA points: the planes' rows, the planes' rows times
+// the chirp (zeros from n_valid on), or the spectrum the block holds in its
+// own Y, at the slots the thread then writes (chirpz_convolve)
+enum PassASource { kPlanes, kChirped, kHeld };
+
+// Threads a block of an instantiation: kColThreads, or twice that for the
+// chirp-z ones on clusters of 16 (one block an SM, whose transforms wait on
+// latency: 16 warps hide more of it than 8, at 128 registers a thread)
+__host__ __device__ constexpr int column_threads(int cs, int stage) {
+  return stage == kChirpZ && cs > 8 ? 2 * kColThreads : kColThreads;
+}
+
+// The chirp-z instantiations' tile: column_plan's at the transform's length
+// (a compile-time width, so each thread's gathered values stay in registers)
+__host__ __device__ constexpr int chirpz_cols(int nch, int qb, int threads) {
+  return threads / (nch * qb) > 8 ? threads / (nch * qb) : 8;
+}
 
 template <int CS>
 __device__ __forceinline__ void cluster_barrier() {
@@ -141,9 +163,10 @@ __device__ __forceinline__ int slot(int l, int c, const Tile& t) {
 
 // Pass A of NCH channels at once: task (ch, qb, c) for channel ch's planes
 // into y + ch * ysz, so every thread of the block has a load to issue. A
-// column past n_rg reads the last one again. CHIRP (chirp-z stage 1): rows
-// from n_valid on are zeros, the others times chirp[row].
-template <bool INV, int NCH, int CS, int QA, int QB, bool CHIRP>
+// column past n_rg reads the last one again. kChirped: rows from n_valid on
+// are zeros, the others times chirp[row]. kHeld: point qa of the task from
+// slot qa + QA qb of channel ch, where the task's output goes.
+template <bool INV, int NCH, int CS, int QA, int QB, int SRC>
 __device__ void pass_a(const float* __restrict__ z1r,
                        const float* __restrict__ z1i,
                        const float* __restrict__ z2r,
@@ -163,7 +186,9 @@ __device__ void pass_a(const float* __restrict__ z1r,
     float2 v[QA];
 #pragma unroll
     for (int a = 0; a < QA; ++a) {
-      if constexpr (CHIRP) {
+      if constexpr (SRC == kHeld) {
+        v[a] = y[ch * ysz + slot<QA>(a + QA * qb, c, t)];
+      } else if constexpr (SRC == kChirped) {
         const int row = t.rank + CS * (qb + QB * a);
         v[a] = row < n_valid
                    ? nis::cmul(make_float2(__ldg(zr + at + a * step),
@@ -186,41 +211,50 @@ __device__ void pass_a(const float* __restrict__ z1r,
   }
 }
 
-template <bool INV, int CS, int QA, int QB>
+// Pass B of NCH channels at once (channel ch's slots at y + ch * ysz).
+template <bool INV, int CS, int QA, int QB, int NCH = 1>
 __device__ void pass_b(float2* y, const float2* __restrict__ tw,
-                       const Tile& t) {
+                       const Tile& t, int ysz = 0) {
   constexpr int n = CS * QA * QB;
-  for (int task = threadIdx.x; task < (QA << t.log2cols);
+  for (int task = threadIdx.x; task < ((NCH * QA) << t.log2cols);
        task += blockDim.x) {
-    const int c = task & (t.cols - 1), ja = task >> t.log2cols;
+    const int c = task & (t.cols - 1), u = task >> t.log2cols;
+    const int ja = u % QA;
+    float2* yc = y + u / QA * ysz;
     float2 v[QB];
 #pragma unroll
-    for (int b = 0; b < QB; ++b) v[b] = y[slot<QA>(ja + QA * b, c, t)];
+    for (int b = 0; b < QB; ++b) v[b] = yc[slot<QA>(ja + QA * b, c, t)];
     nis::dft_reg<INV, QB>(v, tw, n / QB);
 #pragma unroll
     for (int b = 0; b < QB; ++b) {
       if constexpr (CS > 1)
         v[b] = nis::cmul(v[b],
                          nis::twiddle_pow<INV>(tw, t.rank * (ja + QA * b), n));
-      y[slot<QA>(ja + QA * b, c, t)] = v[b];
+      yc[slot<QA>(ja + QA * b, c, t)] = v[b];
     }
   }
 }
 
 // Passes A and B of NCH channels (channel ch's planes into y + ch * ysz),
-// then the cluster barrier: every block's Y is complete.
-template <bool INV, int NCH, int CS, int QA, int QB, bool CHIRP = false>
+// then the cluster barrier: every block's Y is complete. The chirp-z passes
+// (SRC other than kPlanes) run pass B of both channels in one loop, so
+// that each of their 512 threads has a task.
+template <bool INV, int NCH, int CS, int QA, int QB, int SRC = kPlanes>
 __device__ void column_passes(const float* z1r, const float* z1i,
                               const float* z2r, const float* z2i, float2* y,
                               int ysz, const float2* __restrict__ tw,
                               const Tile& t,
                               const float2* __restrict__ chirp = nullptr,
                               int n_valid = 0) {
-  pass_a<INV, NCH, CS, QA, QB, CHIRP>(z1r, z1i, z2r, z2i, y, ysz, tw, t,
-                                      chirp, n_valid);
+  pass_a<INV, NCH, CS, QA, QB, SRC>(z1r, z1i, z2r, z2i, y, ysz, tw, t,
+                                    chirp, n_valid);
   __syncthreads();
-  pass_b<INV, CS, QA, QB>(y, tw, t);
-  if constexpr (NCH == 2) pass_b<INV, CS, QA, QB>(y + ysz, tw, t);
+  if constexpr (SRC != kPlanes) {
+    pass_b<INV, CS, QA, QB, NCH>(y, tw, t, ysz);
+  } else {
+    pass_b<INV, CS, QA, QB>(y, tw, t);
+    if constexpr (NCH == 2) pass_b<INV, CS, QA, QB>(y + ysz, tw, t);
+  }
   cluster_barrier<CS>();
 }
 
@@ -259,6 +293,77 @@ __device__ void column_gather(float2* y, int ysz,
   }
 }
 
+// The chirp-z transform's circular convolution of NCH channels on the m =
+// CS Q point column pass, up to its inverse gather, which the caller runs
+// (column_gather<true, ...>, X / m, the chirp and its own output). Passes A
+// and B forward over the chirped rows (zeros from n_valid on). The forward
+// gather takes this block's output rows j = rank + CS jj (jj < J), each
+// with the CS rows k = j + Q k1: k = rank + CS (jj + J k1), exactly the
+// rows rank + CS q the block's inverse pass A reads, at q = jj + J k1. It
+// calls sum(c, X1[k], X2[k]) for each (K1g's balance sums), multiplies by
+// H[k] (`spec`) and holds the values in registers: T tasks of NCH x CS
+// values a thread (J x COLS tasks). Other blocks read this block's Y until
+// the cluster barrier; after it the block writes point q to slot qa + QA qb
+// (q = qb + QB qa), the slot its inverse pass A task (qb, c) reads and
+// writes, and runs the inverse passes A and B there.
+template <int NCH, int CS, int QA, int QB, typename Sum>
+__device__ void chirpz_convolve(const float* z1r, const float* z1i,
+                                const float* z2r, const float* z2i,
+                                float2* y, int ysz,
+                                const float2* __restrict__ tw, const Tile& t,
+                                const float2* __restrict__ chirp,
+                                const float2* __restrict__ spec, int n_valid,
+                                Sum sum) {
+  constexpr int Q = QA * QB, J = Q / CS, n = CS * Q;
+  constexpr int THREADS = column_threads(CS, kChirpZ);
+  constexpr int COLS = chirpz_cols(NCH, QB, THREADS);
+  constexpr int T = J * COLS / THREADS;
+  static_assert(T * THREADS == J * COLS && Q % CS == 0,
+                "whole gather tasks a thread");
+  column_passes<false, NCH, CS, QA, QB, kChirped>(z1r, z1i, z2r, z2i, y, ysz,
+                                                  tw, t, chirp, n_valid);
+  float2 v[T][NCH][CS];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const int task = threadIdx.x + i * THREADS;
+    const int c = task % COLS, j = t.rank + CS * (task / COLS);
+#pragma unroll
+    for (int n1 = 0; n1 < CS; ++n1) {
+      const float2* src = block_smem<CS>(y, n1);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        v[i][ch][n1] = src[ch * ysz + slot<QA>(j, c, t)];
+    }
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+      nis::dft_reg<false, CS>(v[i][ch], tw, n / CS);
+#pragma unroll
+    for (int k1 = 0; k1 < CS; ++k1) {
+      sum(c, v[i][0][k1], v[i][NCH - 1][k1]);
+      const float2 h = __ldg(spec + j + Q * k1);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        v[i][ch][k1] = nis::cmul(v[i][ch][k1], h);
+    }
+  }
+  cluster_barrier<CS>();   // no block reads another's Y after this
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const int task = threadIdx.x + i * THREADS;
+    const int c = task % COLS, jj = task / COLS;
+#pragma unroll
+    for (int k1 = 0; k1 < CS; ++k1) {
+      const int q = jj + J * k1;
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        y[ch * ysz + slot<QA>(q / QB + QA * (q % QB), c, t)] = v[i][ch][k1];
+    }
+  }
+  __syncthreads();
+  column_passes<true, NCH, CS, QA, QB, kHeld>(nullptr, nullptr, nullptr,
+                                              nullptr, y, ysz, tw, t);
+}
+
 template <int CS>
 __device__ __forceinline__ Tile tile_of(int n_rg, int log2cols) {
   Tile t;
@@ -279,12 +384,12 @@ __device__ __forceinline__ Tile tile_of(int n_rg, int log2cols) {
 // gathered spectra before Phi1 (which cancels), each thread's rows in task
 // order, then the threads that served the column (c, c + cols, ...) in
 // thread order, then the cluster's blocks in rank order in rank 0's shared
-// memory, and 1 / n (a power of two) at the end. Chirp-z: STAGE 1 writes
-// the chirped rows' spectra x spec to z* (m-row planes) and takes the
-// balance sums from them; STAGE 2 reads those (x*), and rows below n_valid
-// of the inverse times chirp get Phi1.
+// memory, and 1 / n (a power of two) at the end. Chirp-z (kChirpZ): the
+// balance sums from the forward spectra in chirpz_convolve, and rows below
+// n_valid of the inverse gather times chirp get Phi1.
 template <int NCH, int CS, int QA, int QB, int STAGE>
-__global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k1_kernel(
+__global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
+    k1_kernel(
     const float* __restrict__ x1r, const float* __restrict__ x1i,
     const float* __restrict__ x2r, const float* __restrict__ x2i,
     const float* __restrict__ u, const float* __restrict__ c1,
@@ -295,40 +400,37 @@ __global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k1_kernel(
     float* __restrict__ bal, int n_rg, int n_valid, int balance,
     int log2cols) {
   constexpr int Q = QA * QB, n = CS * Q;
-  constexpr bool INV = STAGE == kChirpOut;
-  constexpr bool SUMS = NCH == 2 && STAGE != kChirpOut;
+  constexpr bool CZ = STAGE == kChirpZ;
+  constexpr bool SUMS = NCH == 2;
   const Tile t = tile_of<CS>(n_rg, log2cols);
   const int ysz = (Q + QB) << log2cols;
   float2* y = reinterpret_cast<float2*>(nis_smem);
   // K1g's sums after the channels' slots: one a thread, then rank 0's
   // cols a block of the cluster
   float2* red = y + 2 * ysz;
-  float2* part = red + kColThreads;
-  column_passes<INV, NCH, CS, QA, QB, STAGE == kChirpIn>(
-      x1r, x1i, x2r, x2i, y, ysz, tw, t, chirp, n_valid);
+  float2* part = red + column_threads(CS, STAGE);
   float2 s = make_float2(0.0f, 0.0f);   // X1 conj(X2) over this thread's rows
-  column_gather<INV, NCH, CS, QA, QB>(
+  if constexpr (CZ) {
+    chirpz_convolve<NCH, CS, QA, QB>(
+        x1r, x1i, x2r, x2i, y, ysz, tw, t, chirp, spec, n_valid,
+        [&](int c, float2 v1, float2 v2) {
+          if (!SUMS || t.col0 + c >= n_rg) return;
+          s.x += v1.x * v2.x + v1.y * v2.y;
+          s.y += v1.y * v2.x - v1.x * v2.y;
+        });
+  } else {
+    column_passes<false, NCH, CS, QA, QB>(x1r, x1i, x2r, x2i, y, ysz, tw, t);
+  }
+  column_gather<CZ, NCH, CS, QA, QB>(
       y, ysz, tw, t, [&](int c, int, int row, float2 v1, float2 v2) {
         const int col = t.col0 + c;
         if (col >= n_rg) return;
         const size_t idx = (size_t)row * n_rg + col;
-        if constexpr (SUMS) {
+        if constexpr (SUMS && !CZ) {
           s.x += v1.x * v2.x + v1.y * v2.y;
           s.y += v1.y * v2.x - v1.x * v2.y;
         }
-        if constexpr (STAGE == kChirpIn) {
-          const float2 h = __ldg(spec + row);
-          const float2 a = nis::cmul(v1, h);
-          z1r[idx] = a.x;
-          z1i[idx] = a.y;
-          if constexpr (NCH == 2) {
-            const float2 b = nis::cmul(v2, h);
-            z2r[idx] = b.x;
-            z2i[idx] = b.y;
-          }
-          return;
-        }
-        if constexpr (STAGE == kChirpOut) {
+        if constexpr (CZ) {
           if (row >= n_valid) return;
           const float2 cz = __ldg(chirp + row);
           v1 = nis::cmul(v1, cz);
@@ -375,27 +477,31 @@ __global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k1_kernel(
   }
 }
 
-// K3: the inverse column DFT of one channel, / n. Chirp-z: STAGE 1 as
-// K1's (the chirped rows' spectra x spec into s*, m-row planes), STAGE 2
-// reads those (z*) and stores rows below n_valid times chirp.
+// K3: the inverse column DFT of one channel, / n. Chirp-z (kChirpZ): the
+// convolution in chirpz_convolve, then rows below n_valid of the inverse
+// gather stored times chirp.
 template <int CS, int QA, int QB, int STAGE>
-__global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3_kernel(
+__global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
+    k3_kernel(
     const float* __restrict__ zr, const float* __restrict__ zi,
     const float2* __restrict__ tw, const float2* __restrict__ chirp,
     const float2* __restrict__ spec, float* __restrict__ sr,
     float* __restrict__ si, int n_rg, int n_valid, int log2cols) {
-  constexpr bool INV = STAGE != kChirpIn;
+  constexpr bool CZ = STAGE == kChirpZ;
   float2* y = reinterpret_cast<float2*>(nis_smem);
   const Tile t = tile_of<CS>(n_rg, log2cols);
-  column_passes<INV, 1, CS, QA, QB, STAGE == kChirpIn>(
-      zr, zi, nullptr, nullptr, y, 0, tw, t, chirp, n_valid);
-  column_gather<INV, 1, CS, QA, QB>(
+  if constexpr (CZ)
+    chirpz_convolve<1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw, t,
+                                   chirp, spec, n_valid,
+                                   [](int, float2, float2) {});
+  else
+    column_passes<true, 1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw,
+                                       t);
+  column_gather<true, 1, CS, QA, QB>(
       y, 0, tw, t, [&](int c, int, int row, float2 v, float2) {
         const int col = t.col0 + c;
         if (col >= n_rg) return;
-        if constexpr (STAGE == kChirpIn) {
-          v = nis::cmul(v, __ldg(spec + row));
-        } else if constexpr (STAGE == kChirpOut) {
+        if constexpr (CZ) {
           if (row >= n_valid) return;
           v = nis::cmul(v, __ldg(chirp + row));
         }
@@ -456,11 +562,12 @@ __device__ __forceinline__ float2 column_windows(const float* pcol, int row,
 }
 
 // K3g: the inverse column DFT of both channels, / n, and every product
-// from the gathered values. Chirp-z: STAGE 1 as K3's for both channels
-// (into s1*, s2*); STAGE 2 reads those (z*), keeps rows below n_valid times
-// chirp, and clips the windows and the halo to n_valid rows.
+// from the gathered values. Chirp-z (kChirpZ): the convolution in
+// chirpz_convolve, then rows below n_valid of the inverse gather times
+// chirp, with the windows and the halo clipped to n_valid rows.
 template <int CS, int QA, int QB, int STAGE>
-__global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3g_kernel(
+__global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
+    k3g_kernel(
     const float* __restrict__ z1r, const float* __restrict__ z1i,
     const float* __restrict__ z2r, const float* __restrict__ z2i,
     const float* __restrict__ cal_cs, const float2* __restrict__ tw,
@@ -472,32 +579,20 @@ __global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3g_kernel(
     float* __restrict__ peaks, int n_rg, int n_valid, int h_out, int h_in,
     int log2cols) {
   constexpr int Q = QA * QB, J = Q / CS, n = CS * Q;
+  constexpr bool CZ = STAGE == kChirpZ;
   const Tile t = tile_of<CS>(n_rg, log2cols);
   const int ysz = (Q + QB) << log2cols;
   float2* y = reinterpret_cast<float2*>(nis_smem);
-  if constexpr (STAGE == kChirpIn) {
-    column_passes<false, 2, CS, QA, QB, true>(z1r, z1i, z2r, z2i, y, ysz, tw,
-                                              t, chirp, n_valid);
-    column_gather<false, 2, CS, QA, QB>(
-        y, ysz, tw, t, [&](int c, int, int row, float2 v1, float2 v2) {
-          const int col = t.col0 + c;
-          if (col >= n_rg) return;
-          const float2 h = __ldg(spec + row);
-          const float2 a = nis::cmul(v1, h), b = nis::cmul(v2, h);
-          const size_t idx = (size_t)row * n_rg + col;
-          s1r[idx] = a.x;
-          s1i[idx] = a.y;
-          s2r[idx] = b.x;
-          s2i[idx] = b.y;
-        });
-    cluster_barrier<CS>();
-    return;
-  } else {
   // the rows of the transform that are the CPI's
-  const int nv = STAGE == kChirpOut ? n_valid : n;
+  const int nv = CZ ? n_valid : n;
   float* pcol = reinterpret_cast<float*>(y + 2 * ysz);
   float* red = pcol + ((Q + 2 * kHalo * CS) << log2cols);
-  column_passes<true, 2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
+  if constexpr (CZ)
+    chirpz_convolve<2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t, chirp,
+                                   spec, n_valid,
+                                   [](int, float2, float2) {});
+  else
+    column_passes<true, 2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
 
   const float cr = cal_cs[0];
   const float ci = cal_cs[1];
@@ -506,7 +601,7 @@ __global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3g_kernel(
       y, ysz, tw, t, [&](int c, int lr, int row, float2 v1, float2 v2) {
         const int col = t.col0 + c;
         if (col >= n_rg || row >= nv) return;
-        if constexpr (STAGE == kChirpOut) {
+        if constexpr (CZ) {
           const float2 cz = __ldg(chirp + row);
           v1 = nis::cmul(v1, cz);
           v2 = nis::cmul(v2, cz);
@@ -584,7 +679,6 @@ __global__ void __launch_bounds__(kColThreads, CS > 8 ? 1 : 2) k3g_kernel(
     csi[idx] = w.y;
   }
   if (!local) cluster_barrier<CS>();   // others read this pcol until then
-  }
 }
 
 __global__ void k4_kernel(
@@ -724,33 +818,37 @@ __global__ void __launch_bounds__(kBalThreads, kBalBlocksPerSm)
 // dynamic shared memory a block. The split of the transform's n points
 // into CS x QA x QB is fixed by (n, cluster): QA = 2^ceil(log2(Q) / 2), QB
 // = Q / QA, Q = n / cluster.
-// The shared memory a block of the plan needs: per channel (Q + QB) x cols
-// float2; K1g (`forward`) adds one float2 a thread and cluster x cols
-// float2 of block sums; K3g its Q x cols power slots, 2 kHalo x cols halo
-// slots a chunk and one float a thread.
+// The shared memory a block of `threads` threads needs: per channel (Q +
+// QB) x cols float2; K1g (`forward`) adds one float2 a thread and cluster x
+// cols float2 of block sums; K3g its Q x cols power slots, 2 kHalo x cols
+// halo slots a chunk and one float a thread.
 static int column_smem(int nch, bool forward, int n_az, int cluster,
-                       int cols) {
+                       int cols, int threads) {
   const int q = n_az / cluster;
   int qb = 1;
   while (4 * qb * qb <= q) qb *= 2;      // QB = 2^floor(log2(Q) / 2)
   int bytes = nch * (q + qb) * cols * (int)sizeof(float2);
   if (nch == 2 && forward)
-    bytes += (kColThreads + cluster * cols) * (int)sizeof(float2);
+    bytes += (threads + cluster * cols) * (int)sizeof(float2);
   else if (nch == 2)
-    bytes += ((q + 2 * kHalo * cluster) * cols + kColThreads)
+    bytes += ((q + 2 * kHalo * cluster) * cols + threads)
              * (int)sizeof(float);
   return bytes;
 }
 
-// Launches `kernel` as ceil(n_rg / cols) tiles of clusters of CS blocks,
-// after checking the plan; returns the CUDA error code. Clusters of more
-// than 8 blocks are non-portable: the kernel is allowed them first.
-template <int CS, typename... KArgs, typename... Args>
+// Launches `kernel` as ceil(n_rg / cols) tiles of clusters of CS blocks of
+// column_threads(CS, STAGE) threads, after checking the plan (a chirp-z
+// instantiation, COLS > 0, is built for tiles of COLS columns); returns the
+// CUDA error code. Clusters of more than 8 blocks are non-portable: the
+// kernel is allowed them first.
+template <int CS, int STAGE, int COLS, typename... KArgs, typename... Args>
 static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
                          int n, int n_rg, int cols, int smem,
                          void* stream, Args... args) {
+  constexpr int threads = column_threads(CS, STAGE);
   if (cols < 8 || cols > kColThreads || (cols & (cols - 1)) != 0
-      || smem != column_smem(nch, forward, n, CS, cols)
+      || (COLS > 0 && cols != COLS)
+      || smem != column_smem(nch, forward, n, CS, cols, threads)
       || smem > 232448)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
@@ -768,7 +866,7 @@ static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n_rg + cols - 1) / cols * CS);
-  cfg.blockDim = dim3(kColThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
@@ -781,8 +879,7 @@ static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
 // The (n, cluster) splits the column pass is built for, one per n
 // (column_plan's): F(CS, QA, QB) for the launch's pair;
 // cudaErrorInvalidValue for any other. Direct: the azimuth sides that are
-// powers of two, each with its stage 0. Chirp-z: the chirp-z lengths 256
-// to 16,384, each with its stages 1 and 2 (one after the other).
+// powers of two. Chirp-z: the chirp-z lengths 256 to 16,384.
 template <typename F>
 static int column_dispatch(int n, int cluster, F f) {
   switch (n * 32 + cluster) {
@@ -798,101 +895,78 @@ static int column_dispatch(int n, int cluster, F f) {
   }
 }
 
-template <int CS, int QA, int QB, typename F>
-static int chirpz_stages(F f) {
-  const int err = f.template run<CS, QA, QB, kChirpIn>();
-  return err ? err : f.template run<CS, QA, QB, kChirpOut>();
-}
-
 template <typename F>
 static int chirpz_dispatch(int m, int cluster, F f) {
   switch (m * 32 + cluster) {
-    case 256 * 32 + 1: return chirpz_stages<1, 16, 16>(f);
-    case 512 * 32 + 1: return chirpz_stages<1, 32, 16>(f);
-    case 1024 * 32 + 2: return chirpz_stages<2, 32, 16>(f);
-    case 2048 * 32 + 4: return chirpz_stages<4, 32, 16>(f);
-    case 4096 * 32 + 8: return chirpz_stages<8, 32, 16>(f);
-    case 8192 * 32 + 16: return chirpz_stages<16, 32, 16>(f);
-    case 16384 * 32 + 16: return chirpz_stages<16, 32, 32>(f);
+    case 256 * 32 + 1: return f.template run<1, 16, 16, kChirpZ>();
+    case 512 * 32 + 1: return f.template run<1, 32, 16, kChirpZ>();
+    case 1024 * 32 + 2: return f.template run<2, 32, 16, kChirpZ>();
+    case 2048 * 32 + 4: return f.template run<4, 32, 16, kChirpZ>();
+    case 4096 * 32 + 8: return f.template run<8, 32, 16, kChirpZ>();
+    case 8192 * 32 + 16: return f.template run<16, 32, 16, kChirpZ>();
+    case 16384 * 32 + 16: return f.template run<16, 32, 32, kChirpZ>();
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// A launch's planes: stage 1 reads the CPI's planes (x*) and writes the
-// chirp-z planes (c*); stage 2 reads c* and writes the kernel's outputs
-// (o*); the direct launch reads x* and writes o*.
-template <int STAGE, typename T>
-static T* in_plane(T* x, T* c) { return STAGE == kChirpOut ? c : x; }
-template <int STAGE>
-static float* out_plane(float* o, float* c) {
-  return STAGE == kChirpIn ? c : o;
+// The tile width a launch of NCH channels at STAGE is built for: any (0)
+// for the direct pass, chirpz_cols for the chirp-z one.
+template <int NCH, int CS, int QB, int STAGE>
+constexpr int built_cols() {
+  return STAGE == kChirpZ ? chirpz_cols(NCH, QB, column_threads(CS, STAGE))
+                          : 0;
 }
 
 template <int NCH>
 struct K1Launch {
   const float *x1r, *x1i, *x2r, *x2i, *u, *c1, *w;
   const float2 *tw, *chirp, *spec;
-  float *c1r, *c1i, *c2r, *c2i;   // the chirp-z planes (m rows)
   float *z1r, *z1i, *z2r, *z2i, *bal;
   int n, n_az, n_rg, balance, cols, smem;
   void* stream;
   template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS>(
+    return column_launch<CS, STAGE, built_cols<NCH, CS, QB, STAGE>()>(
         k1_kernel<NCH, CS, QA, QB, STAGE>, NCH, true, n, n_rg, cols, smem,
-        stream, in_plane<STAGE, const float>(x1r, c1r),
-        in_plane<STAGE, const float>(x1i, c1i),
-        in_plane<STAGE, const float>(x2r, c2r),
-        in_plane<STAGE, const float>(x2i, c2i), u, c1, w, tw, chirp, spec,
-        out_plane<STAGE>(z1r, c1r), out_plane<STAGE>(z1i, c1i),
-        out_plane<STAGE>(z2r, c2r), out_plane<STAGE>(z2i, c2i), bal, n_rg,
-        n_az, balance);
+        stream, x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, z1r, z1i, z2r,
+        z2i, bal, n_rg, n_az, balance);
   }
 };
 
 struct K3Launch {
   const float *zr, *zi;
   const float2 *tw, *chirp, *spec;
-  float *cr, *ci, *sr, *si;
+  float *sr, *si;
   int n, n_az, n_rg, cols, smem;
   void* stream;
   template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS>(
+    return column_launch<CS, STAGE, built_cols<1, CS, QB, STAGE>()>(
         k3_kernel<CS, QA, QB, STAGE>, 1, false, n, n_rg, cols, smem, stream,
-        in_plane<STAGE, const float>(zr, cr),
-        in_plane<STAGE, const float>(zi, ci), tw, chirp, spec,
-        out_plane<STAGE>(sr, cr), out_plane<STAGE>(si, ci), n_rg, n_az);
+        zr, zi, tw, chirp, spec, sr, si, n_rg, n_az);
   }
 };
 
 struct K3gLaunch {
   const float *z1r, *z1i, *z2r, *z2i, *cal_cs;
   const float2 *tw, *chirp, *spec;
-  float *c1r, *c1i, *c2r, *c2i;
   float *s1r, *s1i, *s2r, *s2i, *ph, *mag, *pw, *cso, *csi, *peaks;
   int n, n_az, n_rg, cols, smem, h_out, h_in;
   void* stream;
   template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS>(
+    return column_launch<CS, STAGE, built_cols<2, CS, QB, STAGE>()>(
         k3g_kernel<CS, QA, QB, STAGE>, 2, false, n, n_rg, cols, smem, stream,
-        in_plane<STAGE, const float>(z1r, c1r),
-        in_plane<STAGE, const float>(z1i, c1i),
-        in_plane<STAGE, const float>(z2r, c2r),
-        in_plane<STAGE, const float>(z2i, c2i), cal_cs, tw, chirp, spec,
-        out_plane<STAGE>(s1r, c1r), out_plane<STAGE>(s1i, c1i),
-        out_plane<STAGE>(s2r, c2r), out_plane<STAGE>(s2i, c2i), ph, mag, pw,
-        cso, csi, peaks, n_rg, n_az, h_out, h_in);
+        z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, s1r, s1i, s2r, s2i, ph,
+        mag, pw, cso, csi, peaks, n_rg, n_az, h_out, h_in);
   }
 };
 
-// The column pass's launchers (ops/cuda/csa_kernel.py::AzimuthPlan): at m
-// == n_az, a power of two, one launch of the direct pass; else the chirp-z
-// transform of n_az points on m, stage 1 then stage 2 on `stream`, through
-// the caller's (m, n_rg) planes c* (null at m == n_az). `cols`, `cluster`
-// and `smem` are the column plan's at m; `tw` is the m-point table, `chirp`
-// (n_az) and `spec` (m) the direction's chirp-z tables (null at m == n_az).
+// The column pass's launchers (ops/cuda/csa_kernel.py::AzimuthPlan): one
+// launch on `stream`, of the direct pass at m == n_az (a power of two), else
+// of the chirp-z transform of n_az points on m. `cols`, `cluster` and `smem`
+// are the column plan's at m; `tw` is the m-point table, `chirp` (n_az) and
+// `spec` (m) the direction's chirp-z tables (null at m == n_az).
 template <typename L>
 static int column_run(const L& l, int n_az, int m, int cluster) {
   return m != n_az ? chirpz_dispatch(m, cluster, l)
@@ -902,51 +976,47 @@ static int column_run(const L& l, int n_az, int m, int cluster) {
 extern "C" int k1g_launch(
     const float* x1r, const float* x1i, const float* x2r, const float* x2i,
     const float* u, const float* c1, const float* w, const float2* tw,
-    const float2* chirp, const float2* spec, float* c1r, float* c1i,
-    float* c2r, float* c2i, float* z1r, float* z1i, float* z2r, float* z2i,
-    float* bal, int n_az, int m, int n_rg, int balance, int cols,
-    int cluster, int smem, void* stream) {
+    const float2* chirp, const float2* spec, float* z1r, float* z1i,
+    float* z2r, float* z2i, float* bal, int n_az, int m, int n_rg,
+    int balance, int cols, int cluster, int smem, void* stream) {
   return column_run(
-      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, c1r, c1i,
-                  c2r, c2i, z1r, z1i, z2r, z2i, bal, m, n_az, n_rg, balance,
-                  cols, smem, stream},
+      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, z1r, z1i,
+                  z2r, z2i, bal, m, n_az, n_rg, balance, cols, smem, stream},
       n_az, m, cluster);
 }
 
 extern "C" int k1_launch(
     const float* xr, const float* xi, const float* u, const float* c1,
     const float* w, const float2* tw, const float2* chirp,
-    const float2* spec, float* cr, float* ci, float* zr, float* zi, int n_az,
-    int m, int n_rg, int cols, int cluster, int smem, void* stream) {
+    const float2* spec, float* zr, float* zi, int n_az, int m, int n_rg,
+    int cols, int cluster, int smem, void* stream) {
   return column_run(
-      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, chirp, spec, cr,
-                  ci, nullptr, nullptr, zr, zi, nullptr, nullptr, nullptr, m,
-                  n_az, n_rg, 0, cols, smem, stream},
+      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, chirp, spec, zr,
+                  zi, nullptr, nullptr, nullptr, m, n_az, n_rg, 0, cols,
+                  smem, stream},
       n_az, m, cluster);
 }
 
 extern "C" int k3_launch(
     const float* zr, const float* zi, const float2* tw, const float2* chirp,
-    const float2* spec, float* cr, float* ci, float* sr, float* si,
-    int n_az, int m, int n_rg, int cols, int cluster, int smem,
-    void* stream) {
-  return column_run(K3Launch{zr, zi, tw, chirp, spec, cr, ci, sr, si, m,
-                             n_az, n_rg, cols, smem, stream},
+    const float2* spec, float* sr, float* si, int n_az, int m, int n_rg,
+    int cols, int cluster, int smem, void* stream) {
+  return column_run(K3Launch{zr, zi, tw, chirp, spec, sr, si, m, n_az, n_rg,
+                             cols, smem, stream},
                     n_az, m, cluster);
 }
 
 extern "C" int k3g_launch(
     const float* z1r, const float* z1i, const float* z2r, const float* z2i,
     const float* cal_cs, const float2* tw, const float2* chirp,
-    const float2* spec, float* c1r, float* c1i, float* c2r, float* c2i,
-    float* s1r, float* s1i, float* s2r, float* s2i, float* ph, float* mag,
-    float* pw, float* cso, float* csi, float* peaks, int n_az, int m,
-    int n_rg, int h_out, int h_in, int cols, int cluster, int smem,
-    void* stream) {
+    const float2* spec, float* s1r, float* s1i, float* s2r, float* s2i,
+    float* ph, float* mag, float* pw, float* cso, float* csi, float* peaks,
+    int n_az, int m, int n_rg, int h_out, int h_in, int cols, int cluster,
+    int smem, void* stream) {
   return column_run(
-      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, c1r, c1i, c2r,
-                c2i, s1r, s1i, s2r, s2i, ph, mag, pw, cso, csi, peaks, m,
-                n_az, n_rg, cols, smem, h_out, h_in, stream},
+      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, s1r, s1i, s2r,
+                s2i, ph, mag, pw, cso, csi, peaks, m, n_az, n_rg, cols, smem,
+                h_out, h_in, stream},
       n_az, m, cluster);
 }
 

@@ -21,7 +21,7 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/gmti/fused.py``:
   here.
 
   Any CPI of ``csa_kernel.supported``: the upstream's 7,199 x 13,200 runs
-  K1g and K3g as chirp-z transforms (two launches each) and K2 on its
+  K1g and K3g as chirp-z transforms (one launch each) and K2 on its
   mixed-radix plan. Each kernel runs under its span (``focus.k1g``,
   ``focus.k2``, ``focus.k3g``, ``focus.k4``; the split route's
   ``focus.balance`` and ``focus.k1``), and the counters

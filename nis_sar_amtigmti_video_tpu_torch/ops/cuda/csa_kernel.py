@@ -201,19 +201,19 @@ def column_split(n_az: int, cluster: int):
 
 
 def column_smem(n_az: int, cols: int, cluster: int, nch: int,
-                forward: bool = False) -> int:
-    """Shared-memory bytes a block of the plan takes (the launchers compute
-    the same and refuse a plan that disagrees): per channel (Q + QB) x cols
-    complex64 slots; K1g (``forward``) adds one complex64 sum a thread and
-    ``cluster`` x cols of block sums; K3g its Q x cols power slots, 2
-    COLUMN_HALO x cols halo slots for each of its ``cluster`` chunks and one
-    float32 a thread."""
+                forward: bool = False, threads: int = COLUMN_THREADS) -> int:
+    """Shared-memory bytes a block of ``threads`` threads takes (the
+    launchers compute the same and refuse a plan that disagrees): per
+    channel (Q + QB) x cols complex64 slots; K1g (``forward``) adds one
+    complex64 sum a thread and ``cluster`` x cols of block sums; K3g its Q
+    x cols power slots, 2 COLUMN_HALO x cols halo slots for each of its
+    ``cluster`` chunks and one float32 a thread."""
     q = n_az // cluster
     n = nch * (q + column_split(n_az, cluster)[1]) * cols * 8
     if nch == 2 and forward:
-        n += (COLUMN_THREADS + cluster * cols) * 8
+        n += (threads + cluster * cols) * 8
     elif nch == 2:
-        n += ((q + 2 * COLUMN_HALO * cluster) * cols + COLUMN_THREADS) * 4
+        n += ((q + 2 * COLUMN_HALO * cluster) * cols + threads) * 4
     return n
 
 
@@ -225,19 +225,30 @@ def column_cluster(n: int) -> int:
     return min(16, max(1, n // 512))
 
 
+def column_threads(n_az: int) -> int:
+    """Threads a block of the column pass over n_az points: COLUMN_THREADS,
+    or twice that for a chirp-z transform on clusters of 16 blocks (one
+    block an SM, whose transforms wait on latency; csrc/gmti_kernel.cu,
+    column_threads)."""
+    wide = chirpz(n_az) and column_cluster(column_length(n_az)) > 8
+    return 2 * COLUMN_THREADS if wide else COLUMN_THREADS
+
+
 def column_plan(n_az: int, n_rg: int, nch: int,
                 forward: bool = False) -> ColumnPlan:
     """The plan of the column pass over (n_az, n_rg) planes of ``nch``
     channels: inverse (1: K3, 2: K3g) or ``forward`` (1: K1, 2: K1g). Its
     transform has :func:`column_length` (n_az) points: n_az, or the
-    chirp-z length, whose two stages both run on this plan. The cluster
+    chirp-z length, whose one launch runs on this plan. The cluster
     size and split depend on that length alone, so the one- and
     two-channel kernels split the transform alike and K3 gives K3g's s1
     bits, K1 K1g's z1: one block holds up to 512 rows of a column, 1,024
     at the chirp-z length 16,384. The tile is as wide as gives pass A one
-    task a thread over the channels (nch x QB x cols = 256), never under
-    8 columns (one 32-byte sector of each plane's row segment); a last
-    tile past n_rg is cut at the edge. At 4096 x 4096 that is 16 columns
+    task a thread over the channels (nch x QB x cols = the block's
+    :func:`column_threads`), never under 8 columns (one 32-byte sector of
+    each plane's row segment); a last tile past n_rg is cut at the edge.
+    At 7,199 x 13,200 that is 16 columns for K1 and K3, 8 for K1g and K3g,
+    in clusters of 16 blocks of 512 threads. At 4096 x 4096 it is 16 columns
     for K1 and K3, 8 for K1g and K3g, in clusters of 8 blocks of 68 KB
     (K1, K3), 70 KB (K1g) and 93 KB (K3g), two blocks an SM: for K3 / K3g
     the fastest of the plans timed on the H100
@@ -247,9 +258,10 @@ def column_plan(n_az: int, n_rg: int, nch: int,
     n = column_length(n_az)
     cluster = column_cluster(n)
     qb = column_split(n, cluster)[1]
-    cols = min(n_rg, max(8, COLUMN_THREADS // (nch * qb)))
+    threads = column_threads(n_az)
+    cols = min(n_rg, max(8, threads // (nch * qb)))
     return ColumnPlan(cols, cluster,
-                      column_smem(n, cols, cluster, nch, forward))
+                      column_smem(n, cols, cluster, nch, forward, threads))
 
 
 def plane_shape(name: str, x: torch.Tensor):
@@ -312,9 +324,10 @@ class _Plan:
 @dataclasses.dataclass(frozen=True, eq=False)
 class AzimuthPlan(_Plan):
     """How the column pass (K1 / K1g forward, K3 / K3g inverse) runs an
-    n-point azimuth DFT: on m = n points where n is a power of two (one
-    launch), else as a chirp-z transform on m = :func:`chirpz_length` (n)
-    points (two launches through (m, n_rg) planes). ``tw`` is the m-point
+    n-point azimuth DFT: on m = n points where n is a power of two, else as
+    a chirp-z transform on m = :func:`chirpz_length` (n) points, its
+    m-point spectrum kept in the cluster's shared memory; one launch a call
+    either way. ``tw`` is the m-point
     :func:`twiddle_table`; at a chirp-z side the forward DFT (``fwd_*``) and
     the inverse with its 1/n (``inv_*``) have the chirp (n,) and the
     spectrum of the convolution's kernel (m,), complex64 (None at a power
@@ -331,9 +344,9 @@ class AzimuthPlan(_Plan):
 
     @property
     def launches(self) -> int:
-        """Kernel launches of one column-pass call: 1, or the chirp-z
-        transform's two stages."""
-        return 1 if self.m == self.n else 2
+        """Kernel launches of one column-pass call: 1 at every side (the
+        chirp-z transform's forward and inverse passes share the launch)."""
+        return 1
 
     def check(self, name: str, n: int, device) -> None:
         """Raises ValueError unless this is :func:`azimuth_plan` (n) with its
@@ -356,14 +369,6 @@ class AzimuthPlan(_Plan):
         if inverse:
             return self.tw, self.inv_chirp, self.inv_spec
         return self.tw, self.fwd_chirp, self.fwd_spec
-
-    def planes(self, n_rg: int, nch: int, device) -> list:
-        """The (m, n_rg) float32 planes between the chirp-z stages, two a
-        channel; None for each at a power of two."""
-        if self.m == self.n:
-            return [None] * (2 * nch)
-        return [torch.empty((self.m, n_rg), dtype=torch.float32,
-                            device=device) for _ in range(2 * nch)]
 
 
 def azimuth_plan(n: int, device=None) -> AzimuthPlan:
@@ -558,7 +563,7 @@ def k1_call(xr, xi, f: CsaFactors, *, plan=None):
     out = [torch.empty_like(xr) for _ in range(2)]
     _build.launch("k1_launch",
                   (xr, xi, f.u, f.c1, f.w, *plan.tables(inverse=False),
-                   *plan.planes(n_rg, 1, dev), *out),
+                   *out),
                   (n_az, plan.m, n_rg,
                    *column_plan(n_az, n_rg, 1, forward=True)))
     k1_call.launches += plan.launches
@@ -598,9 +603,7 @@ def k3_call(xr, xi, *, plan=None, out=None):
         out = [torch.empty_like(xr) for _ in range(2)]
     else:
         _build.check("k3_call", out, (n_az, n_rg), dev)
-    _build.launch("k3_launch",
-                  (xr, xi, *plan.tables(inverse=True),
-                   *plan.planes(n_rg, 1, dev), *out),
+    _build.launch("k3_launch", (xr, xi, *plan.tables(inverse=True), *out),
                   (n_az, plan.m, n_rg, *column_plan(n_az, n_rg, 1)))
     k3_call.launches += plan.launches
     return tuple(out)

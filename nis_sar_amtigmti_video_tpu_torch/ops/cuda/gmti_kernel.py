@@ -63,7 +63,7 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     tensors. The kernel writes each column's sum, from the two spectra by
     Parseval (sum_k X1 conj X2 / n_az) and reduced in a fixed order, so two
     launches give the same bits; the columns are summed here. By chirp-z
-    where ``plan`` takes it (the sums from the first stage's spectra, / m).
+    where ``plan`` takes it (the sums from the forward spectra, / m).
     ``plan``: the ``azimuth_plan`` of n_az (built when None)."""
     if _build.on_cpu(x1r):
         return k1_gmti_plain(x1r, x1i, x2r, x2i, f, balance=balance)
@@ -79,8 +79,7 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     bal = torch.empty((2, n_rg), dtype=torch.float32, device=dev)
     _build.launch("k1g_launch",
                   (x1r, x1i, x2r, x2i, f.u, f.c1, f.w,
-                   *plan.tables(inverse=False), *plan.planes(n_rg, 2, dev),
-                   *out, bal),
+                   *plan.tables(inverse=False), *out, bal),
                   (n_az, plan.m, n_rg, int(balance),
                    *column_plan(n_az, n_rg, 2, forward=True)))
     k1_gmti_planes.launches += plan.launches
@@ -223,7 +222,7 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     peaks = torch.empty((n_rg,), dtype=torch.float32, device=dev)
     _build.launch("k3g_launch",
                   (x1r, x1i, x2r, x2i, cal_cos_sin, *plan.tables(inverse=True),
-                   *plan.planes(n_rg, 2, dev), *out, peaks),
+                   *out, peaks),
                   (n_az, plan.m, n_rg, h_out, h_in,
                    *column_plan(n_az, n_rg, 2)))
     k3_gmti_planes.launches += plan.launches

@@ -10,9 +10,12 @@ script sits in unless given), builds its kernels there, and runs K1g, the
 K2 pair, K3g and K4 in a chain on seeded (n, n_rg) planes (n_rg = n unless
 given) with the slice waveform's CSA factors (BW 120 MHz, fs 150 MHz), each
 kernel fed the one before, and the split route's K1, K2 single and K3 on the
-first channel in a chain of their own. Prints one JSON line: the sha256 of
-each kernel's output tensors, in order. Two trees whose kernels compute the same bits print the same
-line. Needs a CUDA device.
+first channel in a chain of their own. K1g's planes and its two balance sums
+are hashed apart ("K1g planes", "K1g sums"), and K3g takes its calibration
+from the raw balance kernel, so that a change in the sums' order of
+summation does not reach K3g's and K4's bits. Prints one JSON line: the
+sha256 of each kernel's output tensors, in order. Two trees whose kernels
+compute the same bits print the same line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -59,10 +62,13 @@ def main():
 
     out = {}
     k1 = gmti_kernel.k1_gmti_planes(*x, f)
-    out["K1g"] = digest(k1)
+    out["K1g planes"] = digest(k1[:4])
+    out["K1g sums"] = digest(k1[4:])
     k2 = csa_kernel.k2_pair_call(*k1[:4], f)
     out["K2 pair"] = digest(k2)
-    cal = torch.atan2(k1[5], k1[4])
+    xs = gmti_kernel.raw_balance(*x)
+    out["balance"] = digest(xs)
+    cal = torch.atan2(xs[1], xs[0])
     cal_cs = torch.stack([torch.cos(cal), torch.sin(cal)])
     k3 = gmti_kernel.k3_gmti_planes(*k2, cal_cs, h_out=h_out, h_in=h_in)
     out["K3g"] = digest(k3)

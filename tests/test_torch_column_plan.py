@@ -137,6 +137,33 @@ def test_forward_column_smem_holds_the_slots(n_az, nch):
         assert plan.smem == tck.column_plan(n_az, 4096, 1).smem
 
 
+@pytest.mark.parametrize("nch", [1, 2])
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("m", [256, 512, 1024, 2048, 4096, 8192, 16384])
+def test_chirpz_column_smem_fits(m, forward, nch):
+    """At every chirp-z length the one launch's plan (the forward pass, the
+    gathered values held in registers and written back to the block's own
+    slots, then the inverse pass, in the same shared memory) fits an H100
+    block's 227 KB, for one and two channels, forward and inverse; the
+    spectrum needs no slot beyond the direct pass's at m. Clusters of at
+    most 8 blocks of 256 threads keep two blocks an SM; clusters of 16
+    (8192 and 16,384 points) take 512 threads and one block an SM."""
+    n_az = m // 4 + 1                    # chirp-z length m
+    assert tck.chirpz_length(n_az) == m
+    plan = tck.column_plan(n_az, 13200, nch, forward)
+    threads = tck.column_threads(n_az)
+    assert plan.cluster == tck.column_cluster(m)
+    assert threads == (512 if plan.cluster == 16 else 256)
+    assert plan.smem == tck.column_smem(m, plan.cols, plan.cluster, nch,
+                                        forward, threads) <= SMEM_PER_BLOCK
+    qa, qb = tck.column_split(m, plan.cluster)
+    ysz = qa * qb + qb
+    assert plan.smem >= nch * ysz * plan.cols * 8
+    assert nch * qb * plan.cols >= threads
+    if plan.cluster <= 8:
+        assert 2 * (plan.smem + 1024) <= SMEM_PER_SM
+
+
 # --------------------------------------------------------------------------
 # the wrappers on rectangular CPU planes
 # --------------------------------------------------------------------------

@@ -59,17 +59,60 @@ def test_column_plan_at_other_sides(n_az, nch, forward):
     assert qa * qb * plan.cluster == n and qb <= qa <= 2 * qb <= 64
     assert 8 <= plan.cols and plan.cols & (plan.cols - 1) == 0
     assert plan.smem == tck.column_smem(n, plan.cols, plan.cluster, nch,
-                                        forward) <= SMEM_PER_BLOCK
+                                        forward, tck.column_threads(n_az)
+                                        ) <= SMEM_PER_BLOCK
+
+
+# the chirp-z corners the card tests hold the kernels to: the upstream's
+# CPI shifted and unshifted, the longest chirp-z side over the longest row,
+# the shortest 16,384-point side, and the shortest chirp-z side (m = 256,
+# one block a cluster)
+CHIRPZ_CORNERS = [(7199, 13200), (7200, 13200), (8191, 16384), (4097, 693),
+                  (65, 64)]
+
+
+@pytest.mark.parametrize("nch", [1, 2])
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("shape", CHIRPZ_CORNERS,
+                         ids=[f"{a}x{b}" for a, b in CHIRPZ_CORNERS])
+def test_chirpz_launch_plan_at_the_corners(shape, forward, nch):
+    """The plan a chirp-z launch of K1 / K1g (forward) or K3 / K3g takes
+    at the corners is the one its instantiation is built for
+    (csrc/gmti_kernel.cu, column_threads and chirpz_cols: the launcher
+    refuses another width): blocks of 512 threads on clusters of 16, else
+    256, tiles of max(8, threads / (nch QB)) columns, so the forward
+    gather's J x cols tasks are whole tasks a thread, and the values a
+    thread holds across the cluster barrier (tasks x nch x CS complex64)
+    fit 64 floats, half the registers a 512-thread block allows; its shared
+    memory is the direct pass's at m for that many threads and fits a
+    block."""
+    n_az, n_rg = shape
+    m = tck.chirpz_length(n_az)
+    plan = tck.column_plan(n_az, n_rg, nch, forward)
+    threads = tck.column_threads(n_az)
+    assert threads == (512 if plan.cluster == 16 else 256)
+    qa, qb = tck.column_split(m, plan.cluster)
+    q = qa * qb
+    assert plan.cols == max(8, threads // (nch * qb))
+    assert q % plan.cluster == 0
+    tasks = (q // plan.cluster) * plan.cols
+    assert tasks % threads == 0
+    held = tasks // threads * nch * plan.cluster * 2
+    assert held <= 64
+    assert plan.smem == tck.column_smem(m, plan.cols, plan.cluster, nch,
+                                        forward, threads) <= SMEM_PER_BLOCK
 
 
 def test_chirpz_lengths():
     """The least power of two of at least 2 n - 1: 16,384 at the
-    upstream's 7,199 and 7,200; 256 at 65."""
+    upstream's 7,199 and 7,200; 256 at 65. One launch a column-pass call at
+    every side: the chirp-z transform's convolution stays in the cluster's
+    shared memory."""
     assert tck.chirpz_length(7199) == tck.chirpz_length(7200) == 16384
     assert tck.chirpz_length(65) == 256 and tck.chirpz_length(4097) == 16384
     assert not tck.chirpz(4096) and tck.chirpz(4097)
     assert tck.azimuth_plan(4096).launches == 1
-    assert tck.azimuth_plan(7199).launches == 2
+    assert tck.azimuth_plan(7199).launches == 1
     assert not tck.k2_mixed(4096) and tck.k2_mixed(8192)
     assert tck.k2_mixed(13200) and tck.k2_mixed(96)
 
@@ -77,7 +120,7 @@ def test_chirpz_lengths():
 @pytest.mark.parametrize("shape", [(90, 165), (64, 128), (97, 8192)])
 def test_gmti_cpi_tables(shape):
     """GmtiCpi holds the axis plans its kernels read: the direct column
-    pass or the chirp-z transform's (its length, tables and launches), the
+    pass or the chirp-z transform's (its length, tables and one launch), the
     register or the mixed-radix plan (its tables and passes), which .to()
     moves tensor by tensor; counts the axes."""
     n_az, n_rg = shape
@@ -91,7 +134,7 @@ def test_gmti_cpi_tables(shape):
     assert (az.n, rg.n) == shape
     if tck.chirpz(n_az):
         m = tck.chirpz_length(n_az)
-        assert az.m == m and az.tw.shape == (m // 2,) and az.launches == 2
+        assert az.m == m and az.tw.shape == (m // 2,) and az.launches == 1
         assert az.fwd_chirp.shape == az.inv_chirp.shape == (n_az,)
         assert az.fwd_spec.shape == az.inv_spec.shape == (m,)
         assert cpi.chirpz_axes == 2

@@ -433,14 +433,19 @@ def test_wrappers_reject_bad_planes(dev):
 ODD_SHAPES = [(7199, 13200), (7200, 13200), (97, 165), (313, 120),
               (8192, 2197), (4097, 693), (64, 16384), (8191, 8192)]
 ODD_IDS = [f"{a}x{b}" for a, b in ODD_SHAPES]
+# the chirp-z corners beside ODD_SHAPES' for the column kernels: the
+# longest chirp-z side over the longest row, the shortest (m = 256, one
+# block a cluster), and the shortest on 8,192 points (clusters of 16)
+COLUMN_SHAPES_CZ = ODD_SHAPES + [(8191, 16384), (65, 64), (2049, 693)]
 
 
-@pytest.mark.parametrize("n", ODD_SHAPES, ids=ODD_IDS)
+@pytest.mark.parametrize("n", COLUMN_SHAPES_CZ,
+                         ids=[f"{a}x{b}" for a, b in COLUMN_SHAPES_CZ])
 def test_column_kernels_match_plain_at_other_sides(dev, n):
     """K1g, K1, K3g and K3 against their plain versions (1e-4 of the peak;
     the ATI phase on strong pixels 1e-3 rad), the one-channel kernels bit
     for bit their pairs' channel, two launches (the second given the plan)
-    the same bits."""
+    the same bits; one launch a call (the chirp-z transform's too)."""
     assert csa_kernel.supported(*n)
     f, x = _factors(n, dev), _planes(n, dev, 21)
     plan = csa_kernel.azimuth_plan(n[0], dev)
@@ -469,6 +474,41 @@ def test_column_kernels_match_plain_at_other_sides(dev, n):
     del want
     one = csa_kernel.k3_call(x[0], x[1])
     assert all(torch.equal(a, b) for a, b in zip(one, got[:2]))
+
+
+@pytest.mark.parametrize("n", [(4097, 693), (7199, 13200)],
+                         ids=["4097x693", "7199x13200"])
+def test_chirpz_column_kernels_hold_no_planes(dev, n):
+    """A chirp-z K1g call and a chirp-z K3g call each count one launch and
+    allocate no (m, n_rg) plane: the rise of the card's peak allocation
+    during the call stays below its outputs plus the plan's tables (the
+    chirp-z planes of the two-launch form were 4 x m x n_rg floats, 2.3x
+    the outputs of K1g at 7,199 rows)."""
+    f, x = _factors(n, dev), _planes(n, dev, 26)
+    plan = csa_kernel.azimuth_plan(n[0], dev)
+    assert plan.m == csa_kernel.chirpz_length(n[0]) > n[0]
+    tables = sum(t.numel() * t.element_size()
+                 for t in plan.tensors().values())
+    planes = 4 * plan.m * n[1] * 4
+    cal_cs = _cal_cs(dev)
+    for name, kernel, call in (
+            ("k1g", gmti_kernel.k1_gmti_planes,
+             lambda: gmti_kernel.k1_gmti_planes(*x, f, plan=plan)),
+            ("k3g", gmti_kernel.k3_gmti_planes,
+             lambda: gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT,
+                                                h_in=H_IN, plan=plan))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = kernel.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        outputs = sum(t.numel() * t.element_size() for t in got)
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        assert outputs <= rise < outputs + tables, (name, rise, outputs)
+        assert rise < outputs + planes // 2, name
+        del got
 
 
 @pytest.mark.parametrize("n", ODD_SHAPES, ids=ODD_IDS)
@@ -565,8 +605,8 @@ def test_auto_path_takes_kernels_at_the_upstream_cpi(dev):
                                   csa_kernel.k2_pair_call,
                                   gmti_kernel.k3_gmti_planes,
                                   gmti_kernel.k4_epilogue_planes)]
-    # K1g and K3g: the chirp-z transform's two launches each
-    assert [b - a for a, b in zip(before, after)] == [2, 1, 2, 1]
+    # one launch each, K1g's and K3g's chirp-z transforms too
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 1]
     assert rec.counters == {"cpi.chirpz_axes": 2, "cpi.mixed_radix_axes": 2}
     tree = rec.tree()
     for k in ("k1g", "k2", "k3g", "k4"):

@@ -9,10 +9,12 @@ kernels read, and held to NumPy's float64 FFT.
   inverse runs the passes backwards with conjugate twiddles and leaves the
   natural order.
 * The chirp-z azimuth transform (``csrc/gmti_kernel.cu``, the column pass's
-  two stages): the chirp, the convolution's spectrum and the m-point
-  twiddle table of ``csa_kernel.azimuth_plan``, the column pass's split of
-  m into CS x QA x QB (``column_split``), a forward transform, the product
-  with the spectrum, an inverse transform and the chirp again.
+  one chirp-z launch): the chirp, the convolution's spectrum and the
+  m-point twiddle table of ``csa_kernel.azimuth_plan``, the column pass's
+  split of m into CS x QA x QB (``column_split``), a forward transform,
+  the product with the spectrum, the spectrum moved block by block from the
+  forward gather to the inverse pass A as the kernel moves it in shared
+  memory, an inverse transform and the chirp again.
 
 The plans' DFTs of a few points run as dense products with the table's
 values (the kernels' register DFTs are the same sums in another order)."""
@@ -111,14 +113,13 @@ def _twp(tw, m, n, inverse):
     return np.conj(w) if inverse else w
 
 
-def column_dft(x, tw, cs, inverse):
-    """The column pass's unnormalised DFT of x's rows (m, cols) in its
-    four-step split n = n1 + CS q, q = qb + QB qa; output k = j + Q k1,
-    j = ja + QA jb: pass A (QA points), x W_Q^(qb ja), pass B (QB points),
-    x W_m^(n1 j), the gather's CS-point DFT."""
+def column_passes(x, tw, cs, inverse):
+    """Passes A and B of the column pass's unnormalised DFT of x's rows
+    (m, cols) in its four-step split n = n1 + CS q, q = qb + QB qa: pass A
+    (QA points), x W_Q^(qb ja), pass B (QB points), x W_m^(n1 j). Returns
+    Y (CS, Q, cols): block n1's Y_n1[j], j = ja + QA jb."""
     m = x.shape[0]
     qa, qb = tck.column_split(m, cs)
-    q = qa * qb
     tw = _c64(tw)
     # x[n1 + cs (qb + QB qa)] -> (n1, qb, qa, col)
     v = x.reshape(qa, qb, cs, -1).transpose(2, 1, 0, 3)
@@ -133,28 +134,79 @@ def column_dft(x, tw, cs, inverse):
     j = np.arange(qa)[None, :] + qa * np.arange(qb)[:, None]
     v = v * _twp(tw, np.arange(cs)[:, None, None] * j[None], m,
                  inverse)[..., None]
-    wc = _twp(tw, np.outer(np.arange(cs), np.arange(cs)) * (m // cs), m,
-              inverse)
-    v = np.einsum("nkjc,nl->lkjc", v, wc)       # (k1, jb, ja, col)
-    return v.reshape(m, -1).astype(np.complex64)
+    return v.reshape(cs, qa * qb, -1).astype(np.complex64)
+
+
+def column_gather(y, tw, cs, inverse, js):
+    """The gather's CS-point DFT of Y_n1[j] over the blocks n1 for the
+    output rows j in ``js``: (len(js), CS, cols), X[j + Q k1] at [., k1]."""
+    m = cs * y.shape[1]
+    wc = _twp(_c64(tw), np.outer(np.arange(cs), np.arange(cs)) * (m // cs),
+              m, inverse)
+    return np.einsum("njc,nl->jlc", y[:, js], wc).astype(np.complex64)
+
+
+def column_dft(x, tw, cs, inverse):
+    """The column pass's unnormalised DFT of x's rows (m, cols): passes A
+    and B, then the gather of every output row k = j + Q k1."""
+    y = column_passes(x, tw, cs, inverse)
+    q = y.shape[1]
+    v = column_gather(y, tw, cs, inverse, np.arange(q))    # (j, k1, col)
+    return v.transpose(1, 0, 2).reshape(cs * q, -1)
+
+
+def fused_convolution(a, tw, spec, cs):
+    """The chirp-z launch's data movement (csrc/gmti_kernel.cu,
+    chirpz_convolve) over the chirped rows a (m, cols): passes A and B
+    forward; block r gathers its rows j = r + CS jj, multiplies by the
+    spectrum and, after every block has read every Y, writes point q = jj +
+    J k1 (row r + CS q) to its own slot qa + QA qb (q = qb + QB qa, slot l
+    at l + l // QA of the padded layout); its inverse pass A task (qb, col)
+    reads the QA points of slots qa + QA qb as rows r + CS (qb + QB qa).
+    Returns the inverse column pass's input (m, cols) as the blocks read
+    it, and each block's slots (written once each)."""
+    m = a.shape[0]
+    qa, qb = tck.column_split(m, cs)
+    q = qa * qb
+    jn = q // cs
+    y = column_passes(a, tw, cs, False)
+    ysz = q + qb
+    inverse_in = np.full_like(a, np.nan)
+    for r in range(cs):
+        held = column_gather(y, tw, cs, False, r + cs * np.arange(jn))
+        qs = np.arange(jn)[:, None] + jn * np.arange(cs)[None, :]
+        held = held * spec[r + cs * qs][..., None]
+        # the cluster barrier: every block has gathered; now the writes
+        slots = np.full((ysz,) + a.shape[1:], np.nan, np.complex64)
+        ell = qs // qb + qa * (qs % qb)
+        pad = ell + ell // qa
+        assert np.unique(pad).size == pad.size and pad.max() < ysz
+        slots[pad] = held
+        for b in range(qb):
+            for p in range(qa):
+                ell = p + qa * b
+                inverse_in[r + cs * (b + qb * p)] = slots[ell + ell // qa]
+    return inverse_in
 
 
 def chirpz_dft(x, plan, inverse):
-    """The two stages of the column pass's chirp-z transform over x's rows
-    with an ``azimuth_plan``'s tables: stage 1 the chirped rows, zero
-    beyond n, forward, times the spectrum; stage 2 the inverse over m,
-    1 / m, the chirp again, rows below n."""
+    """The column pass's chirp-z transform over x's rows with an
+    ``azimuth_plan``'s tables, as its one launch moves the data: the
+    chirped rows, zero beyond n, forward, times the spectrum
+    (:func:`fused_convolution`); the inverse over m, 1 / m, the chirp again,
+    rows below n."""
     n, m = x.shape[0], plan.m
     cs = tck.column_plan(n, 64, 1).cluster
     tw, chirp, spec = (t.numpy() for t in plan.tables(inverse))
     a = np.zeros((m,) + x.shape[1:], np.complex64)
     a[:n] = x * chirp[:, None]
-    a = column_dft(a, tw, cs, False) * spec[:, None]
+    a = fused_convolution(a, tw, spec, cs)
+    assert not np.isnan(a).any()
     c = column_dft(a, tw, cs, True) * np.float32(1.0 / m)
     return (c[:n] * chirp[:, None]).astype(np.complex64)
 
 
-CHIRPZ_SIDES = [97, 120, 165, 313, 719, 7199]
+CHIRPZ_SIDES = [65, 97, 120, 165, 313, 719, 4097, 7199, 7200, 8191]
 
 
 @pytest.mark.parametrize("n", CHIRPZ_SIDES)
@@ -166,7 +218,7 @@ def test_chirpz_plan_is_the_dft(n):
          ).astype(np.complex64)
     plan = tck.azimuth_plan(n)
     m = tck.chirpz_length(n)
-    assert plan.m == m and plan.launches == 2
+    assert plan.m == m and plan.launches == 1
     assert m >= 2 * n - 1 and m & (m - 1) == 0 and m < 4 * n
     x64 = x.astype(np.complex128)
     for inverse, want in ((False, np.fft.fft(x64, axis=0)),
