@@ -6,7 +6,10 @@ by moving-grid backprojection (mBP), standard BP, or CSA. Each pulse of the
 collect is simulated once, in step-sized segments that assemble the
 overlapped CPIs. The reference's ``vmap`` over a frame batch is a loop over
 the batch here; batches are dispatched two deep (parallel/pipeline.py), so
-the card forms batch k+1 while the host fetches batch k.
+the card forms batch k+1 while the host fetches batch k. A recorded collect
+held on the device (``run(raw=...)``; :func:`record` makes one as the
+per-segment path simulates it) is formed the same way from views of it,
+with nothing simulated.
 
 Noise: ``seed`` replaces the reference's key. Frame f draws from the
 generator of (seed, schedule index of f), segment s from (seed,
@@ -99,26 +102,32 @@ def form_frames_bp(raw_frames, pos_frames, vel_frames, t_frames, vel_focus,
     recentre). ``spectra_frames`` (F, cpi, nfft/128, 128): cached forward
     spectra (bp_fast.forward_spectra); ``raw_frames`` is then None."""
     _check_backend(backend)
-    acc = ACC_MAP.get(backend)
-    if spectra_frames is not None and acc is None:
+    if spectra_frames is not None and backend not in ACC_MAP:
         raise ValueError("spectra_frames needs a fast-BP backend")
     frames = spectra_frames if spectra_frames is not None else raw_frames
-    out = []
-    for f in range(frames.shape[0]):
-        po, ve, ts = pos_frames[f], vel_frames[f], t_frames[f]
-        if acc is not None:
-            sp = spectra_frames[f] if spectra_frames is not None else None
-            img = bp_fast.focus_bp_fast(
-                None if sp is not None else raw_frames[f], po, ve, ts,
-                vel_focus, t_start, p, presum=presum, plan=plan,
-                accumulate=acc,
-                fit_stride=16 if acc.startswith("factor") else 0,
-                raw_spectra=sp)
-        else:
-            img = bp_ops.focus_bp(raw_frames[f], po, ve, ts, vel_focus,
-                                  t_start, p, presum=presum)
-        out.append(img)
-    return torch.stack(out)
+    return torch.stack([
+        form_frame_bp(
+            None if spectra_frames is not None else raw_frames[f],
+            pos_frames[f], vel_frames[f], t_frames[f], vel_focus, t_start, p,
+            presum, backend, plan,
+            None if spectra_frames is None else spectra_frames[f])
+        for f in range(frames.shape[0])])
+
+
+def form_frame_bp(raw, pos, vel, t_slow, vel_focus, t_start,
+                  p: bp_ops.BpParams, presum: int, backend: str, plan,
+                  spectra=None):
+    """One frame of :func:`form_frames_bp`: (cpi, Ns) raw pulses (or
+    ``spectra``, then ``raw`` None) -> (ny, nx) complex64."""
+    acc = ACC_MAP.get(backend)
+    if acc is None:
+        return bp_ops.focus_bp(raw, pos, vel, t_slow, vel_focus, t_start, p,
+                               presum=presum)
+    return bp_fast.focus_bp_fast(
+        raw, pos, vel, t_slow, vel_focus, t_start, p, presum=presum,
+        plan=plan, accumulate=acc,
+        fit_stride=16 if acc.startswith("factor") else 0,
+        raw_spectra=spectra)
 
 
 def form_frames_csa(raw_frames, p: csa_ops.CsaParams, fused: bool = True,
@@ -162,7 +171,8 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         avg_rcs: float | None = None, num_frames: int | None = None,
         frame_indices=None, precision: str = "f32",
         bp_backend: str = "fast", noise_mode: str = "per_frame",
-        stream_spectra: bool | str = False, device=None) -> VideoFrames:
+        stream_spectra: bool | str = False, raw: torch.Tensor | None = None,
+        device=None) -> VideoFrames:
     """Full VideoSAR product: schedule -> per-frame sim -> formation, on
     ``device`` (None: the card; a RuntimeError where there is none).
 
@@ -197,13 +207,122 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     one at a time). Needs a fast backend, a kernel-supported nfft, a
     segment-aligned schedule and noise_mode='per_segment'; 'ring' also
     contiguous frames and step % presum == 0.
+
+    raw: a held collect, (total_pulses, Ns) complex64 on ``device`` (a
+    recording, e.g. from :func:`record`): nothing is simulated, and frame
+    f's CPI is the row window ``raw[starts[f]:starts[f] + cpi]``, a view
+    (no CPI is copied), formed by backprojection ('mbp' / 'stdbp') through
+    the same plan, presum, backend routing and pipelined fetch.
+    ``targets``, ``heading_deg`` and ``speed_mps`` still fix the focus
+    velocity; ``seed`` and ``stream_spectra`` are refused (ValueError).
     """
     dev = entry_device(device)
     sched, orig_idx = _schedule(sc, num_frames, frame_indices)
+    if raw is not None:
+        _check_held(raw, sc, sched, dev, algorithm, seed, stream_spectra)
     with span("videosar.run", frames=len(sched.starts)):
         return _run(sc, targets, sched, orig_idx, dev, heading_deg,
                     speed_mps, algorithm, frames_per_batch, seed, avg_rcs,
-                    precision, bp_backend, noise_mode, stream_spectra)
+                    precision, bp_backend, noise_mode, stream_spectra, raw)
+
+
+def record(sc: ScenarioConfig, targets: PointTargets, *,
+           heading_deg: float = 0.0, speed_mps: float = 0.0,
+           seed: int | None = None, avg_rcs: float | None = None,
+           device=None) -> torch.Tensor:
+    """A whole collect as :func:`run` simulates it per segment: each
+    step-sized segment's echo plus, with ``seed``, its noise (as
+    ``noise_mode='per_segment'`` draws it), in one (total_pulses, Ns)
+    complex64 tensor on ``device``: what ``run(raw=...)`` takes."""
+    dev = entry_device(device)
+    sched = scheduler.make_schedule(sc.video, sc.radar.prf_hz)
+    g = _scene(sc, targets, sched, heading_deg, speed_mps, seed, avg_rcs)
+    step = sched.step_pulses
+    out = torch.empty((sched.total_pulses, g.opts.num_samples),
+                      dtype=torch.complex64, device=dev)
+    for s in range(-(-sched.total_pulses // step)):
+        out[s * step:(s + 1) * step] = _segment_raw(sc, g, s, step, seed, dev)
+    return out
+
+
+def _check_held(raw, sc: ScenarioConfig, sched, dev, algorithm, seed,
+                stream_spectra) -> None:
+    """ValueError unless ``raw`` is a collect :func:`run` can hold."""
+    ns = spotlight_echo_opts(sc, 1.0).num_samples
+    want = (sched.total_pulses, ns)
+    if not isinstance(raw, torch.Tensor) or raw.dtype != torch.complex64:
+        raise ValueError("raw: a held collect is a complex64 tensor, not "
+                         f"{getattr(raw, 'dtype', type(raw).__name__)}")
+    if tuple(raw.shape) != want:
+        raise ValueError(f"raw: the collect is (pulses, samples) = {want}, "
+                         f"not {tuple(raw.shape)}")
+    if raw.device != dev:
+        raise ValueError(f"raw is on {raw.device}, the run on {dev}")
+    if not raw.is_contiguous():
+        raise ValueError("raw: a held collect's rows are contiguous (each "
+                         "CPI a row window of it)")
+    if seed is not None:
+        raise ValueError("raw: a held collect carries its own noise; pass "
+                         "no seed")
+    if stream_spectra is not False:
+        raise ValueError("raw: a held collect is formed from its pulses; "
+                         "stream_spectra must be False")
+    if algorithm not in ("mbp", "stdbp"):
+        raise ValueError("raw: a held collect is formed by backprojection "
+                         f"('mbp' or 'stdbp'), not {algorithm!r}")
+
+
+class _Scene(NamedTuple):
+    """A collect's geometry and echo: trajectory, rotated targets and
+    their velocity, echo options, receive window start, noise SNR (None:
+    noise-free)."""
+    traj: orbit.Trajectory
+    tgt: PointTargets
+    vel_tgt: np.ndarray
+    opts: EchoOpts
+    t0: float
+    snr_raw: float | None
+
+
+def _scene(sc: ScenarioConfig, targets: PointTargets, sched, heading_deg,
+           speed_mps, seed, avg_rcs) -> _Scene:
+    r, g, v = sc.radar, sc.geometry, sc.video
+    times = np.linspace(-v.duration_s / 2.0, v.duration_s / 2.0,
+                        sched.total_pulses)
+    traj = orbit.make_trajectory(g, times)
+
+    phi = np.radians(heading_deg)
+    tgt = targets.rotate_z(heading_deg)
+    vel_tgt = np.array([speed_mps * np.cos(phi), speed_mps * np.sin(phi), 0.0])
+
+    opts = spotlight_echo_opts(
+        sc, antenna_length_for_swath(sc, sc.processing.bp_scene_size_m))
+    t0 = window_start_time(g.slant_range_m, opts, sc.collect.window_length_s,
+                           "centered")
+
+    snr_raw = None
+    if seed is not None:
+        rcs = avg_rcs if avg_rcs is not None else 5000.0
+        snr_raw, _ = noise_ops.snr_db(sc.noise, g.slant_range_m, rcs,
+                                      r.wavelength_m, r.bandwidth_hz, None)
+    return _Scene(traj, tgt, vel_tgt, opts, t0, snr_raw)
+
+
+def _segment_raw(sc: ScenarioConfig, g: _Scene, s: int, step: int, seed,
+                 dev) -> torch.Tensor:
+    """Segment s (pulses [s step, (s + 1) step)): its echo, plus its noise
+    from stream SEGMENT_STREAM + s where ``g`` has an SNR."""
+    sl = g.traj.slice(s * step, (s + 1) * step)
+    with span("segment.echo", s=s):
+        raw_s = phase_history(sl, g.tgt, g.opts, t_start=g.t0,
+                              target_velocity=g.vel_tgt, device=dev)
+    if g.snr_raw is not None:
+        with span("segment.noise", s=s):
+            raw_s = noise_ops.add_ocean_noise(
+                noise_ops.generator(seed, SEGMENT_STREAM + s, dev),
+                raw_s, g.snr_raw, sc.noise.scr_db, sc.noise.k_shape,
+                ref_power_mode="peak")
+    return raw_s
 
 
 def _schedule(sc: ScenarioConfig, num_frames, frame_indices):
@@ -223,27 +342,12 @@ def _schedule(sc: ScenarioConfig, num_frames, frame_indices):
 
 def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
          algorithm, frames_per_batch, seed, avg_rcs, precision, bp_backend,
-         noise_mode, stream_spectra) -> VideoFrames:
+         noise_mode, stream_spectra, raw) -> VideoFrames:
     """:func:`run` on its schedule and device."""
-    r, g, v = sc.radar, sc.geometry, sc.video
-    times = np.linspace(-v.duration_s / 2.0, v.duration_s / 2.0,
-                        sched.total_pulses)
-    traj = orbit.make_trajectory(g, times)
-
-    phi = np.radians(heading_deg)
-    tgt = targets.rotate_z(heading_deg)
-    vel_tgt = np.array([speed_mps * np.cos(phi), speed_mps * np.sin(phi), 0.0])
-
+    r, g = sc.radar, sc.geometry
+    scene = _scene(sc, targets, sched, heading_deg, speed_mps, seed, avg_rcs)
+    traj, tgt, vel_tgt, opts, t0, snr_raw = scene
     swath = sc.processing.bp_scene_size_m
-    opts = spotlight_echo_opts(sc, antenna_length_for_swath(sc, swath))
-    t0 = window_start_time(g.slant_range_m, opts, sc.collect.window_length_s,
-                           "centered")
-
-    snr_raw = None
-    if seed is not None:
-        rcs = avg_rcs if avg_rcs is not None else 5000.0
-        snr_raw, _ = noise_ops.snr_db(sc.noise, g.slant_range_m, rcs,
-                                      r.wavelength_m, r.bandwidth_hz, None)
 
     vel_focus = vel_tgt if algorithm == "mbp" else np.zeros(3)
     p_bp = bp_params_for(sc, opts, precision)
@@ -328,16 +432,9 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
             count("segment.reused")
             return seg_cache[s]
         count("segment.echoed")
-        sl = traj.slice(s * step, (s + 1) * step)
-        with span("segment.echo", s=s):
-            raw_s = phase_history(sl, tgt, opts, t_start=t0,
-                                  target_velocity=vel_tgt, device=dev)
-        if noise_mode == "per_segment" and snr_raw is not None:
-            with span("segment.noise", s=s):
-                raw_s = noise_ops.add_ocean_noise(
-                    noise_ops.generator(seed, SEGMENT_STREAM + s, dev),
-                    raw_s, snr_raw, sc.noise.scr_db, sc.noise.k_shape,
-                    ref_power_mode="peak")
+        raw_s = _segment_raw(sc, scene if noise_mode == "per_segment"
+                             else scene._replace(snr_raw=None), s, step,
+                             seed, dev)
         seg_cache[s] = raw_s
         return raw_s
 
@@ -467,8 +564,25 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
                                        fft_impl=sc.processing.fft_impl)
         raise ValueError(f"unknown algorithm {algorithm!r}")
 
+    def held_batch(b0):
+        """Enqueue one frame batch of the held collect: frame f's CPI is a
+        row window of it (a view, not a copy), formed under f's own
+        span."""
+        imgs = []
+        for f in range(b0, min(b0 + frames_per_batch, f_total)):
+            count("frame.held")
+            i0 = int(sched.starts[f])
+            with span("frame", f=f):
+                with span("frame.traj"):
+                    po, ve, ts = frame_traj(f)
+                with span("frame.bp"):
+                    imgs.append(form_frame_bp(
+                        raw[i0:i0 + sched.cpi_pulses], po, ve, ts, vf,
+                        float(t0), p_bp, presum, bp_backend, bp_plan))
+        return torch.stack(imgs)
+
     images = list(pipeline.pipelined(
-        dispatch_batch, range(0, f_total, frames_per_batch), depth=2,
-        fetch=fetch))
+        held_batch if raw is not None else dispatch_batch,
+        range(0, f_total, frames_per_batch), depth=2, fetch=fetch))
     return VideoFrames(images=np.concatenate(images, axis=0),
                        schedule=sched, scene_size_m=swath)

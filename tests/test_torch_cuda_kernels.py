@@ -771,6 +771,51 @@ def test_recentre_groups_are_local(dev, case):
         assert torch.equal(got, split[ga:gb]), (a, b)
 
 
+def test_recenter_presum_on_a_row_window_of_a_collect(dev):
+    """The held-collect path hands the kernel a CPI that is a row window of
+    a (25,000, 22,004) collect: read in place, the same bits as on a
+    contiguous copy."""
+    _, traj, vf, p, t_ref, d, rows = _bp_case("reference", dev)
+    big = torch.empty((25000, 22004), dtype=torch.complex64, device=dev)
+    torch.view_as_real(big).normal_(
+        generator=torch.Generator(device=dev).manual_seed(3))
+    a = 11500
+    win = big[a:a + 2500]
+    assert win.is_contiguous()
+    assert win.data_ptr() == big.data_ptr() + 8 * a * 22004
+    got = fft_kernel.recenter_presum(win, *traj, vf, p, d, t_ref,
+                                     out_rows=rows)
+    want = fft_kernel.recenter_presum(win.clone(), *traj, vf, p, d, t_ref,
+                                      out_rows=rows)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_held_collect_run_equals_the_simulated_run(dev):
+    """``videosar.run(raw=...)`` at config.videosar()'s full size on the
+    kernel route: frames of the recorded collect equal the simulated
+    per-segment run's bit for bit, one recentre + presum launch and one
+    ``frame.held`` a frame."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    sc = config.videosar()
+    ship = targets.destroyer()
+    kw = dict(heading_deg=45.0, speed_mps=15.0, device=dev)
+    frames = [0, 22, 45]
+    raw = videosar.record(sc, ship, seed=11, avg_rcs=5000.0, **kw)
+    assert raw.shape == (25000, 22004)
+    sim = videosar.run(sc, ship, bp_backend="fast_pallas",
+                       noise_mode="per_segment", seed=11, avg_rcs=5000.0,
+                       frame_indices=frames, **kw)
+    before = fft_kernel.recenter_presum.launches
+    with profiling.recording() as rec:
+        held = videosar.run(sc, ship, bp_backend="fast_pallas", raw=raw,
+                            frame_indices=frames, **kw)
+    assert fft_kernel.recenter_presum.launches - before == 3
+    assert rec.counters["frame.held"] == 3
+    assert held.images.shape == (3, 512, 512)
+    np.testing.assert_array_equal(held.images, sim.images)
+
+
 # --------------------------------------------------------------------------
 # fast-BP accumulate kernels
 # --------------------------------------------------------------------------
