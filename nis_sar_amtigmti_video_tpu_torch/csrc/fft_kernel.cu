@@ -864,8 +864,12 @@ __global__ void __launch_bounds__(Fwd<B1, R>::T,
       }
     }
   }
+  // a ring's group g holds chronological group g - ring_offset / d (mod
+  // the groups; ring_offset is a multiple of d then): its row goes there
+  const int groups = (num_p + d - 1) / d;
+  const int row = (g - tr.ring_offset / d + groups) % groups;
   presum_inverse<B1, R>(cluster, sm, acc, t,
-                        out + (size_t)g * (p1 - p0) * 128, p0, p1);
+                        out + (size_t)row * (p1 - p0) * 128, p0, p1);
 }
 
 // Recentre + presum: one cluster a presum group. Per pulse of the group, in

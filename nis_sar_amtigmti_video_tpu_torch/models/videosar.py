@@ -5,8 +5,9 @@ at PRF 5 kHz becomes half-second CPIs at 10 fps (80% overlap), each focused
 by moving-grid backprojection (mBP), standard BP, or CSA. Each pulse of the
 collect is simulated once, in step-sized segments that assemble the
 overlapped CPIs. The reference's ``vmap`` over a frame batch is a loop over
-the batch here; batches are dispatched two deep (parallel/pipeline.py), so
-the card forms batch k+1 while the host fetches batch k. A recorded collect
+the batch here; batches are dispatched two deep (parallel/pipeline.py), each
+with its copy to pinned host memory enqueued behind it, so the card forms
+batch k+1 while the host fetches batch k. A recorded collect
 held on the device (``run(raw=...)``; :func:`record` makes one as the
 per-segment path simulates it) is formed the same way from views of it,
 with nothing simulated.
@@ -163,6 +164,53 @@ def simulate_cpi(sc: ScenarioConfig, targets: PointTargets, traj_slice,
 
 def _f64(a, dev):
     return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+
+def _trajectory_on(traj: orbit.Trajectory, dev):
+    """The collect's float64 (positions, velocities, times) on ``dev``, in
+    one copy each: a frame's trajectory is a row window of them
+    (:func:`_window`), so forming a frame copies nothing from the host."""
+    return tuple(_f64(a, dev) for a in (traj.positions, traj.velocities,
+                                         traj.times))
+
+
+def _window(tensors, i0: int, n: int):
+    """Rows [i0, i0 + n) of each tensor (views)."""
+    return tuple(a[i0:i0 + n] for a in tensors)
+
+
+class _ToHost(NamedTuple):
+    """Formed frames on their way to the host: ``host`` their copy there,
+    ``done`` the event recorded behind the copy (None for a CPU tensor,
+    which is its own copy)."""
+    host: torch.Tensor
+    done: torch.cuda.Event | None
+
+
+def _to_host(img: torch.Tensor) -> _ToHost:
+    """Enqueue the copy of ``img`` to the host behind the work that forms
+    it, into pinned memory, without waiting: the fetch then waits for this
+    copy alone, where a pageable ``.cpu()`` waits for every frame enqueued
+    after it and leaves the card idle until the next is enqueued."""
+    if img.device.type != "cuda":
+        return _ToHost(img, None)
+    host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    host.copy_(img, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(img.device))
+    return _ToHost(host, done)
+
+
+def _gather(batches, n: int) -> np.ndarray:
+    """The fetched (B, ...) frame batches, in order, in one (n, ...) array,
+    each copied in as it arrives (while the card forms the later ones)."""
+    out, f = None, 0
+    for b in batches:
+        if out is None:
+            out = np.empty((n,) + b.shape[1:], b.dtype)
+        out[f:f + len(b)] = b
+        f += len(b)
+    return out
 
 
 def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
@@ -481,18 +529,19 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
         _drop_stale(s0)
         return sp
 
+    traj_on = _trajectory_on(traj, dev)
+
     def frame_traj(f):
-        i0 = int(sched.starts[f])
-        sl = traj.slice(i0, i0 + sched.cpi_pulses)
-        return (_f64(sl.positions, dev), _f64(sl.velocities, dev),
-                _f64(sl.times, dev))
+        return _window(traj_on, int(sched.starts[f]), sched.cpi_pulses)
 
     f_total = sched.num_frames
     vf = _f64(vel_focus, dev)
 
-    def fetch(img):
+    def fetch(h: _ToHost):
         with span("frame.fetch"):
-            return img.cpu().numpy()
+            if h.done is not None:
+                h.done.synchronize()
+            return h.host.numpy()
 
     if stream_spectra == "ring":
         # one device-resident spectra window, written in place one segment
@@ -524,10 +573,11 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
                             ring_offset=wp if wp else None)
                 yield img
 
-        images = list(pipeline.pipelined(lambda img: img, ring_frames(),
-                                          depth=2, fetch=fetch))
-        return VideoFrames(images=np.stack(images), schedule=sched,
-                           scene_size_m=swath)
+        frames = pipeline.pipelined(_to_host, ring_frames(), depth=2,
+                                    fetch=fetch)
+        return VideoFrames(images=_gather((a[None] for a in frames),
+                                          f_total),
+                           schedule=sched, scene_size_m=swath)
 
     def dispatch_batch(b0):
         """Enqueue one frame batch; the pipeline fetches batch k while the
@@ -581,8 +631,9 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
                         float(t0), p_bp, presum, bp_backend, bp_plan))
         return torch.stack(imgs)
 
-    images = list(pipeline.pipelined(
-        held_batch if raw is not None else dispatch_batch,
-        range(0, f_total, frames_per_batch), depth=2, fetch=fetch))
-    return VideoFrames(images=np.concatenate(images, axis=0),
-                       schedule=sched, scene_size_m=swath)
+    form_batch = held_batch if raw is not None else dispatch_batch
+    batches = pipeline.pipelined(lambda b0: _to_host(form_batch(b0)),
+                                 range(0, f_total, frames_per_batch),
+                                 depth=2, fetch=fetch)
+    return VideoFrames(images=_gather(batches, f_total), schedule=sched,
+                       scene_size_m=swath)

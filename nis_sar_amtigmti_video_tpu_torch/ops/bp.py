@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -81,6 +82,16 @@ def pixel_grid(p: BpParams) -> np.ndarray:
     y = np.linspace(-p.scene_size_m / 2.0, p.scene_size_m / 2.0, p.ny)
     gx, gy = np.meshgrid(x, y, indexing="xy")
     return np.stack([gx.ravel(), gy.ravel(), np.zeros(p.nx * p.ny)], axis=1)
+
+
+@lru_cache(maxsize=None)
+def pixel_grid_on(p: BpParams, device: torch.device) -> torch.Tensor:
+    """:func:`pixel_grid` as a float64 tensor on ``device``, built and
+    copied once per (params, device): the droop correction reads it every
+    frame. Shared: never written in place; kept for the process's life,
+    since a captured frame graph (``bp_fast._FrameGraph``) reads it by
+    address."""
+    return torch.from_numpy(pixel_grid(p)).to(device)
 
 
 def backproject(rc: torch.Tensor, sat_pos, sat_vel, t_slow, vel_focus,
@@ -174,7 +185,7 @@ def presum_droop_correction(sat_pos, sat_vel, t_slow, vel_focus,
     prf = (num_p - 1) / (ts[-1] - ts[0])
     dtc = ts[c] - ts.mean()
     org = vf * dtc
-    g = torch.from_numpy(pixel_grid(p)).to(dev) + org[None, :]
+    g = pixel_grid_on(p, pos.device) + org[None, :]
     ug = pos[c][None, :] - g
     ug = ug / torch.linalg.norm(ug, dim=-1, keepdim=True)
     u0 = pos[c] - org

@@ -27,10 +27,11 @@ kernel interpreter.
 
 from __future__ import annotations
 
+import collections
 import math
 import warnings
 from dataclasses import dataclass, replace as _dc_replace
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ from nis_sar_amtigmti_video_tpu_torch.ops.bp import BpParams, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.czt import czt_eval
 from nis_sar_amtigmti_video_tpu_torch.utils.anchors import (anchor_plan as
                                                             _anchor_plan)
-from nis_sar_amtigmti_video_tpu_torch.utils.profiling import span
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import count, span
 
 _TWO_PI = 2.0 * math.pi
 _C = 299792458.0
@@ -97,15 +98,56 @@ def _look_geometry(p: BpParams, pos_c: np.ndarray):
             np.array([cdir[0], cdir[1], 0.0]), g)
 
 
+# --------------------------------------------------------------------------
+# host-built constants of a frame's formation, built and copied to the
+# device once per key (a copy from pageable memory waits for the device);
+# shared, so never written in place. Kept for the process's life, as the
+# kernels' tables are: a captured frame graph reads them by address, so an
+# eviction would free memory that its replays still read
+# --------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _y_axis(device: torch.device) -> torch.Tensor:
+    """float64 (0, 1): the row direction of a look straight down."""
+    return torch.tensor([0.0, 1.0], dtype=F64, device=device)
+
+
+@lru_cache(maxsize=None)
+def _fit_offsets(a_max: float, device: torch.device) -> torch.Tensor:
+    """float64 (-a_max, 0, a_max): the fit's three column offsets."""
+    return torch.tensor([-a_max, 0.0, a_max], dtype=F64, device=device)
+
+
+@lru_cache(maxsize=None)
+def _anchor_tables(num_p: int, h: int, device: torch.device):
+    """:func:`_anchor_plan`'s (needed, trip, w) on ``device``."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _anchor_plan(num_p, h))
+
+
+@lru_cache(maxsize=None)
+def _internal_cols(nx_i: int, dx_m: float,
+                   device: torch.device) -> torch.Tensor:
+    """float64 (nx_i,) along-row offsets [m] of the internal columns."""
+    return torch.as_tensor((np.arange(nx_i) - (nx_i - 1) / 2.0) * dx_m,
+                           device=device)
+
+
+@lru_cache(maxsize=None)
+def _output_rows(scene_size_m: float, ny: int,
+                 device: torch.device) -> torch.Tensor:
+    """float64 (ny,) output-grid row positions [m] (NumPy's linspace)."""
+    half = scene_size_m / 2.0
+    return torch.as_tensor(np.linspace(-half, half, ny), device=device)
+
+
 def _frame_geometry(pos_c: torch.Tensor, p: BpParams, plan: FastBpPlan):
     """Per-CPI grid geometry from the centre-pulse position (float64 tensor
     on the device, no host sync): (row_dir(3,), col_dir(3,), dy_m)."""
     u = pos_c / torch.linalg.norm(pos_c)
     ug = u[:2]
     gn = torch.linalg.norm(ug)
-    ug = torch.where(gn < 1e-12,
-                     torch.tensor([0.0, 1.0], dtype=F64, device=ug.device),
-                     ug / gn)
+    ug = torch.where(gn < 1e-12, _y_axis(ug.device), ug / gn)
     gn = torch.clamp(gn, min=1e-12)
     zero = torch.zeros((1,), dtype=F64, device=ug.device)
     cdir = torch.cat([-ug, zero])
@@ -429,16 +471,14 @@ def _fit_coeffs(pos2, vel2, t2, vel_focus, p: BpParams, plan: FastBpPlan,
     num_p = pos2.shape[0]
     use_anchor = fit_stride > 1 and num_p > 3 * fit_stride
     if use_anchor:
-        needed, trip, w_np = _anchor_plan(num_p, fit_stride)
-        needed_t = torch.as_tensor(needed, device=dev)
+        needed_t, trip_t, w64 = _anchor_tables(num_p, fit_stride, dev)
         pos2_a, vel2_a, t2_a = pos2[needed_t], vel2[needed_t], t2[needed_t]
     else:
         pos2_a, vel2_a, t2_a = pos2, vel2, t2
 
     org = vf[None, :] * (t2_a - t_mean)[:, None]
     base = b[None, :, None, None] * cdir[None, None, None, :]
-    xoff = (torch.tensor([-a_max, 0.0, a_max], dtype=F64,
-                         device=dev)[None, None, :, None]
+    xoff = (_fit_offsets(a_max, dev)[None, None, :, None]
             * rdir[None, None, None, :])
     g = base + xoff
     pos = (pos2_a - org)[:, None, None, :]
@@ -448,9 +488,7 @@ def _fit_coeffs(pos2, vel2, t2, vel_focus, p: BpParams, plan: FastBpPlan,
     cidx = ny // 2
 
     if use_anchor:
-        w64 = torch.as_tensor(w_np, device=dev)
-        a0, a1, a2 = (torch.as_tensor(trip[:, k], device=dev)
-                      for k in range(3))
+        a0, a1, a2 = trip_t.unbind(1)
 
         def qinterp(v, w):
             sh = (-1,) + (1,) * (v.dim() - 1)
@@ -721,16 +759,14 @@ def _resample_output(img_i, plan: FastBpPlan, p: BpParams, rdir, cdir, dy_m):
     dy_out = p.scene_size_m / (p.ny - 1)
     dx_out = p.scene_size_m / (p.nx - 1)
 
-    a_cols = torch.as_tensor(
-        (np.arange(plan.nx_i) - (plan.nx_i - 1) / 2.0) * plan.dx_m,
-        device=dev)
+    a_cols = _internal_cols(plan.nx_i, plan.dx_m, dev)
     shear_b = (c1 / r1) * a_cols / dy_m
     scale_b = c2 - c1 * r2 / r1
     step_r = scale_b * dy_out / dy_m
     start_r = (scale_b * -half) / dy_m + (plan.ny_i - 1) / 2.0
     img = czt_eval(img_i, p.ny, step_r, start_r + shear_b, axis=0)
 
-    y = torch.as_tensor(np.linspace(-half, half, p.ny), device=dev)
+    y = _output_rows(p.scene_size_m, p.ny, dev)
     shear_a = (r2 * y) / plan.dx_m
     step_c = r1 * dx_out / plan.dx_m
     start_c = (r1 * -half) / plan.dx_m + (plan.nx_i - 1) / 2.0
@@ -747,9 +783,7 @@ def _finalize(img_i, phase_coeffs, pos2, vel2, t2, vf, t_mean_v,
     b_rows = (torch.arange(plan.ny_i, dtype=F64, device=dev)
               - (plan.ny_i - 1) / 2.0) * dy_m
     b_lim = half * (torch.abs(cdir[0]) + torch.abs(cdir[1])) + 4.0 * dy_m
-    a_cols = torch.as_tensor(
-        (np.arange(plan.nx_i) - (plan.nx_i - 1) / 2.0) * plan.dx_m,
-        device=dev)
+    a_cols = _internal_cols(plan.nx_i, plan.dx_m, dev)
     a_lim = half * (torch.abs(rdir[0]) + torch.abs(rdir[1])) + 4.0 * plan.dx_m
     img_i = img_i * ((torch.abs(b_rows) <= b_lim)[:, None]
                      & (torch.abs(a_cols) <= a_lim)[None, :])
@@ -770,19 +804,13 @@ def _finalize(img_i, phase_coeffs, pos2, vel2, t2, vf, t_mean_v,
 
     h_out = 8
     if p.nx > 3 * h_out and p.ny > 3 * h_out:
-        nx_need, trip_x, w_x = _anchor_plan(p.nx, h_out)
-        ny_need, trip_y, w_y = _anchor_plan(p.ny, h_out)
-        gy, gx = torch.meshgrid(y[torch.as_tensor(ny_need, device=dev)],
-                                x[torch.as_tensor(nx_need, device=dev)],
-                                indexing="ij")
+        nx_need, trip_x, w_x = _anchor_tables(p.nx, h_out, dev)
+        ny_need, trip_y, w_y = _anchor_tables(p.ny, h_out, dev)
+        gy, gx = torch.meshgrid(y[ny_need], x[nx_need], indexing="ij")
         g_sub = torch.stack([gx, gy, torch.zeros_like(gx)], dim=-1)
         _, ph_sub = _idx_phase_exact(g_sub, pos_tc, vel_tc, vf, p, plan)
-        phx = torch.einsum("ank,nk->an",
-                           ph_sub[:, torch.as_tensor(trip_x, device=dev)],
-                           torch.as_tensor(w_x, device=dev))
-        ph_out64 = torch.einsum("mkn,mk->mn",
-                                phx[torch.as_tensor(trip_y, device=dev), :],
-                                torch.as_tensor(w_y, device=dev))
+        phx = torch.einsum("ank,nk->an", ph_sub[:, trip_x], w_x)
+        ph_out64 = torch.einsum("mkn,mk->mn", phx[trip_y, :], w_y)
     else:
         gy, gx = torch.meshgrid(y, x, indexing="ij")
         g_out = torch.stack([gx, gy, torch.zeros_like(gx)], dim=-1)
@@ -833,22 +861,61 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
     recentre kernel, then the pixel-tile accumulate kernel; needs a
     ``w_win=64`` plan) or 'factor_kernel' (the recentre kernel, then the
     coarse-tile factorized accumulate kernel where the plan takes it; see
-    :func:`accumulate_grid`). Returns (ny, nx) complex64.
+    :func:`accumulate_grid`). Returns (ny, nx) complex64. On CUDA tensors
+    the routes of ``GRAPH_ACCUMULATE`` form it by a CUDA graph replay
+    (:class:`_FrameGraph`), with the eager formation's bits.
     """
-    from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
+    return _backproject(rc, sat_pos, sat_vel, t_slow, vel_focus, p, plan,
+                        presum, t_mean, compress, accumulate, fit_stride,
+                        math_mode, raw_spectra, ring_offset, device,
+                        droop=False)
 
+
+def _backproject(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
+                 plan: FastBpPlan, presum: int, t_mean, compress: bool,
+                 accumulate: str, fit_stride: int, math_mode: str,
+                 raw_spectra, ring_offset, device, droop: bool):
+    """:func:`backproject_fast`, then with ``droop`` (and a presum above 1)
+    the presum rescale and droop correction of :func:`focus_bp_fast`: the
+    recentre, then :func:`_form` eagerly or by a graph replay."""
     _check_modes(accumulate, math_mode)
     src = raw_spectra if raw_spectra is not None else rc
-    dev = device if device is not None else src.device
-    pos = bp_ops._f64(sat_pos, dev)
-    vel = bp_ops._f64(sat_vel, dev)
-    ts = bp_ops._f64(t_slow, dev)
-    vf = bp_ops._f64(vel_focus, dev)
+    dev = torch.device(device if device is not None else src.device)
+    pos, vel, ts, vf = (bp_ops._f64(a, dev)
+                        for a in (sat_pos, sat_vel, t_slow, vel_focus))
     t_mean_v = ts.mean() if t_mean is None else bp_ops._f64(t_mean, dev)
     d = max(1, presum)
+    graph = None
+    if _graphed(dev, accumulate):
+        key = (plan, p, d, accumulate, fit_stride, droop and d > 1,
+               raw_spectra is None, tuple(src.shape),
+               tuple(t_mean_v.shape), dev)
+        p0, p1 = band_rows(plan)
+        graph = _live_graph(key, lambda: _FrameGraph(
+            (-(-src.shape[0] // d), (p1 - p0) * 128), dev))
+    rc2, pos2, vel2, t2, plan_acc = _recentre(
+        rc, raw_spectra, pos, vel, ts, vf, t_mean_v, p, plan, d, compress,
+        accumulate, ring_offset, out=None if graph is None else graph.rc2)
+    ins = (rc2, pos2, vel2, t2, vf, t_mean_v) + (
+        (pos, vel, ts) if droop and d > 1 else ())
+    form = partial(_form, p=p, plan=plan, plan_acc=plan_acc, d=d,
+                   accumulate=accumulate, fit_stride=fit_stride)
+    if graph is None:
+        return form(*ins)
+    return graph.run(form, ins)
 
-    plan_acc = plan
+
+def _recentre(rc, raw_spectra, pos, vel, ts, vf, t_mean_v, p: BpParams,
+              plan: FastBpPlan, d: int, compress: bool, accumulate: str,
+              ring_offset, out=None):
+    """The recentre (and presum by ``d``) of the raw pulses ``rc`` or of
+    their ``raw_spectra``: (rc2, pos2, vel2, t2, plan_acc), ``plan_acc``
+    the plan with its band start relative to the rows the recentre kept.
+    ``out``: where the kernel routes write rc2."""
+    from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
+
     p0, p1 = band_rows(plan)
+    band_plan = _dc_replace(plan, band_start=plan.band_start - p0 * 128)
     with span("bp.recentre"):
         if raw_spectra is not None:
             if not (compress and fft_kernel.supported(plan.nfft)):
@@ -860,29 +927,35 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
                     f"raw_spectra rows ({raw_spectra.shape[1]}) do not match "
                     f"plan.nfft={plan.nfft}: the spectra were built from "
                     "pulses with a different num_samples than the plan's")
-            rc2, pos2, vel2, t2 = fft_kernel.recentre_from_spectra(
+            return (*fft_kernel.recentre_from_spectra(
                 raw_spectra, pos, vel, ts, vf, p, d, plan.t_ref,
-                t_mean=t_mean_v, out_rows=(p0, p1), ring_offset=ring_offset)
-            plan_acc = _dc_replace(plan,
-                                   band_start=plan.band_start - p0 * 128)
-        elif accumulate in KERNEL_ACCUMULATE:
+                t_mean=t_mean_v, out_rows=(p0, p1), ring_offset=ring_offset,
+                out=out), band_plan)
+        if accumulate in KERNEL_ACCUMULATE:
             if not fft_kernel.supported(plan.nfft):
                 raise ValueError(
                     f"accumulate={accumulate!r} runs the recentre kernel, "
                     f"which does not take plan.nfft={plan.nfft}: pick "
                     f"{KERNEL_ACCUMULATE[accumulate]!r}")
-            rc2, pos2, vel2, t2 = fft_kernel.recenter_presum(
+            return (*fft_kernel.recenter_presum(
                 rc, pos, vel, ts, vf, p, d, plan.t_ref,
-                filter_compress=compress, t_mean=t_mean_v, out_rows=(p0, p1))
-            plan_acc = _dc_replace(plan,
-                                   band_start=plan.band_start - p0 * 128)
-        else:
-            ref_conj = (matched_filter_spectrum(p, plan.nfft) if compress
-                        else None)
-            rc2, pos2, vel2, t2 = recenter_presum(
-                rc, pos, vel, ts, vf, p, d, plan.t_ref, ref_conj=ref_conj,
-                t_mean=t_mean_v)
+                filter_compress=compress, t_mean=t_mean_v, out_rows=(p0, p1),
+                out=out), band_plan)
+        ref_conj = (matched_filter_spectrum(p, plan.nfft) if compress
+                    else None)
+        return (*recenter_presum(rc, pos, vel, ts, vf, p, d, plan.t_ref,
+                                 ref_conj=ref_conj, t_mean=t_mean_v), plan)
 
+
+def _form(rc2, pos2, vel2, t2, vf, t_mean_v, *droop_traj, p: BpParams,
+          plan: FastBpPlan, plan_acc: FastBpPlan, d: int, accumulate: str,
+          fit_stride: int):
+    """A frame's formation after its recentre, on device tensors: the fit,
+    the accumulate, the finalize and, given the CPI's float64 (pos, vel,
+    ts) as ``droop_traj``, the presum rescale by ``d`` and droop
+    correction. The routes of ``GRAPH_ACCUMULATE`` build every host
+    constant once (cached on the device) and never synchronise here, so a
+    CUDA graph can capture them."""
     with span("bp.fit"):
         rdir, cdir, dy_m = _frame_geometry(pos2[pos2.shape[0] // 2], p, plan)
         u0, pa, pb, pc, b_t, c_t = _fit_coeffs(pos2, vel2, t2, vf, p, plan,
@@ -892,8 +965,112 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
         img_i = accumulate_grid(accumulate,
                                 (rc2, u0, pa, pb, pc, b_t, c_t, plan_acc), d)
     with span("bp.finalize"):
-        return _finalize(img_i, (pa, pb, pc), pos2, vel2, t2, vf, t_mean_v,
-                         p, plan, rdir, cdir, dy_m)
+        img = _finalize(img_i, (pa, pb, pc), pos2, vel2, t2, vf, t_mean_v,
+                        p, plan, rdir, cdir, dy_m)
+    if droop_traj:
+        with span("bp.droop"):
+            corr = bp_ops.presum_droop_correction(*droop_traj, vf, p, d,
+                                                  device=img.device)
+            img = d * corr * img
+    return img
+
+
+# the accumulates whose formation (:func:`_form`) is free of host syncs:
+# on CUDA tensors a graph forms their frames
+GRAPH_ACCUMULATE = ("pallas",)
+
+
+def _graphed(dev: torch.device, accumulate: str) -> bool:
+    """Whether frames of ``accumulate`` on ``dev`` are formed by a graph."""
+    return dev.type == "cuda" and accumulate in GRAPH_ACCUMULATE
+
+
+def _capture(form, ins):
+    """(graph, out): ``form(*ins)`` captured as a CUDA graph, whose
+    replays write ``out``. The cuBLAS workspace that the capture stream
+    took was allocated in the graph's private pool: dropping the cached
+    reference after the capture (as PyTorch's own graph trees do) leaves it
+    to that pool, which keeps it for the replays, instead of holding a
+    second 32 MiB workspace allocated for the process's life."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = form(*ins)
+    torch._C._cuda_clearCublasWorkspaces()
+    return graph, out
+
+
+def _kernel_wrappers():
+    """The accumulate kernels' wrappers, each counting its launches in
+    ``.launches`` on the host: a capture counts launches that it only
+    records, and a replay makes launches that nothing counts."""
+    from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (bp_factor_kernel,
+                                                           bp_kernel)
+    return (bp_kernel.accumulate_pallas,
+            bp_factor_kernel.accumulate_factor_pallas)
+
+
+class _FrameGraph:
+    """One key's frame formation (:func:`_form`) as a CUDA graph: ``rc2``
+    the static buffer the recentre writes, the other inputs filled by
+    on-device copies, captured after one eager run at the first frame (so
+    cuFFT plans, kernel attributes and the cached constants exist) and
+    replayed for every later one. A replay's frame is cloned out of the
+    static output, so frames held together never share a buffer. The
+    kernels' launch counters count what the card runs: not the capture's
+    launches, and each replay's."""
+
+    def __init__(self, rc2_shape, dev: torch.device):
+        self.rc2 = torch.empty(rc2_shape, dtype=torch.complex64, device=dev)
+        self.ins = self.out = self.graph = None
+        self.launched = ()          # (wrapper, launches) of one replay
+
+    def _fill(self, ins) -> None:
+        if ins[0] is not self.rc2:
+            raise RuntimeError("the recentre did not write the graph's rc2")
+        for dst, src in zip(self.ins[1:], ins[1:]):
+            dst.copy_(src)
+
+    def run(self, form, ins) -> torch.Tensor:
+        """The frame of ``ins`` (rc2 this graph's own, then the trajectory
+        and focus tensors), by ``form`` at the first call (which captures
+        it) and by a replay after."""
+        if self.graph is None:
+            with span("bp.capture"):
+                self.ins = (self.rc2,) + tuple(
+                    torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                    for t in ins[1:])
+                self._fill(ins)
+                img = form(*self.ins)
+                wrappers = _kernel_wrappers()
+                before = [w.launches for w in wrappers]
+                self.graph, self.out = _capture(form, self.ins)
+                self.launched = tuple((w, w.launches - n)
+                                      for w, n in zip(wrappers, before))
+                for w, n in self.launched:
+                    w.launches -= n
+                count("bp.graph_capture")
+            return img
+        with span("bp.replay"):
+            self._fill(ins)
+            self.graph.replay()
+            for w, n in self.launched:
+                w.launches += n
+            count("bp.graph_replay")
+            return self.out.clone()
+
+
+# the live frame graphs by key, the least recently used first
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+
+
+def _live_graph(key, make):
+    """The live graph of ``key``, else ``make()``'s; past two live, the
+    least recently used is dropped."""
+    graph = _GRAPHS.pop(key, None) or make()
+    _GRAPHS[key] = graph
+    while len(_GRAPHS) > 2:
+        _GRAPHS.popitem(last=False)
+    return graph
 
 
 def accumulate_grid(accumulate: str, coeffs, d: int):
@@ -958,15 +1135,8 @@ def focus_bp_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
                              float(t_start),
                              w_win=64 if accumulate == "pallas" else 32,
                              factorize=accumulate.startswith("factor"))
-    img = backproject_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, p, plan,
-                           presum=presum, compress=True,
-                           accumulate=accumulate, fit_stride=fit_stride,
-                           math_mode=math_mode, raw_spectra=raw_spectra,
-                           ring_offset=ring_offset)
-    if presum > 1:
-        with span("bp.droop"):
-            corr = bp_ops.presum_droop_correction(sat_pos, sat_vel, t_slow,
-                                                  vel_focus, p, presum,
-                                                  device=img.device)
-            return presum * corr * img
-    return img
+    return _backproject(raw, sat_pos, sat_vel, t_slow, vel_focus, p, plan,
+                        presum, t_mean=None, compress=True,
+                        accumulate=accumulate, fit_stride=fit_stride,
+                        math_mode=math_mode, raw_spectra=raw_spectra,
+                        ring_offset=ring_offset, device=None, droop=True)

@@ -124,6 +124,15 @@ def _traj_at(sat_pos, sat_vel, t_slow, num_p: int, d: int):
     return tuple(bp_ops._f64(a, dev)[ci] for a in (sat_pos, sat_vel, t_slow))
 
 
+def _output(name, out, shape, device) -> torch.Tensor:
+    """Where a recentre kernel writes its (rows, band) complex64 result on
+    ``device``: ``out``, checked, or a new tensor where ``out`` is None."""
+    if out is None:
+        return torch.empty(shape, dtype=C64, device=device)
+    _build.check(name, (out,), shape, device, C64)
+    return out
+
+
 def _ring_offset(num_p: int, d: int, ring_offset) -> int:
     """``ring_offset`` as an int (0 for None), checked."""
     if ring_offset is None:
@@ -236,7 +245,7 @@ forward_spectra.launches = 0
 
 def recentre_from_spectra_plain(spec, sat_pos, sat_vel, t_slow, vel_focus,
                                 p, d: int, t_ref: float, t_mean=None,
-                                out_rows=None, ring_offset=None):
+                                out_rows=None, ring_offset=None, out=None):
     """Plain version of :func:`recentre_from_spectra`."""
     num_p, b1 = spec.shape[0], spec.shape[1]
     p0, p1 = _band(out_rows, b1)
@@ -246,12 +255,13 @@ def recentre_from_spectra_plain(spec, sat_pos, sat_vel, t_slow, vel_focus,
                                   d)[:, p0 * _LANE:p1 * _LANE]
     if ring_offset is not None:
         rc_b = torch.roll(rc_b, -(int(ring_offset) // d), dims=0)
-    return (rc_b, *_traj_at(sat_pos, sat_vel, t_slow, num_p, d))
+    return (rc_b if out is None else out.copy_(rc_b),
+            *_traj_at(sat_pos, sat_vel, t_slow, num_p, d))
 
 
 def recentre_from_spectra(spec, sat_pos, sat_vel, t_slow, vel_focus, p,
                           d: int, t_ref: float, t_mean=None, out_rows=None,
-                          ring_offset=None):
+                          ring_offset=None, out=None):
     """Recentre ramp + carrier + frequency-domain presum by ``d`` + band-
     limited inverse on cached spectra (P, nfft/128, 128) complex64 from
     :func:`forward_spectra`. The trajectory (float64, chronological) gives
@@ -260,9 +270,13 @@ def recentre_from_spectra(spec, sat_pos, sat_vel, t_slow, vel_focus, p,
 
     ``ring_offset`` (pulses): the buffer is a ring — slot j holds
     chronological pulse (j - ring_offset) % P. The per-pulse scalars roll
-    into ring order and the presummed rows roll back; needs P % d == 0 and
+    into ring order and the kernel stores each presummed row at its
+    chronological place; needs P % d == 0 and
     ring_offset % d == 0, so every group holds the same pulses in the same
-    order and the result equals the chronological call bit for bit."""
+    order and the result equals the chronological call bit for bit.
+
+    ``out``: a (ceil(P/d), (p1-p0)*128) complex64 tensor to write rc2 into
+    (and return) in place of a new one."""
     num_p, b1 = spec.shape[0], spec.shape[1]
     nfft = b1 * _LANE
     if not supported(nfft):
@@ -270,7 +284,8 @@ def recentre_from_spectra(spec, sat_pos, sat_vel, t_slow, vel_focus, p,
     if _build.on_cpu(spec):
         return recentre_from_spectra_plain(
             spec, sat_pos, sat_vel, t_slow, vel_focus, p, d, t_ref,
-            t_mean=t_mean, out_rows=out_rows, ring_offset=ring_offset)
+            t_mean=t_mean, out_rows=out_rows, ring_offset=ring_offset,
+            out=out)
     dev = spec.device
     _build.check("recentre_from_spectra", (spec,), (num_p, b1, _LANE), dev,
                  C64)
@@ -278,14 +293,12 @@ def recentre_from_spectra(spec, sat_pos, sat_vel, t_slow, vel_focus, p,
     off = _ring_offset(num_p, d, ring_offset)
     tr, doubles = _kernel_trajectory("recentre_from_spectra", sat_pos, t_slow,
                                      vel_focus, p, t_ref, t_mean, dev)
-    out = torch.empty((-(-num_p // d), (p1 - p0) * _LANE), dtype=C64,
-                      device=dev)
+    out = _output("recentre_from_spectra", out,
+                  (-(-num_p // d), (p1 - p0) * _LANE), dev)
     _build.launch("recentre_spectra_launch",
                   (spec, *tr, *_tables(nfft, dev), out),
                   (num_p, d, nfft, p0, p1, off % num_p), doubles=doubles)
     recentre_from_spectra.launches += 1
-    if ring_offset is not None:
-        out = torch.roll(out, -(off // d), dims=0)
     return (out, *_traj_at(sat_pos, sat_vel, t_slow, num_p, d))
 
 
@@ -298,7 +311,7 @@ recentre_from_spectra.launches = 0
 
 def recenter_presum_plain(rc, sat_pos, sat_vel, t_slow, vel_focus, p,
                           d: int, t_ref: float, filter_compress: bool = True,
-                          t_mean=None, out_rows=None):
+                          t_mean=None, out_rows=None, out=None):
     """Plain version of :func:`recenter_presum`: ``bp_fast.recenter_presum``
     with the cached matched filter, cut to the band rows."""
     nfft = _nfft_of(rc.shape[1])
@@ -307,12 +320,13 @@ def recenter_presum_plain(rc, sat_pos, sat_vel, t_slow, vel_focus, p,
     rc_b, *traj = bp_fast.recenter_presum(rc, sat_pos, sat_vel, t_slow,
                                           vel_focus, p, d, t_ref,
                                           ref_conj=ref, t_mean=t_mean)
-    return (rc_b[:, p0 * _LANE:p1 * _LANE], *traj)
+    rc_b = rc_b[:, p0 * _LANE:p1 * _LANE]
+    return (rc_b if out is None else out.copy_(rc_b), *traj)
 
 
 def recenter_presum(rc, sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
                     t_ref: float, filter_compress: bool = True, t_mean=None,
-                    out_rows=None):
+                    out_rows=None, out=None):
     """Raw pulses (P, ns) complex64 -> forward DFT x matched filter x
     recentre ramp and carrier -> presum by ``d`` in the frequency domain ->
     band-limited inverse, in one kernel: a group's spectra stay on the
@@ -320,7 +334,8 @@ def recenter_presum(rc, sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
     raw pulses and the band rows. A group's rows depend on its own pulses
     alone: ``recenter_presum(rc[a:b])`` with a and b multiples of ``d``
     (and the same ``t_mean``) is rows [a/d, b/d) of ``recenter_presum(rc)``
-    bit for bit. Same return as :func:`recentre_from_spectra`."""
+    bit for bit. Same return and ``out`` as
+    :func:`recentre_from_spectra`."""
     num_p, ns = rc.shape
     nfft = _nfft_of(ns)
     if not supported(nfft):
@@ -328,14 +343,15 @@ def recenter_presum(rc, sat_pos, sat_vel, t_slow, vel_focus, p, d: int,
     if _build.on_cpu(rc):
         return recenter_presum_plain(rc, sat_pos, sat_vel, t_slow, vel_focus,
                                      p, d, t_ref, filter_compress,
-                                     t_mean=t_mean, out_rows=out_rows)
+                                     t_mean=t_mean, out_rows=out_rows,
+                                     out=out)
     dev = rc.device
     _build.check("recenter_presum", (rc,), (num_p, ns), dev, C64)
     p0, p1 = _band(out_rows, nfft // _LANE)
     tr, doubles = _kernel_trajectory("recenter_presum", sat_pos, t_slow,
                                      vel_focus, p, t_ref, t_mean, dev)
-    out = torch.empty((-(-num_p // d), (p1 - p0) * _LANE), dtype=C64,
-                      device=dev)
+    out = _output("recenter_presum", out,
+                  (-(-num_p // d), (p1 - p0) * _LANE), dev)
     _build.launch("recenter_presum_launch",
                   (rc, _filter_layout(p, nfft, filter_compress, dev), *tr,
                    *_tables(nfft, dev), out),
