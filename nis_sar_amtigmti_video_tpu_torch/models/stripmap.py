@@ -1,9 +1,11 @@
 """Single-channel stripmap pipeline.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/models/stripmap.py``. Only the
-scenario -> echo-options rule is ported so far (the GMTI pipeline needs it).
-Still to come: ``StripmapProducts``, ``simulate_raw`` and the CSA branch of
-``run``, whose parts are ported (``ops/echo.py``, ``ops/noise.py``,
+scenario -> echo-options rule is ported so far (the GMTI pipeline and the
+HRWS benchmark's collects need it; the multichannel stripmap chain itself,
+reconstruction then CSA, is ``models/hrws.py``). Still to come:
+``StripmapProducts``, ``simulate_raw`` and the CSA branch of ``run``, whose
+parts are ported (``ops/echo.py``, ``ops/noise.py``,
 ``ops/csa.py::focus_csa``); then the RDA branch, which waits for
 ``ops/rda.py``, ``ops/windows.py`` and the non-uniform interpolation.
 """

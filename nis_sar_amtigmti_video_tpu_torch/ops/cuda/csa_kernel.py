@@ -37,6 +37,7 @@ import torch
 
 from nis_sar_amtigmti_video_tpu_torch.ops.csa import CsaFactors, expj
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import count, span
 
 # CPI sides the kernels take. Azimuth: any side in [64, 8192]; powers of
 # two up to 4096 run the column pass's own split of n_az over a cluster of
@@ -618,8 +619,15 @@ k3_call.launches = 0
 
 def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
     """Planes-native CSA: re/im float32 (..., n_az, n_rg) raw -> re/im SLC,
-    K1 -> K2 -> K3 per plane, the two axis plans built once per call. This
-    is the hot entry (the formation-only stream holds planes end to end).
+    K1 -> K2 -> K3 per plane, on the two axis plans of (n_az, n_rg), built
+    once per shape and device and kept (:func:`axis_plans`). This is the
+    hot entry (the formation-only stream holds planes end to end).
+
+    Each kernel runs under its span (``focus.k1``, ``focus.k2``,
+    ``focus.k3``), and each plane counts its axis transforms (azimuth
+    forward and inverse, range forward and inverse) that ran by chirp-z
+    (``cpi.chirpz_axes``) and by the mixed-radix plan
+    (``cpi.mixed_radix_axes``), as the GMTI CPI counts its own.
 
     Raises ValueError at shapes the kernels do not take (:func:`supported`)
     on every device; ``ops/csa.py::apply_csa_fused`` routes those."""
@@ -630,16 +638,29 @@ def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
     lead = xr.shape[:-2]
     xr = xr.reshape(-1, n_az, n_rg).contiguous()
     xi = xi.reshape(-1, n_az, n_rg).contiguous()
-    dev = xr.device
-    az, rg = azimuth_plan(n_az, dev), range_plan(n_rg, dev)
+    az, rg = axis_plans(n_az, n_rg, xr.device)
     # K3 writes each SLC plane straight into its slot of the batch
     out_r, out_i = torch.empty_like(xr), torch.empty_like(xi)
     for zr, zi, sr, si in zip(xr, xi, out_r, out_i):
-        zr, zi = k1_call(zr, zi, f, plan=az)
-        zr, zi = k2_call(zr, zi, f, plan=rg)
-        k3_call(zr, zi, plan=az, out=(sr, si))
+        count("cpi.chirpz_axes", 2 * (az.m != n_az))
+        count("cpi.mixed_radix_axes", 2 * (rg.passes > 0))
+        with span("focus.k1"):
+            zr, zi = k1_call(zr, zi, f, plan=az)
+        with span("focus.k2"):
+            zr, zi = k2_call(zr, zi, f, plan=rg)
+        with span("focus.k3"):
+            k3_call(zr, zi, plan=az, out=(sr, si))
     return (out_r.reshape(lead + (n_az, n_rg)),
             out_i.reshape(lead + (n_az, n_rg)))
+
+
+@functools.lru_cache(maxsize=4)
+def axis_plans(n_az: int, n_rg: int, device) -> tuple:
+    """(:func:`azimuth_plan` (n_az), :func:`range_plan` (n_rg)) on
+    ``device``, built on the first call for a shape and device and kept
+    there: a later call copies nothing from the host (a pageable copy
+    waits for the card)."""
+    return azimuth_plan(n_az, device), range_plan(n_rg, device)
 
 
 def apply_csa_pallas(phist, f: CsaFactors):

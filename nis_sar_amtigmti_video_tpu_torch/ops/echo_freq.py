@@ -49,7 +49,8 @@ import torch
 
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import fft_kernel
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import spread_kernel
-from nis_sar_amtigmti_video_tpu_torch.utils.profiling import span
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (
+    count_device, span)
 
 _W = 8                      # spreading taps
 _BETA = 2.30 * _W           # ES-kernel beta (FINUFFT's rule of thumb)
@@ -152,6 +153,8 @@ def _cells(i0, k_max: int, l_out: int, win: int, grp: int, lo: int = 0):
 
     # one cell list serves every value set (built with the widest tap margin)
     ok = live & (c_rel >= 0) & (c_rel <= win - k_max)
+    # (pulse, target) pairs whose group window cannot hold them
+    count_device("echo.dropped", lambda: (live & ~ok).sum())
     c_ok = torch.where(ok, c_rel, -1).to(torch.int32).contiguous()
     return c_ok, base, lo
 
@@ -180,7 +183,8 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
     pass: the trailing gate flank sits an integer number of cells after the
     leading one). Targets whose group window cannot hold them (group cell
     spread > win - K) drop; callers size win/grp so sane scenes never hit
-    that.
+    that, and the stage record counts the (pulse, target) pairs dropped
+    (``echo.dropped``, summed on the card).
     impl: 'xla' (the plain one-hot windows,
     ``spread_kernel.spread_windows_plain``), 'pallas' or 'pallas_qr'
     (``spread_kernel.spread_windows_pallas``: the kernel on the card, its

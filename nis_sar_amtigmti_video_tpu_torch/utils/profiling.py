@@ -19,7 +19,9 @@ where it decides to do or skip work. Both do nothing until
 A span never waits for the card: its times are the host's, stamped on the
 clock the torch profiler stamps its events with (:data:`clock_ns`), so a
 span can be laid on a device trace taken at the same time and each kernel
-put down to the span open when the host launched it.
+put down to the span open when the host launched it. A count the card
+holds (:func:`count_device`) is summed on the card and read into
+``counters`` once, when the recording ends.
 """
 
 from __future__ import annotations
@@ -88,13 +90,22 @@ class Span(NamedTuple):
 
 class Record:
     """What one :func:`recording` collected: ``spans`` in the order they
-    closed, ``counters`` by name."""
+    closed, ``counters`` by name (those of :func:`count_device` once the
+    recording has ended)."""
 
     def __init__(self):
         self.spans: List[Span] = []
         self.counters: dict = {}
+        self._on_device: dict = {}      # name -> 0-d sum on the card
         self._ids = itertools.count(1)
         self._open = threading.local()
+
+    def _read_device_counts(self) -> None:
+        """Adds the device counts into ``counters`` (one read to the host
+        a name, after the work that made them)."""
+        for name, total in self._on_device.items():
+            self.counters[name] = self.counters.get(name, 0) + int(total)
+        self._on_device = {}
 
     def _stack(self) -> list:
         st = getattr(self._open, "stack", None)
@@ -167,6 +178,18 @@ def count(name: str, n: int = 1) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def count_device(name: str, make: Callable[[], torch.Tensor]) -> None:
+    """Add the 0-d integer tensor ``make()`` to the counter ``name`` while
+    recording, without waiting for the card: ``make`` runs only while
+    recording, the sum stays on the tensor's device, and it reaches
+    ``counters`` when the recording ends."""
+    rec = _record
+    if rec is not None:
+        n = make()
+        prev = rec._on_device.get(name)
+        rec._on_device[name] = n if prev is None else prev + n
+
+
 @contextlib.contextmanager
 def recording():
     """Turns recording on for the ``with`` block and yields its
@@ -174,8 +197,9 @@ def recording():
     global _record
     if _record is not None:
         raise RuntimeError("already recording")
-    _record = Record()
+    rec = _record = Record()
     try:
-        yield _record
+        yield rec
     finally:
         _record = None
+        rec._read_device_counts()

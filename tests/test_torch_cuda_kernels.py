@@ -22,7 +22,9 @@ chunks, nfft 65,536), with the freq and pallas echo backends end to end on
 the card; the CPI kernels also at the upstream's 7,199 x 13,200 and
 7,200 x 13,200 and at two small odd shapes (chirp-z azimuth, mixed-radix
 range, tiles cut at the range edge), both CPI routes, and the auto path
-at the upstream's CPI with its spans and counters. Marked ``cuda``: they skip
+at the upstream's CPI with its spans and counters; HRWS's reconstruct_focus
+on the card against the CPU, and the spread's count of dropped targets
+against the CPU's. Marked ``cuda``: they skip
 where no CUDA device is present (the kernels have no CPU mode). On a GPU
 machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q``."""
 
@@ -1623,3 +1625,78 @@ def test_pallas_echo_backend_on_card(dev):
     want = gmti.simulate_two_channel(sc, ship, (4.0, 0.0, 0.0),
                                      device=dev)[0]
     assert _rel(got, want) <= 2e-4
+
+
+def test_hrws_reconstruct_focus_on_card(dev):
+    """HRWS on the card: ``reconstruct_focus(fft_impl='pallas')`` of a
+    seeded 4 x 200 x 165 collect (800 x 165 unfolded: chirp-z azimuth,
+    mixed-radix range) against the same on the CPU (the kernels' plain
+    versions): the reconstruction within 1e-5 of its peak (cuFFT and the
+    batched product written through the unfolded spectrum's transposed
+    view against the CPU's), the SLC within 2e-5 of its peak; a second
+    product builds no operator, factors or axis plans (no host copy); the
+    spans and counters as on the CPU."""
+    from nis_sar_amtigmti_video_tpu_torch.models import hrws
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    sc = config.ati_dpca()
+    g, prf, n_p, n_s = sc.geometry, 1500.0, 200, 165
+    v = g.effective_velocity_mps
+    p = hrws.HrwsParams(4, hrws.uniform_sampling_spacing(v, prf, 4), prf, v)
+    cp = csa.CsaParams(
+        wavelength_m=sc.radar.wavelength_m, chirp_rate=120e6 / 2e-6,
+        fs_hz=150e6, prf_hz=4 * prf, velocity_mps=v,
+        range_ref_m=g.slant_range_m,
+        t_start_fast=2.0 * g.slant_range_m / 299792458.0 - 1e-6,
+        num_pulses=4 * n_p, num_samples=n_s)
+    gen = torch.Generator().manual_seed(22)
+    raw = torch.randn((4, n_p, n_s), dtype=torch.complex64, generator=gen)
+    want_rec, want = hrws.reconstruct_focus(raw, p, cp, fft_impl="pallas")
+    hrws.reconstruct_focus(raw.to(dev), p, cp, fft_impl="pallas")
+    caches = (hrws.unfold_operator, hrws._factors, csa_kernel.axis_plans)
+    misses = [c.cache_info().misses for c in caches]
+    with profiling.recording() as rec:
+        rec_d, slc_d = hrws.reconstruct_focus(raw.to(dev), p, cp,
+                                              fft_impl="pallas")
+        torch.cuda.synchronize()
+    assert [c.cache_info().misses for c in caches] == misses
+    got_rec, got = rec_d.cpu(), slc_d.cpu()
+    assert float((got_rec - want_rec).abs().max()) \
+        <= 1e-5 * float(want_rec.abs().max())
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert rec.counters == {"hrws.bands": 4, "cpi.chirpz_axes": 2,
+                            "cpi.mixed_radix_axes": 2}
+    tree = rec.tree()
+    assert all(tree[f"focus.{k}"][0] == 1 for k in ("k1", "k2", "k3"))
+    assert tree["hrws.reconstruct/hrws.unfold"][0] == 1
+
+
+def test_echo_dropped_counts_on_card(dev):
+    """The card's spread route (``dense_kernel``) counts the (pulse,
+    target) pairs its group windows drop as the CPU's one-hot route does
+    on the same scene: none at the default windows, the same number where
+    the windows are cut to hold no group (``echo.dropped``)."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    sc = config.ati_dpca()
+    g = sc.geometry
+    traj = orbit.make_trajectory(g, orbit.slow_time_grid(32 / 6000, 32))
+    scene = targets.PointTargets.concatenate([
+        targets.destroyer(), ocean_clutter_field(np.random.default_rng(5),
+                                                 num_points=60)])
+    base = dict(fc_hz=sc.radar.fc_hz, chirp_rate=120e6 / 2e-6,
+                pulse_width_s=2e-6, fs_hz=150e6, num_samples=512,
+                endpoint_grid=False, backend="freq")
+    t0 = float(window_start_time(g.slant_range_m,
+                                 echo.EchoOpts(**base), 512 / 150e6,
+                                 "centered"))
+    counts = {}
+    for win, grp in ((None, None), (512, 1)):
+        for d, spreader in ((dev, "dense_kernel"), ("cpu", "dense")):
+            opts = echo.EchoOpts(**base, freq_spreader=spreader,
+                                 freq_spread_win=win, freq_spread_grp=grp)
+            with profiling.recording() as rec:
+                echo.multi_channel_phase_history(
+                    traj, scene, opts, t_start=t0, rx_offsets=(0.0,),
+                    device=d)
+            counts[win, str(d)] = rec.counters.get("echo.dropped", 0)
+    assert counts[None, str(dev)] == counts[None, "cpu"] == 0
+    assert counts[512, str(dev)] == counts[512, "cpu"] > 0

@@ -191,6 +191,25 @@ def test_spread_kernel_drops_all_taps_of_masked_targets(impl):
     assert np.abs(_np(gi) - np.asarray(wi)).max() < 1e-5 * scale
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_spread_dense_counts_dropped_targets(impl):
+    """The stage record counts the (pulse, target) pairs whose group window
+    cannot hold them (``echo.dropped``): the far target of each group of
+    four on both pulses where a window of 256 cells holds the near three
+    (a group's window starts up to 127 cells below its first target, at a
+    128-cell boundary), none where 1,024 cells hold them all."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    i0 = np.tile(np.array([[0, 5, 9, 400, 0, 3, 7, 420]]), (2, 1))
+    i0, sets = _spread_args(11, 2, 8, 6, 600, (0,), i0=i0)
+    vals = [(torch.from_numpy(a), torch.from_numpy(b), o)
+            for a, b, o in sets]
+    for win, dropped in ((256, 4), (1024, 0)):
+        with profiling.recording() as rec:
+            echo_freq._spread_dense(torch.from_numpy(i0), vals, 600, win,
+                                    2, impl=impl)
+        assert rec.counters == {"echo.dropped": dropped}
+
+
 @pytest.mark.parametrize("qr", [False, True])
 def test_spread_windows_plain_definition(qr):
     """The plain windows against a direct float64 loop over targets and

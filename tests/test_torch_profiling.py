@@ -19,8 +19,8 @@ from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
 from nis_sar_amtigmti_video_tpu_torch.models.stripmap import echo_opts_for
 from nis_sar_amtigmti_video_tpu_torch.ops import csa, echo
 from nis_sar_amtigmti_video_tpu_torch.scene import clutter, targets
-from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (count,
-                                                               recording, span)
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (
+    count, count_device, recording, span)
 
 # one intra-op thread: the suite runs in several processes at once,
 # and a torch OpenMP pool per process oversubscribes the cores
@@ -72,6 +72,27 @@ def test_counters_count_only_while_recording():
         count("segment.reused")
     count("segment.echoed")
     assert rec.counters == {"segment.echoed": 5, "segment.reused": 1}
+
+
+def test_device_counts_sum_where_they_are_and_read_at_the_end():
+    """A device count is made only while recording, summed on its tensor's
+    device, and reaches ``counters`` when the recording ends (beside the
+    host counts of the same name)."""
+    made = []
+
+    def make(n):
+        def f():
+            made.append(n)
+            return torch.tensor(n)
+        return f
+    count_device("echo.dropped", make(1))
+    with recording() as rec:
+        count_device("echo.dropped", make(2))
+        count_device("echo.dropped", make(3))
+        count("echo.dropped")
+        assert rec.counters == {"echo.dropped": 1}
+    assert made == [2, 3]
+    assert rec.counters == {"echo.dropped": 6}
 
 
 def test_recording_does_not_nest_and_ends_on_error():
