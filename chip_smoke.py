@@ -97,7 +97,9 @@ tile, coarse-tile factorized):
   8. videosar models.videosar.run(num_frames=6) on the destroyer scene with
               bp_backend 'fast_factor' and 'fast_pallas' (the pixel-tile
               accumulate kernel), each per frame (mode A) and on the spectra
-              ring (mode B): the kernels of each run launch, the
+              ring (mode B): the kernels of each run launch, one
+              direct-echo launch a segment (echo_direct, the 'jnp' engine
+              on the card; counters reset just before each run), the
               (6, 512, 512) frames are finite and the modes agree to 2e-3 of
               the peak; formation ms per frame of both backends in each mode
               on held inputs, timed in alternating pairs; then
@@ -132,7 +134,12 @@ and one-accumulator orders), FFT-conv and direct-echo kernels:
               staging's windows, bit for bit, timed beside it; the
               direct-echo kernel on the two launches of phase 12's pallas
               path (the ship's and the clutter's scalar fields, <= 2e-4);
-              times of each launch and its plain version
+              the fused direct engine (echo_direct) at a VideoSAR ring
+              segment (500 pulses x 35 targets x 22,004 samples, as
+              videosar.run holds them on the card) vs the plain chunked
+              engine (echo._direct) on the same card tensors (<= 2e-4; two
+              launches bit-identical); times of each launch and its plain
+              version
   11. e2e     multi_channel_phase_history(backend='freq') then
               focus_and_products: the spread of formed taps 2 x 29 (of
               values none), placement 2 x 29 and conv 29 launches a pass,
@@ -141,12 +148,15 @@ and one-accumulator orders), FFT-conv and direct-echo kernels:
               torch.profiler (device busy, idle share, device time by
               kernel and operator, aten::copy_ always); the same pass
               through the one-accumulator spread (<= 1e-5 of the peak)
-  12. gold    the freq echo vs the port's direct engine at 7,200 x 13,200 for
-              the destroyer moving at (0, 4, 0) m/s: field RMS error < -55
-              dB; after focus_and_products(balance=False), < 0.1 dB and
-              < 1e-3 rad ATI phase above 5 % of the peak; then
+  12. gold    the freq echo vs the port's plain direct engine (echo._direct
+              on the card) at 7,200 x 13,200 for the destroyer moving at
+              (0, 4, 0) m/s: field RMS error < -55 dB; after
+              focus_and_products(balance=False), < 0.1 dB and < 1e-3 rad
+              ATI phase above 5 % of the peak; the fused direct engine's
+              raw there vs the plain one (<= 2e-4); then
               simulate_two_channel(echo_backend='pallas') on phase 4's scene
-              vs phase 4's direct raw (<= 2e-4; the kernel launches)
+              and phase 4's raw (the fused engine) each vs the plain direct
+              engine's raw of that scene (<= 2e-4; the kernel launches)
 
 The line before the last is a JSON record of each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -156,6 +166,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -188,6 +199,7 @@ from nis_sar_amtigmti_video_tpu_torch.scene import targets
 from nis_sar_amtigmti_video_tpu_torch.scene.clutter import ocean_clutter_field
 from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (cuda_times_ms,
                                                                median_ms)
+from nis_sar_amtigmti_video_tpu_torch.video import scheduler
 
 N = 4096                      # the headline CPI: 4096 x 4096 after the shift
 # the upstream's CPI (sar_ati_dcpa_sim_csa.py): 7,199 x 13,200 after the
@@ -271,6 +283,11 @@ ECHO_WRAPPERS = {
         echo_kernel.echo_accumulate,
         "nis_sar_amtigmti_video_tpu_torch/csrc/echo_kernel.cu",
         "nis_sar_amtigmti_video_tpu/ops/pallas/echo_kernel.py:123"),
+    "echo_direct": (
+        echo_kernel.echo_direct,
+        "nis_sar_amtigmti_video_tpu_torch/csrc/echo_kernel.cu",
+        "none (the reference's direct engine is jnp: "
+        "nis_sar_amtigmti_video_tpu/ops/echo.py::_direct)"),
 }
 ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL, **ECHO_WRAPPERS}
 # the wrapper attribute counting an entry's launches, where not .launches
@@ -1222,7 +1239,11 @@ def phase_videosar(dev):
     cpi = sc.video.cpi_pulses(sc.radar.prf_hz)
     plan64, plan_cpi = acc_plans(p, traj, t0, cpi)
     ship = targets.destroyer()
-    launches, imgs = {}, {}
+    sched = videosar._schedule(sc, VS_FRAMES, None)[0]
+    step = sched.step_pulses
+    n_seg = len({int(s0) // step + j for s0 in sched.starts
+                 for j in range(sched.cpi_pulses // step)})
+    launches, imgs, direct = {}, {}, {}
     for backend in ("fast_factor", "fast_pallas"):
         kw = dict(heading_deg=SHIP_HEADING, speed_mps=SHIP_SPEED,
                   algorithm="mbp", bp_backend=backend, num_frames=VS_FRAMES,
@@ -1236,13 +1257,18 @@ def phase_videosar(dev):
             torch.cuda.synchronize(dev)
             secs = time.perf_counter() - t
             launches[backend, mode] = launch_counts(BP_ALL)
+            direct[backend, mode] = echo_kernel.echo_direct.launches
+            assert direct[backend, mode] == n_seg, (backend, mode, n_seg,
+                                                    direct[backend, mode])
             imgs[backend, mode] = out.images
             assert out.images.shape == (VS_FRAMES, 512, 512), out.images.shape
             assert np.isfinite(out.images).all(), (backend, mode)
             peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
             print(f"[8 videosar] {backend} mode {mode}: run {secs:.2f} s "
                   f"(echo included); launches {launches[backend, mode]}; "
-                  f"peak memory {peak_gib:.2f} GiB")
+                  f"direct-echo launches {direct[backend, mode]} (one a "
+                  f"segment, {n_seg} segments); peak memory {peak_gib:.2f} "
+                  f"GiB")
         for b, m, k in ((backend, "A", "recenter_presum"),
                         (backend, "B", "forward_spectra"),
                         (backend, "B", "recentre_from_spectra")):
@@ -1263,7 +1289,6 @@ def phase_videosar(dev):
     vel = np.array([SHIP_SPEED * math.cos(phi), SHIP_SPEED * math.sin(phi),
                     0.0])
     tgt = ship.rotate_z(SHIP_HEADING)
-    step = sc.video.step_pulses(sc.radar.prf_hz)
     n_pulses = cpi + (VS_FRAMES - 1) * step
     t = time.perf_counter()
     phase_history(traj.slice(0, n_pulses), tgt, opts, t_start=t0,
@@ -1344,6 +1369,7 @@ def phase_videosar(dev):
         + launches["fast_pallas", "B"]["accumulate_pallas"])
     totals["accumulate_factor_pallas"] = launches["factor_kernel"][
         "accumulate_factor_pallas"]
+    totals["echo_direct"] = direct["fast_factor", "B"]      # the ring's
     frames0 = {"fast_factor mode A": imgs["fast_factor", "A"][0],
                "fast_pallas mode A": imgs["fast_pallas", "A"][0],
                "factor_kernel": img_fk.cpu().numpy()}
@@ -1448,6 +1474,46 @@ def slice_echo_operands(dev):
             echo.echo_kernel_args(opts, dev))
 
 
+def plain_direct(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel, opts,
+                 *, rx_offsets, t_start: float) -> torch.Tensor:
+    """echo_kernel.echo_direct's function through the direct engine's plain
+    chunked code (echo._direct, channel by channel) on the same tensors:
+    what the fused kernel is held against on the card."""
+    amp = echo._amplitudes(tgt_rcs, opts)
+    return torch.cat([echo._direct(t_slow, sat_pos, sat_vel, tgt_pos, amp,
+                                   tgt_vel, float(off), t_start, opts)
+                      for off in rx_offsets])
+
+
+@contextlib.contextmanager
+def plain_direct_engine():
+    """Inside, the 'jnp' engine on the card runs :func:`plain_direct` in
+    place of the fused kernel (what echo._phase_history looks up at each
+    call), so a model's raw can be held against the plain engine's."""
+    fused = echo_kernel.echo_direct
+    echo_kernel.echo_direct = plain_direct
+    try:
+        yield
+    finally:
+        echo_kernel.echo_direct = fused
+
+
+def ring_segment_operands(dev):
+    """The direct engine's operands of one VideoSAR ring segment as
+    videosar.run holds them on the card: config.videosar()'s collect and
+    the destroyer at SHIP_HEADING and SHIP_SPEED; segment 25, 500 pulses
+    x 35 targets x 22,004 samples (row windows of the device-resident
+    trajectory); its echo options and window start."""
+    sc = config.videosar()
+    sched = scheduler.make_schedule(sc.video, sc.radar.prf_hz)
+    step = sched.step_pulses
+    g = videosar._scene(sc, targets.destroyer(), sched, SHIP_HEADING,
+                        SHIP_SPEED, None, None, dev)
+    pos, vel, ts = videosar._window(g.on.traj, 25 * step, step)
+    return ((ts, pos, vel, g.on.tgt_pos, g.on.tgt_rcs, g.on.tgt_vel),
+            g.opts, float(g.t0))
+
+
 def spread_work(c, v, win):
     """(bytes, operations) of one spread launch: cells and values read once,
     the windows written once; two adds per live target, tap and set."""
@@ -1499,6 +1565,23 @@ def echo_work(tau, kw):
     ns = t_fast.shape[0]
     return (4.0 * (3 * num_p * num_b + ns) + 8.0 * num_p * ns,
             2.0 * num_p * num_b + 9.0 * n_gate, 2.0 * n_gate), n_gate
+
+
+def direct_work(args, opts, t0):
+    """(bytes, f32 operations, sin / cos results) of one fused direct-echo
+    launch of one channel, and the triples inside the gate: echo_work's
+    count on the delays the launch forms (echo._scalar_fields at every
+    pulse), with the float64 pulses and targets read once in place of the
+    scalar fields. The float64 geometry of the (pulse, target) pairs, a
+    few hundred operations each, is left out."""
+    t, p, v, pos, rcs, tv = args
+    tau = echo._scalar_fields(t, p, v, pos, echo._amplitudes(rcs, opts), tv,
+                              [0.0], t0, opts, 0)[0]
+    (n_bytes, flops, sfu), n_gate = echo_work(
+        tau, echo.echo_kernel_args(opts, t.device))
+    num_p, num_b = tau.shape
+    n_bytes += 8.0 * (7 * num_p + 4 * num_b + 3) - 12.0 * num_p * num_b
+    return (n_bytes, flops, sfu), n_gate
 
 
 def place_operands(fields, opts):
@@ -1699,6 +1782,36 @@ def phase_echo_kernels(dev, setup) -> dict:
         ms=sum(q["ms"] for q in parts.values()),
         plain_ms=sum(q["plain_ms"] for q in parts.values()),
         library_ms=None, **bound(*work), per_launch=parts)
+    del fields
+
+    args, opts_r, t0_r = ring_segment_operands(dev)
+
+    def fused():
+        return echo_kernel.echo_direct(*args, opts_r, rx_offsets=[0.0],
+                                       t_start=t0_r)
+
+    def plain():
+        return plain_direct(*args, opts_r, rx_offsets=[0.0], t_start=t0_r)
+
+    got, again, want = fused(), fused(), plain()
+    err = rel_err(got, want)
+    assert err <= 2e-4 and torch.equal(got, again), err
+    w, n_gate = direct_work(args, opts_r, t0_r)
+    shape = (args[0].shape[0], args[3].shape[0], opts_r.num_samples)
+    plain_ms = median_ms(plain)
+    # the plain engine is itself the PyTorch composition of the function
+    rec["echo_direct"] = dict(
+        max_abs_err=float((got - want).abs().max()), ms=median_ms(fused),
+        plain_ms=plain_ms, library_ms=plain_ms, shape=list(shape),
+        n_gate=n_gate, **bound(*w))
+    r = rec["echo_direct"]
+    print(f"[10 echo] echo_direct ring segment: {shape} (pulses, targets, "
+          f"samples), {n_gate:.4e} triples in the gate; vs the plain engine "
+          f"{err:.2e} of the peak (<= 2e-4), two launches bit-identical; "
+          f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{r['bound_ms'] / r['ms']:.1%} of it)")
+    del got, again, want
     return rec
 
 
@@ -1765,7 +1878,7 @@ def phase_e2e(dev, setup) -> dict:
     counts = launch_counts(ECHO_WRAPPERS)
     want = {"spread": 0, "spread_qr": 0, "spread_taps": 2 * E2E_CHUNKS,
             "fft_conv": E2E_CHUNKS, "place": 2 * E2E_CHUNKS,
-            "echo_accumulate": 0}
+            "echo_accumulate": 0, "echo_direct": 0}
     assert counts == want, counts
     n_p, ns = setup[4].times.shape[0], opts.num_samples
     assert raw.shape == (2, n_p, ns), raw.shape
@@ -1817,17 +1930,25 @@ def phase_e2e(dev, setup) -> dict:
 
 
 def phase_echo_gold(dev, sc, raw4, sc4):
-    """The freq echo against the port's direct engine on ``sc``'s collect
-    (config.ati_dpca(): 7,200 x 13,200; the destroyer alone, moving), raw
-    and focused; then echo_backend='pallas' on phase 4's scene against
-    phase 4's raw."""
+    """The freq echo against the port's plain direct engine (echo._direct
+    on the card) on ``sc``'s collect (config.ati_dpca(): 7,200 x 13,200;
+    the destroyer alone, moving), raw and focused, and the fused direct
+    engine's raw against the plain one there; then echo_backend='pallas'
+    on phase 4's scene, and phase 4's raw (the fused engine), against the
+    plain engine's raw of that scene."""
     ship, vel = targets.destroyer().rotate_z(90.0), (0.0, 4.0, 0.0)
     raws, prods = {}, {}
     for backend in ("freq", "jnp"):
         sc_b = sc.replace(collect=dataclasses.replace(
             sc.collect, echo_backend=backend, window_start_mode="centered"))
-        raws[backend], _, t0 = gmti.simulate_two_channel(sc_b, ship, vel,
-                                                         device=dev)
+        with (plain_direct_engine() if backend == "jnp"
+              else contextlib.nullcontext()):
+            raws[backend], _, t0 = gmti.simulate_two_channel(sc_b, ship, vel,
+                                                             device=dev)
+        if backend == "jnp":       # the fused engine against the plain one
+            fused_err = rel_err(gmti.simulate_two_channel(
+                sc_b, ship, vel, device=dev)[0], raws["jnp"])
+            assert fused_err <= 2e-4, fused_err
         prod = gmti.focus_and_products(raws[backend], sc_b, t0,
                                        balance=False)
         prods[backend] = (prod.slc1, prod.slc2)
@@ -1848,11 +1969,12 @@ def phase_echo_gold(dev, sc, raw4, sc4):
                              * (s1d * s2d.conj())[strong].conj()).abs().max())
     n_strong = int(strong.sum())
     del prods, s1d, s2d, s1f, s2f, strong
-    print(f"[12 gold] freq vs direct echo at {shape}, destroyer at "
-          f"(0, 4, 0) m/s: field RMS error {err_db:.2f} dB (< -55); after "
-          f"focus_and_products(balance=False), on {n_strong} px above 5 % of"
-          f" the peak: intensity {db:.2e} dB (< 0.1), ATI phase {dphi:.2e} "
-          f"rad (< 1e-3)")
+    print(f"[12 gold] freq vs the plain direct echo at {shape}, destroyer "
+          f"at (0, 4, 0) m/s: field RMS error {err_db:.2f} dB (< -55); after"
+          f" focus_and_products(balance=False), on {n_strong} px above 5 % "
+          f"of the peak: intensity {db:.2e} dB (< 0.1), ATI phase "
+          f"{dphi:.2e} rad (< 1e-3); the fused direct engine's raw "
+          f"{fused_err:.2e} of the peak from the plain one (<= 2e-4)")
     assert err_db < -55 and db < 0.1 and dphi < 1e-3, (err_db, db, dphi)
 
     sc_p = sc4.replace(collect=dataclasses.replace(sc4.collect,
@@ -1864,11 +1986,16 @@ def phase_echo_gold(dev, sc, raw4, sc4):
     torch.cuda.synchronize(dev)
     n = echo_kernel.echo_accumulate.launches
     assert n == 2, n                       # the ship and the clutter
-    err = rel_err(raw_p, raw4)
-    assert err <= 2e-4, err
+    with plain_direct_engine():
+        raw_plain = gmti.simulate_two_channel(sc4, targets.destroyer(),
+                                              SHIP_VELOCITY, clut,
+                                              device=dev)[0]
+    err, err4 = rel_err(raw_p, raw_plain), rel_err(raw4, raw_plain)
+    assert err <= 2e-4 and err4 <= 2e-4, (err, err4)
     print(f"[12 gold] simulate_two_channel(echo_backend='pallas') on phase "
           f"4's scene: {n} kernel launches (ship, clutter); raw {err:.2e} of"
-          f" the peak from phase 4's direct raw (<= 2e-4)")
+          f" the peak from the plain direct engine's raw (<= 2e-4); phase "
+          f"4's raw (the fused direct engine) {err4:.2e} from it (<= 2e-4)")
     return n
 
 

@@ -39,7 +39,8 @@ from nis_sar_amtigmti_video_tpu_torch.ops import bp_fast
 from nis_sar_amtigmti_video_tpu_torch.ops import csa as csa_ops
 from nis_sar_amtigmti_video_tpu_torch.ops import noise as noise_ops
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import bp_kernel, fft_kernel
-from nis_sar_amtigmti_video_tpu_torch.ops.echo import (EchoOpts, phase_history,
+from nis_sar_amtigmti_video_tpu_torch.ops.echo import (EchoOpts, _phase_history,
+                                                       phase_history,
                                                        window_start_time)
 from nis_sar_amtigmti_video_tpu_torch.parallel import pipeline
 from nis_sar_amtigmti_video_tpu_torch.scene.targets import PointTargets
@@ -284,7 +285,8 @@ def record(sc: ScenarioConfig, targets: PointTargets, *,
     complex64 tensor on ``device``: what ``run(raw=...)`` takes."""
     dev = entry_device(device)
     sched = scheduler.make_schedule(sc.video, sc.radar.prf_hz)
-    g = _scene(sc, targets, sched, heading_deg, speed_mps, seed, avg_rcs)
+    g = _scene(sc, targets, sched, heading_deg, speed_mps, seed, avg_rcs,
+               dev)
     step = sched.step_pulses
     out = torch.empty((sched.total_pulses, g.opts.num_samples),
                       dtype=torch.complex64, device=dev)
@@ -323,17 +325,31 @@ def _check_held(raw, sc: ScenarioConfig, sched, dev, algorithm, seed,
 class _Scene(NamedTuple):
     """A collect's geometry and echo: trajectory, rotated targets and
     their velocity, echo options, receive window start, noise SNR (None:
-    noise-free)."""
+    noise-free), and the trajectory and targets on the run's device
+    (:class:`_OnDevice`)."""
     traj: orbit.Trajectory
     tgt: PointTargets
     vel_tgt: np.ndarray
     opts: EchoOpts
     t0: float
     snr_raw: float | None
+    on: "_OnDevice"
+
+
+class _OnDevice(NamedTuple):
+    """A collect's float64 trajectory (``traj``: positions, velocities,
+    times, a row each pulse) and targets (positions (B, 3), RCS, their
+    velocity (3,)) on the run's device, copied there once a call: a
+    segment's echo and a frame's trajectory are row windows of them
+    (:func:`_window`), so neither copies anything from the host."""
+    traj: tuple
+    tgt_pos: torch.Tensor
+    tgt_rcs: torch.Tensor
+    tgt_vel: torch.Tensor
 
 
 def _scene(sc: ScenarioConfig, targets: PointTargets, sched, heading_deg,
-           speed_mps, seed, avg_rcs) -> _Scene:
+           speed_mps, seed, avg_rcs, dev) -> _Scene:
     r, g, v = sc.radar, sc.geometry, sc.video
     times = np.linspace(-v.duration_s / 2.0, v.duration_s / 2.0,
                         sched.total_pulses)
@@ -353,17 +369,22 @@ def _scene(sc: ScenarioConfig, targets: PointTargets, sched, heading_deg,
         rcs = avg_rcs if avg_rcs is not None else 5000.0
         snr_raw, _ = noise_ops.snr_db(sc.noise, g.slant_range_m, rcs,
                                       r.wavelength_m, r.bandwidth_hz, None)
-    return _Scene(traj, tgt, vel_tgt, opts, t0, snr_raw)
+    on = _OnDevice(_trajectory_on(traj, dev),
+                   _f64(tgt.positions, dev).reshape(-1, 3),
+                   _f64(tgt.rcs, dev), _f64(vel_tgt, dev))
+    return _Scene(traj, tgt, vel_tgt, opts, t0, snr_raw, on)
 
 
 def _segment_raw(sc: ScenarioConfig, g: _Scene, s: int, step: int, seed,
                  dev) -> torch.Tensor:
-    """Segment s (pulses [s step, (s + 1) step)): its echo, plus its noise
-    from stream SEGMENT_STREAM + s where ``g`` has an SNR."""
-    sl = g.traj.slice(s * step, (s + 1) * step)
+    """Segment s (pulses [s step, (s + 1) step)): its echo, from row
+    windows of the trajectory and the targets on the device (no copy from
+    the host), plus its noise from stream SEGMENT_STREAM + s where ``g``
+    has an SNR."""
+    pos, vel, ts = _window(g.on.traj, s * step, step)
     with span("segment.echo", s=s):
-        raw_s = phase_history(sl, g.tgt, g.opts, t_start=g.t0,
-                              target_velocity=g.vel_tgt, device=dev)
+        raw_s = _phase_history(ts, pos, vel, g.on.tgt_pos, g.on.tgt_rcs,
+                               g.on.tgt_vel, [0.0], float(g.t0), g.opts)
     if g.snr_raw is not None:
         with span("segment.noise", s=s):
             raw_s = noise_ops.add_ocean_noise(
@@ -393,8 +414,9 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
          noise_mode, stream_spectra, raw) -> VideoFrames:
     """:func:`run` on its schedule and device."""
     r, g = sc.radar, sc.geometry
-    scene = _scene(sc, targets, sched, heading_deg, speed_mps, seed, avg_rcs)
-    traj, tgt, vel_tgt, opts, t0, snr_raw = scene
+    scene = _scene(sc, targets, sched, heading_deg, speed_mps, seed, avg_rcs,
+                   dev)
+    traj, tgt, vel_tgt, opts, t0, snr_raw, on = scene
     swath = sc.processing.bp_scene_size_m
 
     vel_focus = vel_tgt if algorithm == "mbp" else np.zeros(3)
@@ -529,10 +551,8 @@ def _run(sc, targets, sched, orig_idx, dev, heading_deg, speed_mps,
         _drop_stale(s0)
         return sp
 
-    traj_on = _trajectory_on(traj, dev)
-
     def frame_traj(f):
-        return _window(traj_on, int(sched.starts[f]), sched.cpi_pulses)
+        return _window(on.traj, int(sched.starts[f]), sched.cpi_pulses)
 
     f_total = sched.num_frames
     vf = _f64(vel_focus, dev)

@@ -1,20 +1,32 @@
 """The direct point-target echo accumulation.
 
 Counterpart of ``nis_sar_amtigmti_video_tpu/ops/pallas/echo_kernel.py``
-(``echo_accumulate``): the sum over targets of the gated chirp echo, from
-the per-(pulse, target) float32 scalars of ``ops/echo.py``'s float64
-geometry pass (``backend='pallas'``). :func:`echo_accumulate` runs its plain
-version for CPU tensors, and launches the hand-written CUDA kernel of
-``csrc/echo_kernel.cu`` or raises for CUDA tensors. The TPU tiling knobs
-``pulse_tile``, ``ns_tile`` and ``target_tile`` are not ported, and
-``interpret=True`` raises: the port has no kernel interpreter.
+(``echo_accumulate``): the sum over targets of the gated chirp echo, in two
+forms that share one CUDA kernel template (``csrc/echo_kernel.cu``):
+
+* :func:`echo_accumulate` (``backend='pallas'``) from the per-(pulse,
+  target) float32 scalars of ``ops/echo.py``'s float64 geometry pass;
+* :func:`echo_direct` (the ``'jnp'`` direct engine on the card), which forms
+  those scalars itself from the float64 pulses and targets, one launch a
+  channel, with no (pulse, target) field in device memory.
+
+:func:`echo_accumulate` runs its plain version for CPU tensors;
+:func:`echo_direct` takes only CUDA tensors (on the CPU the direct engine
+is ``ops/echo.py::_direct``). On the card each launches the kernel or
+raises. The TPU tiling knobs ``pulse_tile``, ``ns_tile`` and
+``target_tile`` are not ported, and ``interpret=True`` raises: the port has
+no kernel interpreter.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from nis_sar_amtigmti_video_tpu_torch.ops import echo
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build
+from nis_sar_amtigmti_video_tpu_torch.utils.profiling import count
 
 C64 = torch.complex64
 _WORK = 1 << 25            # (pulses x targets x samples) per plain step
@@ -77,3 +89,51 @@ def echo_accumulate(tau_rel, carrier, amp, t_fast, *, k_pi: float,
 
 
 echo_accumulate.launches = 0
+
+
+def echo_direct(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel, opts,
+                *, rx_offsets, t_start: float) -> torch.Tensor:
+    """The direct engine (``ops/echo.py``, ``backend='jnp'``) of every
+    channel of ``rx_offsets``: (C * P, Ns) complex64, channel-major.
+
+    Float64 pulses t_slow (P,), sat_pos, sat_vel (P, 3), targets tgt_pos
+    (B, 3), tgt_rcs (B,) and their velocity tgt_vel (3,), all on one device;
+    ``opts`` an ``echo.EchoOpts``. On the card, one launch a channel forms
+    each (pulse, target)'s delay, carrier and amplitude in float64 as
+    ``ops/echo.py::_geometry`` does and sums the gated chirps; nothing is
+    copied from the host once the fast-time grid is on the device (its
+    first use). CPU tensors raise: ``echo._phase_history`` runs the plain
+    engine (``echo._direct``) there."""
+    if _build.on_cpu(t_slow):
+        raise ValueError("echo_direct launches the CUDA kernel: on the CPU "
+                         "the direct engine is ops/echo.py::_direct")
+    dev = t_slow.device
+    num_p, num_b, ns = t_slow.shape[0], tgt_pos.shape[0], opts.num_samples
+    f64 = torch.float64
+    _build.check("echo_direct", (t_slow,), (num_p,), dev, f64)
+    _build.check("echo_direct", (sat_pos, sat_vel), (num_p, 3), dev, f64)
+    _build.check("echo_direct", (tgt_pos,), (num_b, 3), dev, f64)
+    _build.check("echo_direct", (tgt_rcs,), (num_b,), dev, f64)
+    _build.check("echo_direct", (tgt_vel,), (3,), dev, f64)
+    offs = [float(o) for o in rx_offsets]
+    out = torch.empty((len(offs) * num_p, ns), dtype=C64, device=dev)
+    if num_p == 0 or ns == 0:
+        return out
+    t_fast = echo.fast_time_on(opts, dev)
+    ant_k = (math.pi * opts.antenna_length_m / (echo._C / opts.fc_hz)
+             if opts.antenna_length_m > 0.0 else 0.0)
+    ints = (num_p, num_b, ns, int(opts.stop_and_go),
+            int(opts.amplitude == "sqrt_rcs"))
+    floats = (math.pi * opts.chirp_rate, opts.chirp_shift, opts.half_width)
+    for c, off in enumerate(offs):
+        _build.launch("echo_direct_launch",
+                      (t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel,
+                       t_fast, out[c * num_p:(c + 1) * num_p]), ints, floats,
+                      (off, float(t_start), -echo._TWO_PI * opts.fc_hz,
+                       ant_k))
+        echo_direct.launches += 1
+        count("echo.direct")
+    return out
+
+
+echo_direct.launches = 0

@@ -4,10 +4,13 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/ops/echo.py``: monostatic /
 bistatic two-phase-center echoes, moving targets, sinc^2 antenna pattern and
 stop-and-go Rx, as options on one generator, with the reference's backends:
 
-* ``'jnp'``: the direct engine, plain PyTorch. Pulses and targets go in
-  fixed-size chunks that bound the (pulse_chunk x target_chunk x samples)
-  work tensor; the chunk plan only changes the association of the target
-  sum, not the result's class.
+* ``'jnp'``: the direct engine. On the CPU plain PyTorch: pulses and
+  targets go in fixed-size chunks that bound the (pulse_chunk x
+  target_chunk x samples) work tensor; the chunk plan only changes the
+  association of the target sum, not the result's class. On the card one
+  hand-written launch a channel (``ops/cuda/echo_kernel.py::echo_direct``)
+  forms the same float64 geometry and sums the gated chirps, each sample's
+  targets in order.
 * ``'freq'``: the NUFFT engine (``ops/echo_freq.py::synthesize``), fed by a
   two-pass scalar-field branch: float64 geometry for every (pulse, target),
   anchored every ``freq_geom_stride`` pulses with quadratic interpolation
@@ -26,6 +29,7 @@ is wrapped mod 2*pi in float64 and *then* cast to float32, so the large
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -320,10 +324,18 @@ def _amplitudes(tgt_rcs, opts: EchoOpts):
 def _phase_history(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel,
                    offsets, t_start: float, opts: EchoOpts) -> torch.Tensor:
     """Float64 tensor args on one device; ``offsets`` the channels' Rx
-    offsets (the 'jnp' engine runs them one by one, the scalar-field
-    backends in one pass). Returns (C * P, Ns) complex64 there,
-    channel-major."""
+    offsets (the 'jnp' engine runs them one by one: on the card one
+    launch of ``ops/cuda/echo_kernel.py::echo_direct`` each, elsewhere
+    :func:`_direct`; the scalar-field backends in one pass). Returns
+    (C * P, Ns) complex64 there, channel-major."""
     _check_backend(opts)
+    if opts.backend == "jnp" and t_slow.is_cuda:
+        # the direct engine on the card: one hand-written launch a channel
+        from nis_sar_amtigmti_video_tpu_torch.ops.cuda.echo_kernel import (
+            echo_direct)
+        return echo_direct(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs,
+                           tgt_vel, opts, rx_offsets=offsets,
+                           t_start=t_start)
     dev = t_slow.device
     num_p, num_b, ns = t_slow.shape[0], tgt_pos.shape[0], opts.num_samples
     if num_b == 0:                       # empty scene: pure zeros
@@ -344,12 +356,20 @@ def _phase_history(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel,
     return echo_accumulate(tau, car, amp, **echo_kernel_args(opts, dev))
 
 
+@functools.lru_cache(maxsize=32)
+def fast_time_on(opts: EchoOpts, device) -> torch.Tensor:
+    """:func:`fast_time_grid` in float32 on ``device``, the direct-echo
+    kernel's grid: copied there once a process for each (options, device),
+    so that a launch copies nothing from the host. Read, never written."""
+    return torch.as_tensor(fast_time_grid(opts), device=device).to(
+        torch.float32)
+
+
 def echo_kernel_args(opts: EchoOpts, device) -> dict:
     """The 'pallas' backend's arguments of ``echo_accumulate`` beside the
     scalar fields: t_fast (Ns,) float32 on ``device``, k_pi, shift, half."""
-    t_fast = torch.as_tensor(fast_time_grid(opts), device=device).to(
-        torch.float32)
-    return dict(t_fast=t_fast, k_pi=float(math.pi * opts.chirp_rate),
+    return dict(t_fast=fast_time_on(opts, device),
+                k_pi=float(math.pi * opts.chirp_rate),
                 shift=float(opts.chirp_shift), half=float(opts.half_width))
 
 

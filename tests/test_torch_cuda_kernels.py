@@ -1275,6 +1275,150 @@ def test_echo_accumulate_matches_plain(dev, waveform):
     assert _rel(got, want) <= 2e-4
 
 
+# the direct engine's fused route (echo_kernel.echo_direct, the 'jnp'
+# backend on the card) at the spotlight waveform: 500 MHz, 20 us, fs 600
+# MHz, 22,004 samples, stop-and-go, the sinc^2 antenna, the destroyer at
+# 15 m/s, 40 pulses
+C0 = 299792458.0
+DIRECT_CASES = {
+    "spotlight": {},
+    "two channels": dict(offsets=(-1.5, 1.5)),
+    "endpoint grid": dict(opts=dict(endpoint_grid=True)),
+    "leading": dict(opts=dict(chirp_centering="leading")),
+    "gate over the start": dict(edge="start"),
+    "gate over the end": dict(edge="end"),
+    "empty scene": dict(empty=True),
+}
+
+
+def _direct_operands(dev, case, n_p=40):
+    """The spotlight collect's 40 pulses about broadside and the heading-
+    60 destroyer at 15 m/s on ``dev`` (float64, as ``_phase_history``
+    takes them), its echo options, Rx offsets and window start (centred,
+    or a start that puts the gates over the window's first or last
+    sample)."""
+    c = DIRECT_CASES[case]
+    sc = config.videosar()
+    g = sc.geometry
+    opts = dataclasses.replace(videosar.spotlight_echo_opts(
+        sc, videosar.antenna_length_for_swath(sc, 500.0)),
+        **c.get("opts", {}))
+    traj = orbit.make_trajectory(
+        g, (np.arange(n_p) - n_p / 2) / sc.radar.prf_hz)
+    ship = targets.destroyer().rotate_z(60.0)
+    if c.get("empty"):
+        ship = targets.PointTargets(np.zeros((0, 3)), np.zeros(0), ())
+    vel = (15.0 * math.cos(math.radians(60.0)),
+           15.0 * math.sin(math.radians(60.0)), 0.0)
+    win, tau_c = opts.num_samples / opts.fs_hz, 2.0 * g.slant_range_m / C0
+    lo = tau_c + opts.chirp_shift - opts.half_width
+    t0 = {None: window_start_time(g.slant_range_m, opts,
+                                  sc.collect.window_length_s, "centered"),
+          "start": lo + 0.3 * opts.pulse_width_s,
+          "end": lo + opts.pulse_width_s - win - 0.3 * opts.pulse_width_s,
+          }[c.get("edge")]
+    return (echo._inputs(traj, ship, vel, dev), opts,
+            list(c.get("offsets", (0.0,))), float(t0))
+
+
+@pytest.mark.parametrize("case", sorted(DIRECT_CASES))
+def test_direct_echo_kernel_matches_plain(dev, case):
+    """The direct engine on the card (one echo_accumulate_kernel<true>
+    launch a channel, the float64 geometry formed in the kernel) against
+    its plain chunked code (_direct) on the same card tensors, channel by
+    channel: within 2e-4 of the peak, as the kernel's 'pallas' form is held
+    to its plain version; the launch count and the ``echo.direct`` counter
+    rise by one a channel; the gate cases reach the window's edge."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    args, opts, offs, t0 = _direct_operands(dev, case)
+    t, p, v, pos, rcs, tv = args
+    before = echo_kernel.echo_direct.launches
+    with profiling.recording() as rec:
+        got = echo._phase_history(*args, offs, t0, opts)
+        torch.cuda.synchronize()
+    assert echo_kernel.echo_direct.launches == before + len(offs)
+    assert rec.counters == {"echo.direct": len(offs)}
+    assert got.shape == (len(offs) * 40, opts.num_samples)
+    if pos.shape[0] == 0:
+        assert not bool(got.abs().any())
+        return
+    want = torch.cat([echo._direct(t, p, v, pos, echo._amplitudes(rcs, opts),
+                                   tv, off, t0, opts) for off in offs])
+    assert float(want.abs().max()) > 0
+    assert _rel(got, want) <= 2e-4
+    edge = DIRECT_CASES[case].get("edge")
+    if edge is not None:
+        assert float(got[:, 0 if edge == "start" else -1].abs().max()) > 0
+
+
+def test_direct_echo_launches_only_its_kernel(dev):
+    """The direct engine's device work on the card is one
+    echo_accumulate_kernel<true> launch a channel and nothing else (its
+    fast-time grid on the card from the first call)."""
+    args, opts, _, t0 = _direct_operands(dev, "spotlight")
+    echo._phase_history(*args, [-1.5, 1.5], t0, opts)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        echo._phase_history(*args, [-1.5, 1.5], t0, opts)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert all("echo_accumulate_kernel<true>" in k for k in kernels), kernels
+
+
+def test_direct_echo_refuses_what_the_kernel_does_not_take(dev):
+    """echo_direct on the card raises, and launches nothing, for float32
+    or non-contiguous pulses, targets on another device and a misshapen
+    target velocity; it never falls back to the plain chain."""
+    args, opts, offs, t0 = _direct_operands(dev, "spotlight")
+    t, p, v, pos, rcs, tv = args
+    before = echo_kernel.echo_direct.launches
+    bad = {"float32 times": ((t.float(), p, v, pos, rcs, tv), TypeError),
+           "strided positions": ((t, torch.cat([p, p], 1)[:, ::2], v, pos,
+                                  rcs, tv), ValueError),
+           "targets on the host": ((t, p, v, pos.cpu(), rcs, tv),
+                                   ValueError),
+           "velocity (1, 3)": ((t, p, v, pos, rcs, tv[None]), ValueError)}
+    for name, (a, err) in bad.items():
+        with pytest.raises(err):
+            echo_kernel.echo_direct(*a, opts, rx_offsets=offs, t_start=t0)
+    assert echo_kernel.echo_direct.launches == before
+
+
+def test_segment_raw_has_no_host_sync_on_card(dev):
+    """A VideoSAR segment (the spotlight collect's 500 pulses, echo and
+    noise) from the device-resident trajectory and targets: no host
+    synchronise once the run is set up (``set_sync_debug_mode('error')``),
+    one direct launch a segment, and the echo within 2e-4 of the peak of
+    the direct engine's plain code on the same rows."""
+    from nis_sar_amtigmti_video_tpu_torch.video import scheduler
+    sc = config.videosar()
+    sched = scheduler.make_schedule(sc.video, sc.radar.prf_hz)
+    step, seed = sched.step_pulses, 2 ** 33 + 5
+    g = videosar._scene(sc, targets.destroyer(), sched, 60.0, 15.0, seed,
+                        None, dev)
+    videosar._segment_raw(sc, g, 0, step, seed, dev)    # the grid's copy
+    torch.cuda.synchronize()
+    before = echo_kernel.echo_direct.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        noisy = videosar._segment_raw(sc, g, 7, step, seed, dev)
+        clean = videosar._segment_raw(sc, g._replace(snr_raw=None), 7, step,
+                                      None, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert echo_kernel.echo_direct.launches == before + 2
+    assert noisy.shape == clean.shape == (step, g.opts.num_samples)
+    assert bool(torch.isfinite(torch.view_as_real(noisy)).all())
+    pos, vel, ts = videosar._window(g.on.traj, 7 * step, step)
+    want = echo._direct(ts, pos, vel, g.on.tgt_pos,
+                        echo._amplitudes(g.on.tgt_rcs, g.opts), g.on.tgt_vel,
+                        0.0, g.t0, g.opts)
+    assert _rel(clean, want) <= 2e-4
+
+
 def _freq_kw(**kw):
     base = dict(fc_hz=9.65e9, chirp_rate=50e6 / 2e-6, pulse_width_s=2e-6,
                 fs_hz=60e6, num_samples=4000, endpoint_grid=False,
