@@ -156,11 +156,12 @@ def focus(rec: torch.Tensor, csa_params: csa_ops.CsaParams,
     their plain versions on CPU tensors), the factors built once per
     (params, device) and kept there; any other: the grid-phase CSA
     (``apply_csa`` on ``csa_phases``, the reference's ``focus_csa``)."""
-    if fft_impl == "pallas":
-        return csa_ops.apply_csa_fused(
-            rec, _factors(csa_params, rec.device), "pallas")
-    return csa_ops.apply_csa(rec, csa_ops.csa_phases(csa_params, rec.device),
-                             fft_impl)
+    with span("hrws.focus"):
+        if fft_impl == "pallas":
+            return csa_ops.apply_csa_fused(
+                rec, _factors(csa_params, rec.device), "pallas")
+        return csa_ops.apply_csa(
+            rec, csa_ops.csa_phases(csa_params, rec.device), fft_impl)
 
 
 @functools.lru_cache(maxsize=4)

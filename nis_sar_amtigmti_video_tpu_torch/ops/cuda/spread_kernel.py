@@ -388,7 +388,7 @@ def place_windows(wins: torch.Tensor, base: torch.Tensor, offsets,
     ``place_windows_kernel`` of ``csrc/spread_kernel.cu`` (bound by bytes:
     one read of every window cell in the cropped field, one write of every
     field cell) or raise. Each launch adds one to
-    ``place_windows.launches`` and to the stage record's ``echo.place``."""
+    ``place_windows.launches``."""
     pc, grp, win = _check_place("place_windows", wins, base, offsets, start,
                                 l_out)
     if _build.on_cpu(wins):
@@ -419,7 +419,6 @@ def place_windows(wins: torch.Tensor, base: torch.Tensor, offsets,
                   (pc, grp, len(offsets), win, start, l_out, row_stride,
                    int(complex_out), *offs))
     place_windows.launches += 1
-    profiling.count("echo.place")
     return res
 
 

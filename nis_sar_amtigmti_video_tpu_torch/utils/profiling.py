@@ -91,9 +91,10 @@ class Span(NamedTuple):
 class Record:
     """What one :func:`recording` collected: ``spans`` in the order they
     closed, ``counters`` by name (those of :func:`count_device` once the
-    recording has ended)."""
+    recording has ended, where ``device_counts`` asks for them)."""
 
-    def __init__(self):
+    def __init__(self, device_counts: bool = True):
+        self.device_counts = device_counts
         self.spans: List[Span] = []
         self.counters: dict = {}
         self._on_device: dict = {}      # name -> 0-d sum on the card
@@ -180,24 +181,32 @@ def count(name: str, n: int = 1) -> None:
 
 def count_device(name: str, make: Callable[[], torch.Tensor]) -> None:
     """Add the 0-d integer tensor ``make()`` to the counter ``name`` while
-    recording, without waiting for the card: ``make`` runs only while
-    recording, the sum stays on the tensor's device, and it reaches
+    recording with device counts, without waiting for the card: ``make``
+    runs only then, the sum stays on the tensor's device, and it reaches
     ``counters`` when the recording ends."""
     rec = _record
-    if rec is not None:
+    if rec is not None and rec.device_counts:
         n = make()
         prev = rec._on_device.get(name)
         rec._on_device[name] = n if prev is None else prev + n
 
 
 @contextlib.contextmanager
-def recording():
+def recording(device_counts: bool = True):
     """Turns recording on for the ``with`` block and yields its
-    :class:`Record`, which stays readable after the block."""
+    :class:`Record`, which stays readable after the block.
+
+    ``device_counts``: whether :func:`count_device` forms its counts. A
+    device count is a sum formed on the card, several launches each time
+    it is made (``echo.dropped``: five, twice a chunk of the NUFFT echo,
+    290 a full-scale collect), so a recording that must launch exactly
+    the kernels an unrecorded run does, such as a traced benchmark window
+    read by its spans, passes False; a check that reads such a count, as
+    a cell's set-up refusing a dropped target, keeps the default."""
     global _record
     if _record is not None:
         raise RuntimeError("already recording")
-    rec = _record = Record()
+    rec = _record = Record(device_counts)
     try:
         yield rec
     finally:

@@ -1810,7 +1810,9 @@ def test_hrws_reconstruct_focus_on_card(dev):
     assert rec.counters == {"hrws.bands": 4, "cpi.chirpz_axes": 2,
                             "cpi.mixed_radix_axes": 2}
     tree = rec.tree()
-    assert all(tree[f"focus.{k}"][0] == 1 for k in ("k1", "k2", "k3"))
+    assert tree["hrws.focus"][0] == 1
+    assert all(tree[f"hrws.focus/focus.{k}"][0] == 1
+               for k in ("k1", "k2", "k3"))
     assert tree["hrws.reconstruct/hrws.unfold"][0] == 1
 
 

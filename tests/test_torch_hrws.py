@@ -208,6 +208,30 @@ def test_unfold_operator_is_built_once_and_the_stages_are_recorded():
     assert rec.counters == {"hrws.bands": 8}
 
 
+@pytest.mark.parametrize("fft_impl", ["xla", "pallas"])
+def test_reconstruct_focus_records_both_halves(fft_impl):
+    """``reconstruct_focus`` under the stage record opens
+    ``hrws.reconstruct`` and then ``hrws.focus``, whose span holds the
+    whole focus (the kernel route's spans, and the planes' split and join
+    around them), on either route."""
+    _, tp, _, tones = scene("four_channels")
+    x = synth_multichannel(tp, 64, 96, tones)
+    n_az, n_rg = tp.bands * 64, 96
+    cp = csa.CsaParams(
+        wavelength_m=0.03, chirp_rate=6e13, fs_hz=150e6,
+        prf_hz=tp.effective_prf, velocity_mps=V, range_ref_m=6e5,
+        t_start_fast=4e-3, num_pulses=n_az, num_samples=n_rg)
+    with profiling.recording() as r:
+        hrws.reconstruct_focus(torch.from_numpy(x), tp, cp, fft_impl)
+    rec, foc = [s for s in r.spans if s.parent_id == 0]
+    assert (rec.name, foc.name) == ("hrws.reconstruct", "hrws.focus")
+    assert rec.end_ns <= foc.start_ns
+    kernels = {f"hrws.focus/focus.{k}": 1 for k in ("k1", "k2", "k3")}
+    assert {k: v[0] for k, v in r.tree().items()
+            if k.startswith("hrws.focus")} \
+        == {"hrws.focus": 1, **(kernels if fft_impl == "pallas" else {})}
+
+
 def _small_collect(k: int):
     """Matching (JAX, port) inputs of a small HRWS collect on the
     ati_dpca orbit: k channels at a system PRF of 1,500 Hz, uniform
@@ -268,7 +292,8 @@ def test_kernel_route_equals_grid_phase_route():
     CPU) against the grid-phase focus_csa route within 2e-5 of the SLC's
     peak (float32: the fused route forms the phases from 1-D factors, the
     grid route from float64 grids; both run 1,600- and 96-point float32
-    FFTs). The kernel route records its three kernels' spans and counts
+    FFTs). The kernel route records its three kernels' spans under
+    ``hrws.focus``, beside ``hrws.reconstruct``, and counts
     the plane's azimuth transforms (forward and inverse) as chirp-z, 1,600
     being no power of two, and its range transforms as mixed radix, 96
     being none either; the unfold leaves no azimuth ghost 20 dB up."""
@@ -286,8 +311,9 @@ def test_kernel_route_equals_grid_phase_route():
     peak = grid.abs().max()
     assert float((slc_k - grid).abs().max()) < 2e-5 * float(peak)
     tree = r.tree()
+    assert tree["hrws.reconstruct"][0] == tree["hrws.focus"][0] == 1
     for k in ("k1", "k2", "k3"):
-        assert tree[f"focus.{k}"][0] == 1
+        assert tree[f"hrws.focus/focus.{k}"][0] == 1
     assert r.counters == {"hrws.bands": 4, "cpi.chirpz_axes": 2,
                           "cpi.mixed_radix_axes": 2}
     # the unfold puts the point target's energy in one azimuth cell

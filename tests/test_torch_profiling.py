@@ -95,6 +95,45 @@ def test_device_counts_sum_where_they_are_and_read_at_the_end():
     assert rec.counters == {"echo.dropped": 6}
 
 
+def test_device_counts_only_where_the_recording_asks():
+    """``recording(device_counts=False)``, a traced benchmark window's,
+    forms no device count (``make`` is never called, so it launches
+    nothing); the default, a set-up check's, forms them."""
+    made = []
+
+    def make():
+        made.append(1)
+        return torch.tensor(1)
+    with recording(device_counts=False) as rec:
+        count_device("echo.dropped", make)
+        count("segment.echoed")
+    assert made == [] and rec.counters == {"segment.echoed": 1}
+    with recording() as rec:
+        count_device("echo.dropped", make)
+    assert made == [1] and rec.counters == {"echo.dropped": 1}
+
+
+@pytest.mark.parametrize("device_counts", [False, True])
+def test_the_echo_forms_its_dropped_count_where_asked(device_counts):
+    """The full-scale echo on the CPU's dense spreader (the card's route
+    forms its cells the same way): its ``echo.dropped`` is formed only
+    where the recording asks, as ``hrws_recon_k4``'s set-up does, and the
+    raw and the spans are the same either way."""
+    sc, opts, t0, traj, scene = _fullscale()
+    opts = dataclasses.replace(opts, freq_spreader="dense")
+
+    def raw():
+        return echo.multi_channel_phase_history(
+            traj, scene, opts, t_start=t0,
+            rx_offsets=sc.channels.rx_offsets(), device="cpu")
+    off = raw()
+    with recording(device_counts=device_counts) as rec:
+        on = raw()
+    assert torch.equal(off, on)
+    assert rec.counters == ({"echo.dropped": 0} if device_counts else {})
+    assert "echo/echo.synthesize/echo.chunk/echo.spread" in rec.tree()
+
+
 def test_recording_does_not_nest_and_ends_on_error():
     with pytest.raises(ValueError):
         with recording():
