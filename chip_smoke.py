@@ -24,12 +24,14 @@ raises and the exit code is non-zero:
               timing); K1g's, the K2 pair's and K3g's shares of their byte
               bounds, K1g's and K3g's column_plans and K2's k2_plan
   3c. upstream the same four kernels, and the raw balance, K1, K2 single
-              and K3, at the upstream's CPI, 7,199 x 13,200 (chirp-z
-              azimuth, mixed-radix range) and 7,200 x 13,200, with the
+              and K3, at the upstream's CPI, 7,199 x 13,200 (the factored
+              azimuth, 23 x 313; mixed-radix range) and 7,200 x 13,200 (32
+              x 225), and at 7,193 x 13,200 (a chirp-z azimuth), with the
               axis plans built once: each vs its plain version to the card
               tests' bounds, its launches from counters reset just before
-              one call (one each, the chirp-z column passes too), its ms
-              beside its byte bound
+              one call (one each, the factored and chirp-z column passes
+              too), its ms beside its byte bound and its share of it, with
+              the azimuth plan's kind
   3b. csa     K1, K2 single, K3 and the raw balance on the same inputs vs
               their plain versions (<= 1e-4 of the peak, balance angle
               <= 1e-5 rad); K1, K2 single and K3 bit for bit against K1g, K2
@@ -204,7 +206,7 @@ from nis_sar_amtigmti_video_tpu_torch.video import scheduler
 N = 4096                      # the headline CPI: 4096 x 4096 after the shift
 # the upstream's CPI (sar_ati_dcpa_sim_csa.py): 7,199 x 13,200 after the
 # DPCA one-pulse shift, 7,200 x 13,200 unshifted
-UPSTREAM_SHAPES = ((7199, 13200), (7200, 13200))
+UPSTREAM_SHAPES = ((7199, 13200), (7200, 13200), (7193, 13200))
 SHIP_VELOCITY = (15.0, 0.0, 0.0)
 WRAPPERS = {                  # name -> (wrapper, source, TPU kernel replaced)
     "K1g": (gmti_kernel.k1_gmti_planes,
@@ -508,8 +510,10 @@ def phase_upstream(dev) -> dict:
     bounds (planes 1e-4 of the peak, balance angle 1e-5 rad, K3g's ATI
     phase 1e-3 rad on strong pixels, K4's SNR rtol 1e-4, phase mask exact,
     dmag rtol 1e-6); its launches, from the counters reset just before one
-    call (one each, the chirp-z column passes too); its time (CUDA events,
-    median of 5 after a warm-up) beside its byte bound."""
+    call (one each, the factored and chirp-z column passes too); its time
+    (CUDA events, median of 5 after a warm-up) beside its byte bound, with
+    the azimuth plan's kind (``factored`` at 7,199 and 7,200, ``chirpz`` at
+    7,193)."""
     cp = CfarParams()
     h_out, h_in = cp.guard + cp.train, cp.guard
     out = {}
@@ -533,7 +537,7 @@ def phase_upstream(dev) -> dict:
             out.setdefault(name, {})[key] = dict(
                 ms=ms, bound_ms=b["bound_ms"], launches=launches,
                 rel_err=err)
-            print(f"[3c upstream] {key} {name} rel err {err:.2e}; "
+            print(f"[3c upstream] {key} ({az.kind}) {name} rel err {err:.2e}; "
                   f"{ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
                   f"({b['bound_ms'] / ms:.1%}); {launches} launch(es)")
             return want

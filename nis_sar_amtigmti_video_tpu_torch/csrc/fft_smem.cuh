@@ -1,6 +1,7 @@
 // Shared building blocks of the port's FFT-based kernels: complex helpers,
-// small DFTs wholly in registers, twiddles from a host-made table, a
-// deterministic block sum and windowed sums.
+// small DFTs wholly in registers (radix 2 from a table, 16 with constant
+// twiddles, any odd radix in the symmetric form), twiddles from a host-made
+// table, a deterministic block sum and windowed sums.
 //
 // The TPU kernels ran their FFTs as four-step DFT contractions on the MXU,
 // with every f32 operand split into bf16 hi/lo halves by hand. Hopper runs
@@ -135,6 +136,171 @@ static inline int log2_of(int n) {
   int k = 0;
   while ((1 << k) < n) ++k;
   return k;
+}
+
+// ---- small DFTs of any radix the mixed-radix passes take (K2's
+// mixed-radix plan, the factored column pass) ------------------------------
+
+// cos and sin of 2 pi e / 16 rounded to float32: the 16-point DFT's
+// twiddles as constants
+__host__ __device__ constexpr float cos16(int e) {
+  switch (e % 16) {
+    case 0: return 1.0f;
+    case 1: case 15: return 0.923879533f;
+    case 2: case 14: return 0.707106781f;
+    case 3: case 13: return 0.382683432f;
+    case 4: case 12: return 0.0f;
+    case 5: case 11: return -0.382683432f;
+    case 6: case 10: return -0.707106781f;
+    case 7: case 9: return -0.923879533f;
+    default: return -1.0f;
+  }
+}
+__host__ __device__ constexpr float sin16(int e) { return cos16(e + 12); }
+
+// x W_4 of the direction: x (-j) forward, x (+j) inverse
+template <bool INV>
+__device__ __forceinline__ float2 rot4(float2 x) {
+  return INV ? make_float2(-x.y, x.x) : make_float2(x.y, -x.x);
+}
+
+// x W_16^E of the direction (E < 16, E != 0)
+template <bool INV, int E>
+__device__ __forceinline__ float2 rot16(float2 x) {
+  if constexpr (E == 4) {
+    return rot4<INV>(x);
+  } else {
+    constexpr float c = cos16(E), s = INV ? sin16(E) : -sin16(E);
+    return make_float2(x.x * c - x.y * s, x.x * s + x.y * c);
+  }
+}
+
+template <bool INV>
+__device__ __forceinline__ void dft4(float2& x0, float2& x1, float2& x2,
+                                     float2& x3) {
+  const float2 a0 = make_float2(x0.x + x2.x, x0.y + x2.y);
+  const float2 a1 = make_float2(x0.x - x2.x, x0.y - x2.y);
+  const float2 b0 = make_float2(x1.x + x3.x, x1.y + x3.y);
+  const float2 b1 = rot4<INV>(make_float2(x1.x - x3.x, x1.y - x3.y));
+  x0 = make_float2(a0.x + b0.x, a0.y + b0.y);
+  x2 = make_float2(a0.x - b0.x, a0.y - b0.y);
+  x1 = make_float2(a1.x + b1.x, a1.y + b1.y);
+  x3 = make_float2(a1.x - b1.x, a1.y - b1.y);
+}
+
+// Unnormalised 16-point DFT of u (INV: inverse), natural order in and out,
+// as 4 x 4: the 4-point DFTs over n2 of n = n1 + 4 n2, W_16^(n1 k1) as
+// constants, the 4-point DFTs over n1, the output k1 + 4 k2 a renaming.
+template <bool INV>
+__device__ __forceinline__ void dft16(float2 (&u)[16]) {
+#pragma unroll
+  for (int n1 = 0; n1 < 4; ++n1)
+    dft4<INV>(u[n1], u[n1 + 4], u[n1 + 8], u[n1 + 12]);
+  u[5] = rot16<INV, 1>(u[5]);
+  u[6] = rot16<INV, 2>(u[6]);
+  u[7] = rot16<INV, 3>(u[7]);
+  u[9] = rot16<INV, 2>(u[9]);
+  u[10] = rot16<INV, 4>(u[10]);
+  u[11] = rot16<INV, 6>(u[11]);
+  u[13] = rot16<INV, 3>(u[13]);
+  u[14] = rot16<INV, 6>(u[14]);
+  u[15] = rot16<INV, 9>(u[15]);
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1)
+    dft4<INV>(u[4 * k1], u[4 * k1 + 1], u[4 * k1 + 2], u[4 * k1 + 3]);
+  float2 t[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) t[k] = u[4 * (k % 4) + k / 4];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) u[k] = t[k];
+}
+
+// W_n^m of the direction from the full n-point table (0 <= m < n)
+template <bool INV>
+__device__ __forceinline__ float2 twf_pow(const float2* __restrict__ twf,
+                                          int m) {
+  const float2 w = __ldg(twf + m);
+  return INV ? make_float2(w.x, -w.y) : w;
+}
+
+// The R-point DFT (R odd: a prime, or 9 or 15, which the factored column
+// pass's local passes merge) of u, natural order in and out, with
+// W_R^q = twf[q n / R]: in the symmetric form, a_m = u_m + u_(R-m) and b_m =
+// u_m - u_(R-m) for m <= H = (R - 1) / 2, X_k = u_0 + sum_m a_m cos(2 pi m k /
+// R) - j sum_m b_m sin(2 pi m k / R) and X_(R-k) with + j (the signs swapped
+// for the inverse).
+template <bool INV, int R>
+__device__ __forceinline__ void dft_odd(float2 (&u)[R],
+                                        const float2* __restrict__ twf,
+                                        int n) {
+  constexpr int H = (R - 1) / 2;
+  float c[H + 1], s[H + 1];              // cos, sin of 2 pi q / R, q <= H
+#pragma unroll
+  for (int q = 1; q <= H; ++q) {
+    const float2 w = __ldg(twf + q * (n / R));
+    c[q] = w.x;
+    s[q] = -w.y;
+  }
+  float2 a[H + 1], b[H + 1];
+  const float2 x0 = u[0];
+  float2 sum = x0;
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    a[m] = make_float2(u[m].x + u[R - m].x, u[m].y + u[R - m].y);
+    b[m] = make_float2(u[m].x - u[R - m].x, u[m].y - u[R - m].y);
+    sum = make_float2(sum.x + a[m].x, sum.y + a[m].y);
+  }
+  u[0] = sum;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 re = x0, im = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      const int q = (m * k) % R;   // 0 only for a composite R (9, 15)
+      const float cq = q == 0 ? 1.0f : q <= H ? c[q] : c[R - q];
+      const float sq = q == 0 ? 0.0f : q <= H ? s[q] : -s[R - q];
+      re = make_float2(re.x + a[m].x * cq, re.y + a[m].y * cq);
+      im = make_float2(im.x + b[m].x * sq, im.y + b[m].y * sq);
+    }
+    // -j im for the forward X_k, + j im for X_(R-k)
+    const float2 lo = make_float2(re.x + im.y, re.y - im.x);
+    const float2 hi = make_float2(re.x - im.y, re.y + im.x);
+    u[k] = INV ? hi : lo;
+    u[R - k] = INV ? lo : hi;
+  }
+}
+
+// The R-point DFT of one butterfly of the mixed-radix plan
+template <bool INV, int R>
+__device__ __forceinline__ void mixed_dft(float2 (&u)[R],
+                                          const float2* __restrict__ twf,
+                                          int n) {
+  if constexpr (R == 16) dft16<INV>(u);
+  else if constexpr ((R & (R - 1)) == 0) nis::dft_reg<INV, R>(u, twf, n / R);
+  else dft_odd<INV, R>(u, twf, n);
+}
+
+// u[k] x W^(m k) of the direction for 0 < k < R from the full table (m k <
+// n): W^m and, for R > 4, W^(4 m) loaded, the other powers as products (at
+// most five roundings a twiddle, as twiddle_row).
+template <bool INV, int R>
+__device__ __forceinline__ void mixed_twiddle(float2 (&u)[R],
+                                              const float2* __restrict__ twf,
+                                              int m) {
+  constexpr int A = R < 4 ? R : 4, B = (R + 3) / 4;
+  float2 wa[4], wb[4];
+  wa[1] = twf_pow<INV>(twf, m);
+#pragma unroll
+  for (int q = 2; q < A; ++q) wa[q] = nis::cmul(wa[q - 1], wa[1]);
+  if constexpr (B > 1) wb[1] = twf_pow<INV>(twf, 4 * m);
+#pragma unroll
+  for (int q = 2; q < B; ++q) wb[q] = nis::cmul(wb[q - 1], wb[1]);
+#pragma unroll
+  for (int k = 1; k < R; ++k) {
+    const int a = k % 4, b = k / 4;
+    const float2 w = b == 0 ? wa[a] : a == 0 ? wb[b] : nis::cmul(wa[a], wb[b]);
+    u[k] = nis::cmul(u[k], w);
+  }
 }
 
 }  // namespace nis

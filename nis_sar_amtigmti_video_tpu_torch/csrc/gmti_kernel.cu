@@ -47,10 +47,14 @@
 // so its box sums close in the block. Balance reads the four planes as
 // float4 on a grid sized to the card, several loads in flight a thread, and
 // closes its sum in the same launch (see balance_kernel).
-// Azimuth sides that are not powers of two (the upstream's 7,199 pulses
-// after the DPCA shift = 23 x 313, or 7,200) run as chirp-z transforms
+// Azimuth sides that are not powers of two run at their own length. Those
+// ops/cuda/csa_kernel.py::factored_split takes (the upstream's 7,199
+// pulses after the DPCA shift = 23 x 313, and 7,200 = 32 x 225) run as
+// prime-factor transforms in one launch of the kernel's factored
+// instantiation (STAGE kFactored; see "The factored column DFT" below).
+// Every other side (a prime such as 7,193) runs as a chirp-z transform
 // (Bluestein) of the CPI's own length, on the column pass of m points, m
-// the least power of two of at least 2 n_az - 1 (16,384 for both): no
+// the least power of two of at least 2 n_az - 1 (16,384 at 7,193): no
 // padding of the data, the DFT of n_az points exactly, in one launch of the
 // kernel's chirp-z instantiation (STAGE kChirpZ), the m-point spectrum never
 // leaving the cluster's shared memory (chirpz_convolve): it reads the n_az
@@ -118,19 +122,35 @@ struct Tile {
 };
 
 // The kernels' instantiations: the direct column pass (n_az a power of two),
-// or the chirp-z transform of n_az points on the m-point pass
-constexpr int kDirect = 0, kChirpZ = 1;
+// the chirp-z transform of n_az points on the m-point pass, or the factored
+// transform of n_az = N1 x N2 points (built for CS and N1 = QA, QB = 1)
+constexpr int kDirect = 0, kChirpZ = 1, kFactored = 2;
 
 // Where pass A reads its QA points: the planes' rows, the planes' rows times
 // the chirp (zeros from n_valid on), or the spectrum the block holds in its
 // own Y, at the slots the thread then writes (chirpz_convolve)
 enum PassASource { kPlanes, kChirped, kHeld };
 
-// Threads a block of an instantiation: kColThreads, or twice that for the
-// chirp-z ones on clusters of 16 (one block an SM, whose transforms wait on
-// latency: 16 warps hide more of it than 8, at 128 registers a thread)
-__host__ __device__ constexpr int column_threads(int cs, int stage) {
-  return stage == kChirpZ && cs > 8 ? 2 * kColThreads : kColThreads;
+// Threads a block of the factored two-channel instantiations (K1g, K3g):
+// one block an SM (their two channels' slots take 115-120 KB at 7,199 and
+// 7,200 rows)
+constexpr int kFacPairThreads = 2 * kColThreads;
+
+// Threads a block of an instantiation of nch channels: kColThreads, or
+// twice that for the chirp-z ones on clusters of 16 (one block an SM, whose
+// transforms wait on latency: 16 warps hide more of it than 8, at 128
+// registers a thread), or kFacPairThreads for the factored two-channel ones
+__host__ __device__ constexpr int column_threads(int cs, int stage,
+                                                 int nch = 1) {
+  return stage == kFactored && nch == 2 ? kFacPairThreads
+         : stage == kChirpZ && cs > 8   ? 2 * kColThreads
+                                        : kColThreads;
+}
+
+// Blocks an SM an instantiation is built for: two, or one for the chirp-z
+// ones on clusters of 16 and the factored two-channel ones
+__host__ __device__ constexpr int column_blocks(int nch, int cs, int stage) {
+  return stage == kFactored ? (nch == 2 ? 1 : 2) : (cs > 8 ? 1 : 2);
 }
 
 // The chirp-z instantiations' tile: column_plan's at the transform's length
@@ -364,6 +384,279 @@ __device__ void chirpz_convolve(const float* z1r, const float* z1i,
                                               nullptr, y, ysz, tw, t);
 }
 
+// ---- The factored column DFT (STAGE kFactored) --------------------------
+//
+// n = N1 x N2 with gcd(N1, N2) = 1 (ops/cuda/csa_kernel.py::factored_split:
+// 7,199 = 23 x 313, 7,200 = 32 x 225) as a Good-Thomas transform: input row
+// (N2 i1 + N1 i2) mod n is point (i1, i2), and the output row k with k mod
+// N1 = k1, k mod N2 = k2 is the 2-D DFT's (k1, k2); no twiddles between the
+// legs. Block `rank` of the cluster holds i1 = rank + CS u (u < U =
+// ceil(N1 / CS)): per channel, u and tile column a sequence of N2 slots,
+// slot s at ((u N2 + s) << log2cols) + c. The local leg (N2 points) runs
+// there in passes (fac_pass), natural order in, the plan's digit order out:
+// each an in-place decimation in frequency of one radix (R-point DFTs in
+// registers, twiddles from the L-point table), one block barrier each; the
+// first reads its points from the planes, slot s from row N2 i1 + the
+// plan's row offset of s (mod n), whole 32-byte row segments. A prime N2
+// runs Rader's convolution of L = N2 - 1 points instead: slot s < L holds
+// point g^-s and slot L point 0; the forward passes, x the kernel's spectrum
+// in the last (with x0 added at frequency 0, and X[0] = x0 + A[0] kept in
+// slot L), then the inverse passes backwards, which leave X[g^q] in slot q.
+// After one cluster barrier the gather (fac_gather) takes this block's k2
+// in [rank J, rank J + J) (J = ceil(N2 / CS)), reads X_i1[k2] of every i1
+// from the block holding it (DSMEM, at the plan's slot of k2), runs the
+// N1-point DFT in registers and emits rows (e1 k1 + e2 k2) mod n: block
+// rank's output rows are the N1 chunks [m N2 + rank J, m N2 + rank J + J),
+// as the direct pass's are CS chunks of Q. Per tile one barrier a local
+// pass, one cluster barrier and one DSMEM gather, on the CPI's n points.
+
+// A factored launch's legs and tables (ops/cuda/csa_kernel.py::AzimuthPlan:
+// `tw` the L-point then the N1-point table, `index` e1, e2, the radices,
+// each slot's row offset, each k2's slot)
+struct Fac {
+  const float2* tl;     // exp(-2 pi i k / L), k < L
+  const float2* to;     // exp(-2 pi i k / N1), k < N1
+  const float2* spec;   // Rader's spectrum / L in the passes' order, or null
+  const int* radix;     // the local passes' radices, forward order
+  const int* rowof;     // (N1 i2) mod n of each slot
+  const int* slot;      // the slot of each k2 after the local transform
+  int n, n2, len, npass, e1, e2;
+};
+
+__device__ __forceinline__ Fac fac_of(const float2* tw, const float2* spec,
+                                      const int* fidx, int n, int n2,
+                                      int len, int npass) {
+  Fac f;
+  f.tl = tw;
+  f.to = tw + len;
+  f.spec = spec;
+  f.radix = fidx + 2;
+  f.rowof = fidx + 2 + npass;
+  f.slot = f.rowof + n2;
+  f.n = n;
+  f.n2 = n2;
+  f.len = len;
+  f.npass = npass;
+  f.e1 = __ldg(fidx);
+  f.e2 = __ldg(fidx + 1);
+  return f;
+}
+
+// The planes a factored launch's first pass reads (z1r null: every other
+// pass reads the slots), and where its block's sequences start
+struct FacSrc {
+  const float *z1r, *z1i, *z2r, *z2i;
+  int n_rg, col0, rank, cs;
+};
+
+// One radix-R pass of the local transform over nch channels x nu sequences
+// of each tile column (channel ch's at y + ch * ysz): butterfly (blk, s)
+// holds the R slots blk len + s + (len / R) j of its sequence. DIT false:
+// the R-point DFT over j of the direction, x W_len^(s k), back to slot k
+// (K2's forward mixed-radix pass); DIT: x W_len^(s k) first, then the DFT
+// (its inverse pass). `last` with f.spec (Rader's last forward pass, len =
+// R): x the spectrum at position blk R + k, and at position 0 the x0 of
+// slot L added, X[0] = x0 + A[0] written there. Ends with a block barrier.
+// One copy of each pass for every kernel of this file (noinline).
+template <bool INV, bool DIT, int R>
+__device__ __noinline__ void fac_pass(float2* y, int ysz, int nch, int nu,
+                                      Fac f, int len, int log2cols,
+                                      FacSrc src, bool last) {
+  const int sl = len / R, stride = f.len / len, per = f.len / R;
+  const int cols = 1 << log2cols;
+  for (int task = threadIdx.x; task < ((nch * nu * per) << log2cols);
+       task += blockDim.x) {
+    const int c = task & (cols - 1), q = task >> log2cols;
+    const int sq = q / per, b = q - sq * per;
+    const int ch = sq / nu, u = sq - ch * nu;
+    const int blk = b / sl, s = b - blk * sl;
+    float2* p = y + ch * ysz + ((u * f.n2 + blk * len + s) << log2cols) + c;
+    float2 v[R];
+    if (src.z1r != nullptr) {
+      const float* __restrict__ zr = ch ? src.z2r : src.z1r;
+      const float* __restrict__ zi = ch ? src.z2i : src.z1i;
+      const int col = min(src.col0 + c, src.n_rg - 1);
+      const int base = f.n2 * (src.rank + src.cs * u);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        int row = base + __ldg(f.rowof + s + j * sl);
+        row = row < f.n ? row : row - f.n;
+        const size_t at = (size_t)row * src.n_rg + col;
+        v[j] = make_float2(__ldg(zr + at), __ldg(zi + at));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) v[j] = p[(j * sl) << log2cols];
+    }
+    if constexpr (DIT) {
+      if (s) nis::mixed_twiddle<INV, R>(v, f.tl, s * stride);
+      nis::mixed_dft<INV, R>(v, f.tl, f.len);
+    } else {
+      nis::mixed_dft<INV, R>(v, f.tl, f.len);
+      if (s) nis::mixed_twiddle<INV, R>(v, f.tl, s * stride);
+    }
+    if (last && f.spec != nullptr) {
+      const float2 a0 = v[0];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        v[j] = nis::cmul(v[j], __ldg(f.spec + blk * R + j));
+      if (blk == 0) {
+        float2* p0 = y + ch * ysz + ((u * f.n2 + f.len) << log2cols) + c;
+        const float2 x0 = *p0;
+        *p0 = make_float2(x0.x + a0.x, x0.y + a0.y);
+        v[0] = make_float2(v[0].x + x0.x, v[0].y + x0.y);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) p[(j * sl) << log2cols] = v[j];
+  }
+  __syncthreads();
+}
+
+// fac_pass of radix r (one of csa_kernel.py::local_radices' radices)
+template <bool INV, bool DIT>
+__device__ void fac_pass_of(int r, float2* y, int ysz, int nch, int nu,
+                            const Fac& f, int len, int log2cols,
+                            const FacSrc& src, bool last) {
+  switch (r) {
+    case 16: fac_pass<INV, DIT, 16>(y, ysz, nch, nu, f, len, log2cols, src,
+                                    last); break;
+    case 15: fac_pass<INV, DIT, 15>(y, ysz, nch, nu, f, len, log2cols, src,
+                                    last); break;
+    case 13: fac_pass<INV, DIT, 13>(y, ysz, nch, nu, f, len, log2cols, src,
+                                    last); break;
+    case 11: fac_pass<INV, DIT, 11>(y, ysz, nch, nu, f, len, log2cols, src,
+                                    last); break;
+    case 9: fac_pass<INV, DIT, 9>(y, ysz, nch, nu, f, len, log2cols, src,
+                                  last); break;
+    case 8: fac_pass<INV, DIT, 8>(y, ysz, nch, nu, f, len, log2cols, src,
+                                  last); break;
+    case 7: fac_pass<INV, DIT, 7>(y, ysz, nch, nu, f, len, log2cols, src,
+                                  last); break;
+    case 5: fac_pass<INV, DIT, 5>(y, ysz, nch, nu, f, len, log2cols, src,
+                                  last); break;
+    case 4: fac_pass<INV, DIT, 4>(y, ysz, nch, nu, f, len, log2cols, src,
+                                  last); break;
+    case 3: fac_pass<INV, DIT, 3>(y, ysz, nch, nu, f, len, log2cols, src,
+                                  last); break;
+    default: fac_pass<INV, DIT, 2>(y, ysz, nch, nu, f, len, log2cols, src,
+                                   last); break;
+  }
+}
+
+// The local transform of NCH channels' sequences (the planes' rows into y +
+// ch * ysz), then the cluster barrier: every block's X_i1 is complete.
+template <bool INV, int NCH, int CS, int N1>
+__device__ void factored_passes(const float* z1r, const float* z1i,
+                                const float* z2r, const float* z2i,
+                                float2* y, int ysz, const Fac& f,
+                                const Tile& t) {
+  const int nu = (N1 - t.rank + CS - 1) / CS;   // i1 = rank + CS u < N1
+  const FacSrc planes{z1r, z1i, z2r, z2i, t.n_rg, t.col0, t.rank, CS};
+  const FacSrc slots{};
+  const bool rader = f.spec != nullptr;
+  if (rader) {            // point 0 of each sequence into slot L
+    for (int task = threadIdx.x; task < ((NCH * nu) << t.log2cols);
+         task += blockDim.x) {
+      const int c = task & (t.cols - 1), sq = task >> t.log2cols;
+      const int ch = sq / nu, u = sq - ch * nu;
+      const float* __restrict__ zr = ch ? z2r : z1r;
+      const float* __restrict__ zi = ch ? z2i : z1i;
+      const size_t at = (size_t)(f.n2 * (t.rank + CS * u)) * t.n_rg
+                        + min(t.col0 + c, t.n_rg - 1);
+      y[ch * ysz + ((u * f.n2 + f.len) << t.log2cols) + c] =
+          make_float2(__ldg(zr + at), __ldg(zi + at));
+    }
+    __syncthreads();
+  }
+  int len = f.len;
+  for (int p = 0; p < f.npass; ++p) {
+    const int r = __ldg(f.radix + p);
+    const FacSrc& src = p == 0 ? planes : slots;
+    if (rader)
+      fac_pass_of<false, false>(r, y, ysz, NCH, nu, f, len, t.log2cols, src,
+                                p == f.npass - 1);
+    else
+      fac_pass_of<INV, false>(r, y, ysz, NCH, nu, f, len, t.log2cols, src,
+                              false);
+    len /= r;
+  }
+  if (rader) {
+    len = __ldg(f.radix + f.npass - 1);
+    for (int p = f.npass - 1; p >= 0; --p) {
+      fac_pass_of<true, true>(__ldg(f.radix + p), y, ysz, NCH, nu, f, len,
+                              t.log2cols, slots, false);
+      if (p > 0) len *= __ldg(f.radix + p - 1);
+    }
+  }
+  cluster_barrier<CS>();
+}
+
+// The gather: emit(c, lr, row, v1, v2) for each column c of the tile and
+// each of this block's output rows `row` (lr = (row / N2) J + jj its slot
+// among the block's N1 chunks of J rows), v1 and v2 the two channels' X
+// (forward) or X / n (inverse) (v2 = v1 when NCH == 1). With two
+// channels, lanes c and c + cols (cols <= 16) run the two channels' DFTs
+// of a k2, each holding N1 values, and each emits the rows of its parity
+// of k1 with the other channel's value from a shuffle. The caller ends
+// with a cluster barrier: other blocks read this block's slots until they
+// are done.
+template <bool INV, int NCH, int CS, int N1, typename Emit>
+__device__ void factored_gather(float2* y, int ysz, const Fac& f,
+                                const Tile& t, Emit emit) {
+  const int J = (f.n2 + CS - 1) / CS;
+  const int jn = min(J, f.n2 - t.rank * J);     // the last block's are fewer
+  const float inv_n = 1.0f / (float)f.n;
+  const int lg = t.log2cols + (NCH == 2);       // tasks a k2: (ch, c)
+  const int total = jn > 0 ? jn << lg : 0;
+  for (int task = threadIdx.x; task < total; task += blockDim.x) {
+    const int c = task & (t.cols - 1), jj = task >> lg;
+    const int ch = NCH == 2 ? (task >> t.log2cols) & 1 : 0;
+    const int k2 = t.rank * J + jj;
+    const int at = ch * ysz + (__ldg(f.slot + k2) << t.log2cols) + c;
+    // the warp's live lanes: a prefix, whole pairs (total is a multiple of
+    // 2 cols)
+    const int live = min(32, total - (task - (task & 31)));
+    const unsigned mask = live == 32 ? 0xffffffffu : (1u << live) - 1u;
+    float2 v[N1];
+#pragma unroll
+    for (int i1 = 0; i1 < N1; ++i1)
+      v[i1] = block_smem<CS>(y, i1 % CS)[(((i1 / CS) * f.n2)
+                                          << t.log2cols) + at];
+    nis::mixed_dft<INV, N1>(v, f.to, N1);
+    int row = f.e2 * k2 % f.n;
+    if constexpr (NCH == 2) {
+      // this lane's k1 = 2 kk + ch; it sends the partner's k1 of its own
+      // channel
+      const int step = 2 * f.e1 % f.n;
+      row += ch ? f.e1 : 0;
+      row = row < f.n ? row : row - f.n;
+#pragma unroll
+      for (int kk = 0; kk < (N1 + 1) / 2; ++kk) {
+        const int lo = 2 * kk, hi = 2 * kk + 1 < N1 ? 2 * kk + 1 : 2 * kk;
+        const float2 mine = ch ? v[hi] : v[lo];
+        const float2 send = ch ? v[lo] : v[hi];
+        const float2 a = INV ? nis::cscale(mine, inv_n) : mine;
+        const float2 b = INV ? nis::cscale(send, inv_n) : send;
+        const float2 o = make_float2(__shfl_xor_sync(mask, b.x, t.cols),
+                                     __shfl_xor_sync(mask, b.y, t.cols));
+        if (lo + ch < N1)
+          emit(c, row / f.n2 * J + jj, row, ch ? o : a, ch ? a : o);
+        row += step;
+        row = row < f.n ? row : row - f.n;
+      }
+    } else {
+#pragma unroll
+      for (int k1 = 0; k1 < N1; ++k1) {
+        const float2 a = INV ? nis::cscale(v[k1], inv_n) : v[k1];
+        emit(c, row / f.n2 * J + jj, row, a, a);
+        row += f.e1;
+        row = row < f.n ? row : row - f.n;
+      }
+    }
+  }
+}
+
 template <int CS>
 __device__ __forceinline__ Tile tile_of(int n_rg, int log2cols) {
   Tile t;
@@ -386,31 +679,41 @@ __device__ __forceinline__ Tile tile_of(int n_rg, int log2cols) {
 // thread order, then the cluster's blocks in rank order in rank 0's shared
 // memory, and 1 / n (a power of two) at the end. Chirp-z (kChirpZ): the
 // balance sums from the forward spectra in chirpz_convolve, and rows below
-// n_valid of the inverse gather times chirp get Phi1.
+// n_valid of the inverse gather times chirp get Phi1. Factored (kFactored,
+// N1 = QA): the local passes and the gather of factored_passes /
+// factored_gather, the sums as the direct pass's, / n_valid at the end.
 template <int NCH, int CS, int QA, int QB, int STAGE>
-__global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
+__global__ void __launch_bounds__(column_threads(CS, STAGE, NCH),
+                                  column_blocks(NCH, CS, STAGE))
     k1_kernel(
     const float* __restrict__ x1r, const float* __restrict__ x1i,
     const float* __restrict__ x2r, const float* __restrict__ x2i,
     const float* __restrict__ u, const float* __restrict__ c1,
     const float* __restrict__ w, const float2* __restrict__ tw,
     const float2* __restrict__ chirp, const float2* __restrict__ spec,
+    const int* __restrict__ fidx,
     float* __restrict__ z1r, float* __restrict__ z1i,
     float* __restrict__ z2r, float* __restrict__ z2i,
-    float* __restrict__ bal, int n_rg, int n_valid, int balance,
-    int log2cols) {
+    float* __restrict__ bal, int n_rg, int n_valid, int n2, int len,
+    int npass, int balance, int log2cols) {
   constexpr int Q = QA * QB, n = CS * Q;
   constexpr bool CZ = STAGE == kChirpZ;
+  constexpr bool FAC = STAGE == kFactored;
   constexpr bool SUMS = NCH == 2;
   const Tile t = tile_of<CS>(n_rg, log2cols);
-  const int ysz = (Q + QB) << log2cols;
+  const int ysz = FAC ? ((QA + CS - 1) / CS * n2) << log2cols
+                      : (Q + QB) << log2cols;
   float2* y = reinterpret_cast<float2*>(nis_smem);
   // K1g's sums after the channels' slots: one a thread, then rank 0's
   // cols a block of the cluster
   float2* red = y + 2 * ysz;
-  float2* part = red + column_threads(CS, STAGE);
+  float2* part = red + column_threads(CS, STAGE, NCH);
   float2 s = make_float2(0.0f, 0.0f);   // X1 conj(X2) over this thread's rows
-  if constexpr (CZ) {
+  Fac f;
+  if constexpr (FAC) {
+    f = fac_of(tw, spec, fidx, n_valid, n2, len, npass);
+    factored_passes<false, NCH, CS, QA>(x1r, x1i, x2r, x2i, y, ysz, f, t);
+  } else if constexpr (CZ) {
     chirpz_convolve<NCH, CS, QA, QB>(
         x1r, x1i, x2r, x2i, y, ysz, tw, t, chirp, spec, n_valid,
         [&](int c, float2 v1, float2 v2) {
@@ -421,8 +724,7 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
   } else {
     column_passes<false, NCH, CS, QA, QB>(x1r, x1i, x2r, x2i, y, ysz, tw, t);
   }
-  column_gather<CZ, NCH, CS, QA, QB>(
-      y, ysz, tw, t, [&](int c, int, int row, float2 v1, float2 v2) {
+  const auto emit = [&](int c, int, int row, float2 v1, float2 v2) {
         const int col = t.col0 + c;
         if (col >= n_rg) return;
         const size_t idx = (size_t)row * n_rg + col;
@@ -448,7 +750,11 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
           z2r[idx] = b.x;
           z2i[idx] = b.y;
         }
-      });
+      };
+  if constexpr (FAC)
+    factored_gather<false, NCH, CS, QA>(y, ysz, f, t, emit);
+  else
+    column_gather<CZ, NCH, CS, QA, QB>(y, ysz, tw, t, emit);
   if constexpr (SUMS) {
     red[threadIdx.x] = s;
     __syncthreads();
@@ -470,7 +776,7 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
         sr += part[(r << log2cols) + threadIdx.x].x;
         si += part[(r << log2cols) + threadIdx.x].y;
       }
-      const float inv_n = 1.0f / (float)n;
+      const float inv_n = 1.0f / (float)(FAC ? n_valid : n);
       bal[t.col0 + threadIdx.x] = balance ? sr * inv_n : 0.0f;
       bal[n_rg + t.col0 + threadIdx.x] = balance ? si * inv_n : 0.0f;
     }
@@ -479,26 +785,34 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
 
 // K3: the inverse column DFT of one channel, / n. Chirp-z (kChirpZ): the
 // convolution in chirpz_convolve, then rows below n_valid of the inverse
-// gather stored times chirp.
+// gather stored times chirp. Factored (kFactored): factored_passes and
+// factored_gather inverse.
 template <int CS, int QA, int QB, int STAGE>
-__global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
+__global__ void __launch_bounds__(column_threads(CS, STAGE),
+                                  column_blocks(1, CS, STAGE))
     k3_kernel(
     const float* __restrict__ zr, const float* __restrict__ zi,
     const float2* __restrict__ tw, const float2* __restrict__ chirp,
-    const float2* __restrict__ spec, float* __restrict__ sr,
-    float* __restrict__ si, int n_rg, int n_valid, int log2cols) {
+    const float2* __restrict__ spec, const int* __restrict__ fidx,
+    float* __restrict__ sr, float* __restrict__ si, int n_rg, int n_valid,
+    int n2, int len, int npass, int log2cols) {
   constexpr bool CZ = STAGE == kChirpZ;
+  constexpr bool FAC = STAGE == kFactored;
   float2* y = reinterpret_cast<float2*>(nis_smem);
   const Tile t = tile_of<CS>(n_rg, log2cols);
-  if constexpr (CZ)
+  Fac f;
+  if constexpr (FAC) {
+    f = fac_of(tw, spec, fidx, n_valid, n2, len, npass);
+    factored_passes<true, 1, CS, QA>(zr, zi, nullptr, nullptr, y, 0, f, t);
+  } else if constexpr (CZ) {
     chirpz_convolve<1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw, t,
                                    chirp, spec, n_valid,
                                    [](int, float2, float2) {});
-  else
+  } else {
     column_passes<true, 1, CS, QA, QB>(zr, zi, nullptr, nullptr, y, 0, tw,
                                        t);
-  column_gather<true, 1, CS, QA, QB>(
-      y, 0, tw, t, [&](int c, int, int row, float2 v, float2) {
+  }
+  const auto emit = [&](int c, int, int row, float2 v, float2) {
         const int col = t.col0 + c;
         if (col >= n_rg) return;
         if constexpr (CZ) {
@@ -508,20 +822,31 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
         const size_t idx = (size_t)row * n_rg + col;
         sr[idx] = v.x;
         si[idx] = v.y;
-      });
+      };
+  if constexpr (FAC)
+    factored_gather<true, 1, CS, QA>(y, 0, f, t, emit);
+  else
+    column_gather<true, 1, CS, QA, QB>(y, 0, tw, t, emit);
   cluster_barrier<CS>();
 }
 
-// K3g keeps the DPCA power of its Q output rows in `pcol`, chunk by chunk
-// (CS chunks of J consecutive rows), each chunk with kHalo slots on either
-// side for the rows just beyond it: chunk k1's row jj of column c at slot
-// pslot(k1, jj, c). After the gather the block copies those halo rows from
-// the blocks that hold them (one DSMEM load each), so a box sum of
-// half-width h <= kHalo reads only its own block's shared memory.
+// K3g keeps the DPCA power of its output rows in `pcol`, chunk by chunk
+// (Chunks: the direct pass's CS chunks of J = Q / CS consecutive rows, row
+// k1 Q + rank J + jj; the factored pass's N1 chunks of J = ceil(N2 / CS),
+// row k1 N2 + rank J + jj, of which the last block holds fewer), each chunk
+// with kHalo slots on either side for the rows just beyond it: chunk k1's
+// row jj of column c at slot pslot(k1, jj, c, J). After the gather the
+// block copies those halo rows from the blocks that hold them (one DSMEM
+// load each), so a box sum of half-width h <= kHalo reads only its own
+// block's shared memory.
 constexpr int kHalo = 16;
 
-template <int J>
-__device__ __forceinline__ int pslot(int k1, int jj, int c, const Tile& t) {
+struct Chunks {
+  int chunks, period, J, jn;   // jn: this block's rows a chunk (J or fewer)
+};
+
+__device__ __forceinline__ int pslot(int k1, int jj, int c, int J,
+                                     const Tile& t) {
   return ((k1 * (J + 2 * kHalo) + kHalo + jj) << t.log2cols) + c;
 }
 
@@ -531,18 +856,19 @@ __device__ __forceinline__ int pslot(int k1, int jj, int c, const Tile& t) {
 // nis::window_sum; adding 0 outside a window changes no bit). One pass over
 // the wider window, from the chunk and its halo when it is within kHalo,
 // else row by row from the blocks that hold the rows.
-template <int CS, int QA, int QB>
+template <int CS>
 __device__ __forceinline__ float2 column_windows(const float* pcol, int row,
                                                  int k1, int jj, int c,
                                                  int h_out, int h_in,
-                                                 const Tile& t, int n) {
-  constexpr int Q = QA * QB, J = Q / CS;
+                                                 const Tile& t, int n,
+                                                 const Chunks& g) {
+  const int Q = g.period, J = g.J;
   const int h = h_out > h_in ? h_out : h_in;
   const int lo = (row - h > 0 ? row - h : 0) - row;
   const int hi = (row + h < n - 1 ? row + h : n - 1) - row;
   float so = 0.0f, si = 0.0f;
   if (h <= kHalo) {
-    const float* p = pcol + pslot<J>(k1, jj, c, t);
+    const float* p = pcol + pslot(k1, jj, c, J, t);
 #pragma unroll 8
     for (int d = lo; d <= hi; ++d) {
       const float v = p[d * t.cols];
@@ -552,8 +878,8 @@ __device__ __forceinline__ float2 column_windows(const float* pcol, int row,
   } else {
     for (int d = lo; d <= hi; ++d) {
       const int q = row + d, jq = q % Q;  // q = jq + Q kq, held by jq / J
-      const float v = block_smem<CS>(pcol, jq / J)[pslot<J>(q / Q, jq % J,
-                                                            c, t)];
+      const float v = block_smem<CS>(pcol, jq / J)[pslot(q / Q, jq % J, c,
+                                                          J, t)];
       so += abs(d) <= h_out ? v : 0.0f;
       si += abs(d) <= h_in ? v : 0.0f;
     }
@@ -564,41 +890,54 @@ __device__ __forceinline__ float2 column_windows(const float* pcol, int row,
 // K3g: the inverse column DFT of both channels, / n, and every product
 // from the gathered values. Chirp-z (kChirpZ): the convolution in
 // chirpz_convolve, then rows below n_valid of the inverse gather times
-// chirp, with the windows and the halo clipped to n_valid rows.
+// chirp, with the windows and the halo clipped to n_valid rows. Factored
+// (kFactored): factored_passes and factored_gather inverse, the power in
+// the factored pass's chunks.
 template <int CS, int QA, int QB, int STAGE>
-__global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
+__global__ void __launch_bounds__(column_threads(CS, STAGE, 2),
+                                  column_blocks(2, CS, STAGE))
     k3g_kernel(
     const float* __restrict__ z1r, const float* __restrict__ z1i,
     const float* __restrict__ z2r, const float* __restrict__ z2i,
     const float* __restrict__ cal_cs, const float2* __restrict__ tw,
     const float2* __restrict__ chirp, const float2* __restrict__ spec,
+    const int* __restrict__ fidx,
     float* __restrict__ s1r, float* __restrict__ s1i,
     float* __restrict__ s2r, float* __restrict__ s2i,
     float* __restrict__ ph, float* __restrict__ mag, float* __restrict__ pw,
     float* __restrict__ cso, float* __restrict__ csi,
-    float* __restrict__ peaks, int n_rg, int n_valid, int h_out, int h_in,
-    int log2cols) {
+    float* __restrict__ peaks, int n_rg, int n_valid, int n2, int len,
+    int npass, int h_out, int h_in, int log2cols) {
   constexpr int Q = QA * QB, J = Q / CS, n = CS * Q;
   constexpr bool CZ = STAGE == kChirpZ;
+  constexpr bool FAC = STAGE == kFactored;
   const Tile t = tile_of<CS>(n_rg, log2cols);
-  const int ysz = (Q + QB) << log2cols;
+  const int jf = (n2 + CS - 1) / CS;
+  const Chunks g = FAC ? Chunks{QA, n2, jf, min(jf, n2 - t.rank * jf)}
+                       : Chunks{CS, Q, J, J};
+  const int ysz = FAC ? ((QA + CS - 1) / CS * n2) << log2cols
+                      : (Q + QB) << log2cols;
   float2* y = reinterpret_cast<float2*>(nis_smem);
   // the rows of the transform that are the CPI's
-  const int nv = CZ ? n_valid : n;
+  const int nv = STAGE == kDirect ? n : n_valid;
   float* pcol = reinterpret_cast<float*>(y + 2 * ysz);
-  float* red = pcol + ((Q + 2 * kHalo * CS) << log2cols);
-  if constexpr (CZ)
+  float* red = pcol + ((g.chunks * (g.J + 2 * kHalo)) << log2cols);
+  Fac f;
+  if constexpr (FAC) {
+    f = fac_of(tw, spec, fidx, n_valid, n2, len, npass);
+    factored_passes<true, 2, CS, QA>(z1r, z1i, z2r, z2i, y, ysz, f, t);
+  } else if constexpr (CZ) {
     chirpz_convolve<2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t, chirp,
                                    spec, n_valid,
                                    [](int, float2, float2) {});
-  else
+  } else {
     column_passes<true, 2, CS, QA, QB>(z1r, z1i, z2r, z2i, y, ysz, tw, t);
+  }
 
   const float cr = cal_cs[0];
   const float ci = cal_cs[1];
   float m = 0.0f;     // max |s1|^2 over this thread's rows of column c
-  column_gather<true, 2, CS, QA, QB>(
-      y, ysz, tw, t, [&](int c, int lr, int row, float2 v1, float2 v2) {
+  const auto emit = [&](int c, int lr, int row, float2 v1, float2 v2) {
         const int col = t.col0 + c;
         if (col >= n_rg || row >= nv) return;
         if constexpr (CZ) {
@@ -623,8 +962,12 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
         const float dim = v1.y - (v2.x * ci + v2.y * cr);
         const float p = dre * dre + dim * dim;
         pw[idx] = p;
-        pcol[pslot<J>(lr / J, lr % J, c, t)] = p;
-      });
+        pcol[pslot(lr / g.J, lr % g.J, c, g.J, t)] = p;
+      };
+  if constexpr (FAC)
+    factored_gather<true, 2, CS, QA>(y, ysz, f, t, emit);
+  else
+    column_gather<true, 2, CS, QA, QB>(y, ysz, tw, t, emit);
   // peaks: the max over the threads that served column c (threads c,
   // c + cols, ... of each block), first in each block, then over the
   // cluster's blocks; max is exact in any order
@@ -646,17 +989,19 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
   }
   // the halo: kHalo rows before and after each chunk, where in the column
 #pragma unroll 4
-  for (int task = threadIdx.x; task < ((CS * 2 * kHalo) << log2cols);
+  for (int task = threadIdx.x;
+       task < (g.jn > 0 ? (g.chunks * 2 * kHalo) << log2cols : 0);
        task += blockDim.x) {
     const int c = task & (t.cols - 1), e = (task >> log2cols) % (2 * kHalo);
     const int k1 = (task >> log2cols) / (2 * kHalo);
-    const int first = k1 * Q + t.rank * J;       // the chunk's first row
-    const int row = e < kHalo ? first - kHalo + e : first + J + e - kHalo;
+    const int first = k1 * g.period + t.rank * g.J;   // the chunk's first row
+    const int row = e < kHalo ? first - kHalo + e : first + g.jn + e - kHalo;
     if (row >= 0 && row < nv) {
-      const int jq = row % Q;
-      const float* src = block_smem<CS>(pcol, jq / J);
-      pcol[((k1 * (J + 2 * kHalo) + (e < kHalo ? e : J + e)) << log2cols)
-           + c] = src[pslot<J>(row / Q, jq % J, c, t)];
+      const int jq = row % g.period;
+      const float* src = block_smem<CS>(pcol, jq / g.J);
+      pcol[((k1 * (g.J + 2 * kHalo) + (e < kHalo ? e : g.jn + e))
+            << log2cols) + c] =
+          src[pslot(row / g.period, jq % g.J, c, g.J, t)];
     }
   }
   // with both windows inside the halo no block reads another's shared
@@ -667,14 +1012,15 @@ __global__ void __launch_bounds__(column_threads(CS, STAGE), CS > 8 ? 1 : 2)
   else
     __syncthreads();
 #pragma unroll 2
-  for (int task = threadIdx.x; task < (Q << log2cols); task += blockDim.x) {
+  for (int task = threadIdx.x; task < ((g.chunks * g.jn) << log2cols);
+       task += blockDim.x) {
     const int c = task & (t.cols - 1), lr = task >> log2cols;
-    const int k1 = lr / J, jj = lr % J;
-    const int row = k1 * Q + t.rank * J + jj;
+    const int k1 = lr / g.jn, jj = lr % g.jn;
+    const int row = k1 * g.period + t.rank * g.J + jj;
     if (row >= nv || t.col0 + c >= n_rg) continue;
     const size_t idx = (size_t)row * n_rg + t.col0 + c;
-    const float2 w = column_windows<CS, QA, QB>(pcol, row, k1, jj, c,
-                                                h_out, h_in, t, nv);
+    const float2 w = column_windows<CS>(pcol, row, k1, jj, c, h_out, h_in,
+                                        t, nv, g);
     cso[idx] = w.x;
     csi[idx] = w.y;
   }
@@ -836,20 +1182,35 @@ static int column_smem(int nch, bool forward, int n_az, int cluster,
   return bytes;
 }
 
+// The factored kind's (ops/cuda/csa_kernel.py::factored_smem): per channel
+// ceil(n1 / cluster) x n2 x cols float2; K1g as column_smem; K3g n1 chunks
+// of ceil(n2 / cluster) + 2 kHalo power slots a column and one float a
+// thread.
+static int factored_smem(int nch, bool forward, int n1, int n2, int cluster,
+                         int cols, int threads) {
+  const int j = (n2 + cluster - 1) / cluster;
+  int bytes = nch * ((n1 + cluster - 1) / cluster) * n2 * cols
+              * (int)sizeof(float2);
+  if (nch == 2 && forward)
+    bytes += (threads + cluster * cols) * (int)sizeof(float2);
+  else if (nch == 2)
+    bytes += (n1 * (j + 2 * kHalo) * cols + threads) * (int)sizeof(float);
+  return bytes;
+}
+
 // Launches `kernel` as ceil(n_rg / cols) tiles of clusters of CS blocks of
-// column_threads(CS, STAGE) threads, after checking the plan (a chirp-z
-// instantiation, COLS > 0, is built for tiles of COLS columns); returns the
-// CUDA error code. Clusters of more than 8 blocks are non-portable: the
-// kernel is allowed them first.
-template <int CS, int STAGE, int COLS, typename... KArgs, typename... Args>
-static int column_launch(void (*kernel)(KArgs...), int nch, bool forward,
-                         int n, int n_rg, int cols, int smem,
-                         void* stream, Args... args) {
-  constexpr int threads = column_threads(CS, STAGE);
+// column_threads(CS, STAGE, NCH) threads, after checking the plan (a chirp-z
+// instantiation, COLS > 0, is built for tiles of COLS columns; `expect` is
+// the shared memory the launch's arithmetic gives); returns the CUDA error
+// code. Clusters of more than 8 blocks are non-portable: the kernel is
+// allowed them first.
+template <int CS, int STAGE, int COLS, int NCH, typename... KArgs,
+          typename... Args>
+static int column_launch(void (*kernel)(KArgs...), int expect, int n_rg,
+                         int cols, int smem, void* stream, Args... args) {
+  constexpr int threads = column_threads(CS, STAGE, NCH);
   if (cols < 8 || cols > kColThreads || (cols & (cols - 1)) != 0
-      || (COLS > 0 && cols != COLS)
-      || smem != column_smem(nch, forward, n, CS, cols, threads)
-      || smem > 232448)
+      || (COLS > 0 && cols != COLS) || smem != expect || smem > 232448)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -909,115 +1270,171 @@ static int chirpz_dispatch(int m, int cluster, F f) {
   }
 }
 
+// The factored kind's outer legs n1 (csa_kernel.py::FACTORED_OUTER), each on
+// clusters of 8 (FACTORED_CLUSTER): F(CS, N1, 1)
+template <typename F>
+static int factored_dispatch(int n1, int cluster, F f) {
+  switch (n1 * 32 + cluster) {
+    case 32 * 32 + 8: return f.template run<8, 32, 1, kFactored>();
+    case 16 * 32 + 8: return f.template run<8, 16, 1, kFactored>();
+    case 8 * 32 + 8: return f.template run<8, 8, 1, kFactored>();
+    case 23 * 32 + 8: return f.template run<8, 23, 1, kFactored>();
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The tile width a launch of NCH channels at STAGE is built for: any (0)
-// for the direct pass, chirpz_cols for the chirp-z one.
+// for the direct and factored passes, chirpz_cols for the chirp-z one.
 template <int NCH, int CS, int QB, int STAGE>
 constexpr int built_cols() {
   return STAGE == kChirpZ ? chirpz_cols(NCH, QB, column_threads(CS, STAGE))
                           : 0;
 }
 
+// What the launch structs share: the transform's length n (m, or n_az for
+// the factored kind), its factored legs (n1 = 0 for the other kinds) and
+// the plan; expect(CS, QA, STAGE) is the shared memory their arithmetic
+// gives a block.
+struct ColumnArgs {
+  int n, n_az, n1, n2, len, npass, n_rg, cols, smem;
+  template <int CS, int QA, int STAGE>
+  int expect(int nch, bool forward) const {
+    const int threads = column_threads(CS, STAGE, nch);
+    return STAGE == kFactored
+               ? factored_smem(nch, forward, QA, n2, CS, cols, threads)
+               : column_smem(nch, forward, n, CS, cols, threads);
+  }
+};
+
 template <int NCH>
 struct K1Launch {
   const float *x1r, *x1i, *x2r, *x2i, *u, *c1, *w;
   const float2 *tw, *chirp, *spec;
+  const int* fidx;
   float *z1r, *z1i, *z2r, *z2i, *bal;
-  int n, n_az, n_rg, balance, cols, smem;
+  ColumnArgs a;
+  int balance;
   void* stream;
   template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS, STAGE, built_cols<NCH, CS, QB, STAGE>()>(
-        k1_kernel<NCH, CS, QA, QB, STAGE>, NCH, true, n, n_rg, cols, smem,
-        stream, x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, z1r, z1i, z2r,
-        z2i, bal, n_rg, n_az, balance);
+    return column_launch<CS, STAGE, built_cols<NCH, CS, QB, STAGE>(), NCH>(
+        k1_kernel<NCH, CS, QA, QB, STAGE>,
+        a.expect<CS, QA, STAGE>(NCH, true), a.n_rg, a.cols, a.smem, stream,
+        x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, fidx, z1r, z1i, z2r,
+        z2i, bal, a.n_rg, a.n_az, a.n2, a.len, a.npass, balance);
   }
 };
 
 struct K3Launch {
   const float *zr, *zi;
   const float2 *tw, *chirp, *spec;
+  const int* fidx;
   float *sr, *si;
-  int n, n_az, n_rg, cols, smem;
+  ColumnArgs a;
   void* stream;
   template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS, STAGE, built_cols<1, CS, QB, STAGE>()>(
-        k3_kernel<CS, QA, QB, STAGE>, 1, false, n, n_rg, cols, smem, stream,
-        zr, zi, tw, chirp, spec, sr, si, n_rg, n_az);
+    return column_launch<CS, STAGE, built_cols<1, CS, QB, STAGE>(), 1>(
+        k3_kernel<CS, QA, QB, STAGE>, a.expect<CS, QA, STAGE>(1, false),
+        a.n_rg, a.cols, a.smem, stream, zr, zi, tw, chirp, spec, fidx, sr,
+        si, a.n_rg, a.n_az, a.n2, a.len, a.npass);
   }
 };
 
 struct K3gLaunch {
   const float *z1r, *z1i, *z2r, *z2i, *cal_cs;
   const float2 *tw, *chirp, *spec;
+  const int* fidx;
   float *s1r, *s1i, *s2r, *s2i, *ph, *mag, *pw, *cso, *csi, *peaks;
-  int n, n_az, n_rg, cols, smem, h_out, h_in;
+  ColumnArgs a;
+  int h_out, h_in;
   void* stream;
   template <int CS, int QA, int QB, int STAGE>
   int run() const {
-    return column_launch<CS, STAGE, built_cols<2, CS, QB, STAGE>()>(
-        k3g_kernel<CS, QA, QB, STAGE>, 2, false, n, n_rg, cols, smem, stream,
-        z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, s1r, s1i, s2r, s2i, ph,
-        mag, pw, cso, csi, peaks, n_rg, n_az, h_out, h_in);
+    return column_launch<CS, STAGE, built_cols<2, CS, QB, STAGE>(), 2>(
+        k3g_kernel<CS, QA, QB, STAGE>, a.expect<CS, QA, STAGE>(2, false),
+        a.n_rg, a.cols, a.smem, stream, z1r, z1i, z2r, z2i, cal_cs, tw,
+        chirp, spec, fidx, s1r, s1i, s2r, s2i, ph, mag, pw, cso, csi, peaks,
+        a.n_rg, a.n_az, a.n2, a.len, a.npass, h_out, h_in);
   }
 };
 
 // The column pass's launchers (ops/cuda/csa_kernel.py::AzimuthPlan): one
-// launch on `stream`, of the direct pass at m == n_az (a power of two), else
-// of the chirp-z transform of n_az points on m. `cols`, `cluster` and `smem`
-// are the column plan's at m; `tw` is the m-point table, `chirp` (n_az) and
-// `spec` (m) the direction's chirp-z tables (null at m == n_az).
+// launch on `stream`, of the direct pass at m == n_az (a power of two), of
+// the factored transform where n1 > 0 (n_az = n1 x n2 on `npass` local
+// passes of `len` points, n2 or n2 - 1), else of the chirp-z transform of
+// n_az points on m. `cols`, `cluster` and `smem` are the column plan's;
+// `tw` is the m-point table (the factored kind's L- and n1-point tables),
+// `chirp` (n_az) and `spec` (m) the direction's chirp-z tables (null at
+// m == n_az; `spec` Rader's spectrum for a factored prime n2), `fidx` the
+// factored kind's index table (null for the others).
 template <typename L>
-static int column_run(const L& l, int n_az, int m, int cluster) {
-  return m != n_az ? chirpz_dispatch(m, cluster, l)
-                   : column_dispatch(n_az, cluster, l);
+static int column_run(const L& l, int cluster) {
+  const ColumnArgs& a = l.a;
+  if (a.n1 > 0) {
+    if (a.n != a.n_az || a.n1 * a.n2 != a.n_az || a.npass < 1
+        || (a.len != a.n2 && a.len != a.n2 - 1))
+      return (int)cudaErrorInvalidValue;
+    return factored_dispatch(a.n1, cluster, l);
+  }
+  return a.n != a.n_az ? chirpz_dispatch(a.n, cluster, l)
+                       : column_dispatch(a.n_az, cluster, l);
 }
 
 extern "C" int k1g_launch(
     const float* x1r, const float* x1i, const float* x2r, const float* x2i,
     const float* u, const float* c1, const float* w, const float2* tw,
-    const float2* chirp, const float2* spec, float* z1r, float* z1i,
-    float* z2r, float* z2i, float* bal, int n_az, int m, int n_rg,
-    int balance, int cols, int cluster, int smem, void* stream) {
+    const float2* chirp, const float2* spec, const int* fidx, float* z1r,
+    float* z1i, float* z2r, float* z2i, float* bal, int n_az, int m, int n1,
+    int n2, int len, int npass, int n_rg, int balance, int cols, int cluster,
+    int smem, void* stream) {
   return column_run(
-      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, z1r, z1i,
-                  z2r, z2i, bal, m, n_az, n_rg, balance, cols, smem, stream},
-      n_az, m, cluster);
+      K1Launch<2>{x1r, x1i, x2r, x2i, u, c1, w, tw, chirp, spec, fidx, z1r,
+                  z1i, z2r, z2i, bal,
+                  {m, n_az, n1, n2, len, npass, n_rg, cols, smem}, balance,
+                  stream},
+      cluster);
 }
 
 extern "C" int k1_launch(
     const float* xr, const float* xi, const float* u, const float* c1,
     const float* w, const float2* tw, const float2* chirp,
-    const float2* spec, float* zr, float* zi, int n_az, int m, int n_rg,
-    int cols, int cluster, int smem, void* stream) {
+    const float2* spec, const int* fidx, float* zr, float* zi, int n_az,
+    int m, int n1, int n2, int len, int npass, int n_rg, int cols,
+    int cluster, int smem, void* stream) {
   return column_run(
-      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, chirp, spec, zr,
-                  zi, nullptr, nullptr, nullptr, m, n_az, n_rg, 0, cols,
-                  smem, stream},
-      n_az, m, cluster);
+      K1Launch<1>{xr, xi, nullptr, nullptr, u, c1, w, tw, chirp, spec, fidx,
+                  zr, zi, nullptr, nullptr, nullptr,
+                  {m, n_az, n1, n2, len, npass, n_rg, cols, smem}, 0,
+                  stream},
+      cluster);
 }
 
 extern "C" int k3_launch(
     const float* zr, const float* zi, const float2* tw, const float2* chirp,
-    const float2* spec, float* sr, float* si, int n_az, int m, int n_rg,
-    int cols, int cluster, int smem, void* stream) {
-  return column_run(K3Launch{zr, zi, tw, chirp, spec, sr, si, m, n_az, n_rg,
-                             cols, smem, stream},
-                    n_az, m, cluster);
+    const float2* spec, const int* fidx, float* sr, float* si, int n_az,
+    int m, int n1, int n2, int len, int npass, int n_rg, int cols,
+    int cluster, int smem, void* stream) {
+  return column_run(
+      K3Launch{zr, zi, tw, chirp, spec, fidx, sr, si,
+               {m, n_az, n1, n2, len, npass, n_rg, cols, smem}, stream},
+      cluster);
 }
 
 extern "C" int k3g_launch(
     const float* z1r, const float* z1i, const float* z2r, const float* z2i,
     const float* cal_cs, const float2* tw, const float2* chirp,
-    const float2* spec, float* s1r, float* s1i, float* s2r, float* s2i,
-    float* ph, float* mag, float* pw, float* cso, float* csi, float* peaks,
-    int n_az, int m, int n_rg, int h_out, int h_in, int cols, int cluster,
-    int smem, void* stream) {
+    const float2* spec, const int* fidx, float* s1r, float* s1i, float* s2r,
+    float* s2i, float* ph, float* mag, float* pw, float* cso, float* csi,
+    float* peaks, int n_az, int m, int n1, int n2, int len, int npass,
+    int n_rg, int h_out, int h_in, int cols, int cluster, int smem,
+    void* stream) {
   return column_run(
-      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, s1r, s1i, s2r,
-                s2i, ph, mag, pw, cso, csi, peaks, m, n_az, n_rg, cols, smem,
-                h_out, h_in, stream},
-      n_az, m, cluster);
+      K3gLaunch{z1r, z1i, z2r, z2i, cal_cs, tw, chirp, spec, fidx, s1r, s1i,
+                s2r, s2i, ph, mag, pw, cso, csi, peaks,
+                {m, n_az, n1, n2, len, npass, n_rg, cols, smem}, h_out, h_in,
+                stream},
+      cluster);
 }
 
 extern "C" int k4_launch(

@@ -21,13 +21,14 @@ Counterpart of ``nis_sar_amtigmti_video_tpu/gmti/fused.py``:
   here.
 
   Any CPI of ``csa_kernel.supported``: the upstream's 7,199 x 13,200 runs
-  K1g and K3g as chirp-z transforms (one launch each) and K2 on its
-  mixed-radix plan. Each kernel runs under its span (``focus.k1g``,
-  ``focus.k2``, ``focus.k3g``, ``focus.k4``; the split route's
-  ``focus.balance`` and ``focus.k1``), and the counters
-  ``cpi.chirpz_axes`` and ``cpi.mixed_radix_axes`` count the CPI's axis
-  transforms (azimuth forward and inverse, range forward and inverse) that
-  ran by chirp-z and by the mixed-radix plan.
+  K1g and K3g as prime-factor transforms of 23 x 313 points (one launch
+  each) and K2 on its mixed-radix plan. Each kernel runs under its span
+  (``focus.k1g``, ``focus.k2``, ``focus.k3g``, ``focus.k4``; the split
+  route's ``focus.balance`` and ``focus.k1``), and the counters
+  ``cpi.chirpz_axes``, ``cpi.factored_axes`` and ``cpi.mixed_radix_axes``
+  count the CPI's axis transforms (azimuth forward and inverse, range
+  forward and inverse) that ran by chirp-z, as a prime-factor transform
+  and by the mixed-radix plan.
 """
 
 from __future__ import annotations
@@ -90,7 +91,8 @@ class GmtiCpi(nn.Module):
         self.az = csa_kernel.azimuth_plan(n_az, dev)
         self.rg = csa_kernel.range_plan(n_rg, dev)
         # the CPI's axis transforms (forward and inverse) by each method
-        self.chirpz_axes = 2 * (self.az.m != n_az)
+        self.chirpz_axes = 2 * (self.az.kind == "chirpz")
+        self.factored_axes = 2 * (self.az.kind == "factored")
         self.mixed_radix_axes = 2 * (self.rg.passes > 0)
         p = self.cfar_params
         for name, v in zip(("ch_o", "ch_i", "cw_o", "cw_i"),
@@ -128,6 +130,7 @@ class GmtiCpi(nn.Module):
         h_out, h_in = p.guard + p.train, p.guard
         f = self.factors()
         count("cpi.chirpz_axes", self.chirpz_axes)
+        count("cpi.factored_axes", self.factored_axes)
         count("cpi.mixed_radix_axes", self.mixed_radix_axes)
         if k1_impl == "fused2ch":
             with span("focus.k1g"):

@@ -20,8 +20,9 @@ tensors and never the caller's inputs. The reference's TPU knobs (``mode``,
 twins of the same function and have no counterpart here.
 
 Which transform runs a CPI axis is one plan object a side,
-:func:`azimuth_plan` (the direct column pass, or a chirp-z transform) and
-:func:`range_plan` (K2's register or mixed-radix plan): the wrappers here
+:func:`azimuth_plan` (the direct column pass, a prime-factor split of the
+side's own length, or a chirp-z transform) and :func:`range_plan` (K2's
+register or mixed-radix plan): the wrappers here
 and in ``gmti_kernel.py`` take it as ``plan=`` and hand its tables to one C
 launcher a kernel, which picks the dispatch from them.
 """
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,10 +43,11 @@ from nis_sar_amtigmti_video_tpu_torch.utils.profiling import count, span
 
 # CPI sides the kernels take. Azimuth: any side in [64, 8192]; powers of
 # two up to 4096 run the column pass's own split of n_az over a cluster of
-# at most 8 blocks (column_plan), 8192 over 16, and every other side runs
-# as a chirp-z transform (Bluestein) on the power-of-two column pass of
-# chirpz_length(n_az) points. Range: any side in [64, 16384] whose prime
-# factors are in MIXED_PRIMES; powers of two up to 4096 run K2's register
+# at most 8 blocks (column_plan), 8192 over 16; a side that factored_split
+# takes runs as a prime-factor transform of its own length; every other
+# side runs as a chirp-z transform (Bluestein) on the power-of-two column
+# pass of chirpz_length(n_az) points. Range: any side in [64, 16384] whose
+# prime factors are in MIXED_PRIMES; powers of two up to 4096 run K2's register
 # plan (k2_plan: a block holds 4096 / n_rg whole range lines of one channel,
 # one instantiation per n_rg, 34 KB of shared memory), every other side the
 # mixed-radix plan (mixed_radices: one range line a block in shared memory)
@@ -79,8 +82,59 @@ def family() -> str:
 
 def chirpz(n_az: int) -> bool:
     """True where the azimuth transforms of n_az points run as chirp-z
-    transforms (every side that is not a power of two)."""
-    return not _pow2(n_az)
+    transforms (every side that is neither a power of two nor taken by
+    :func:`factored_split`)."""
+    return not _pow2(n_az) and factored_split(n_az) is None
+
+
+def _prime(n: int) -> bool:
+    return n > 1 and all(n % d for d in range(2, int(n ** 0.5) + 1))
+
+
+# The factored kind's legs (csrc/gmti_kernel.cu, STAGE kFactored): the
+# outer leg runs in one thread's registers across the cluster, so the kernel
+# is built for each of these lengths; the local leg runs in the block
+FACTORED_OUTER = (32, 16, 8, 23)
+FACTORED_CLUSTER = 8
+
+
+@functools.lru_cache(maxsize=None)
+def factored_split(n: int):
+    """(n1, n2) where the azimuth transforms of n points run as a
+    prime-factor (Good-Thomas) transform of n = n1 x n2, else None.
+
+    The rule: n is not a power of two, and n1 is the first of
+    FACTORED_OUTER (32, 16, 8, 23) that divides n with n2 = n / n1
+    coprime to it, at least 2, and either smooth (its prime factors in
+    MIXED_PRIMES: the local passes' radices) or a prime whose n2 - 1 is
+    smooth (Rader's convolution on n2 - 1 points). 7,199 = 23 x 313 (Rader
+    on 312 = 8 x 13 x 3) and 7,200 = 32 x 225 (15 x 15) take it; primes
+    such as 7,193 and 8,191 do not, nor 4,097 = 17 x 241 (17 is no outer
+    leg), and keep the chirp-z kind."""
+    if _pow2(n):
+        return None
+    for n1 in FACTORED_OUTER:
+        n2 = n // n1
+        if (n % n1 == 0 and n2 >= 2 and math.gcd(n1, n2) == 1
+                and (_smooth(n2) or (_prime(n2) and _smooth(n2 - 1)))):
+            return n1, n2
+    return None
+
+
+def local_radices(n: int) -> tuple:
+    """The factored kind's local passes for an n-point DFT (n smooth), in
+    the forward order: :func:`mixed_radices`' powers of two, then its odd
+    primes, largest first, each merged with the smallest primes left while
+    the product stays at most 15 (225 = 15 x 15, 312 = 8 x 13 x 3). Their
+    product is n."""
+    radices = [r for r in mixed_radices(n) if r % 2 == 0]
+    odd = sorted((r for r in mixed_radices(n) if r % 2), reverse=True)
+    while odd:
+        r = odd.pop(0)
+        while odd and r * odd[-1] <= 15:
+            r *= odd.pop()
+        radices.append(r)
+    return tuple(radices)
 
 
 def chirpz_length(n: int) -> int:
@@ -90,8 +144,8 @@ def chirpz_length(n: int) -> int:
 
 
 def column_length(n_az: int) -> int:
-    """Points of the column pass's transform: n_az, or the chirp-z
-    length."""
+    """Points of the column pass's transform: n_az (a power of two or a
+    factored side), or the chirp-z length."""
     return chirpz_length(n_az) if chirpz(n_az) else n_az
 
 
@@ -130,10 +184,18 @@ def mixed_order(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _mixed_order(n: int) -> np.ndarray:
+    return digit_order(mixed_radices(n))
+
+
+def digit_order(radices) -> np.ndarray:
+    """int32: the frequency at each position of a row after the in-place
+    forward passes of these radices (decimation in frequency), as
+    :func:`mixed_order`."""
+    n = int(np.prod(radices))
     pos = np.zeros(1, np.int64)
     freq = np.zeros(1, np.int64)
     left, below = n, 1
-    for r in mixed_radices(n):
+    for r in radices:
         left //= r
         k = np.arange(r)
         pos = (pos[:, None] + k[None, :] * left).ravel()
@@ -180,8 +242,10 @@ def k2_plan(n_rg: int) -> K2Plan:
 
 # Threads a block of the column pass (K1 / K1g, K3 / K3g), and halo rows
 # K3g keeps on either side of a chunk of its power (csrc/gmti_kernel.cu,
-# kColThreads and kHalo)
+# kColThreads and kHalo); threads a block of the factored two-channel
+# kernels (kFacPairThreads)
 COLUMN_THREADS, COLUMN_HALO = 256, 16
+FACTORED_PAIR_THREADS = 2 * COLUMN_THREADS
 
 
 class ColumnPlan(NamedTuple):
@@ -218,6 +282,25 @@ def column_smem(n_az: int, cols: int, cluster: int, nch: int,
     return n
 
 
+def factored_smem(n: int, cols: int, nch: int, forward: bool = False,
+                  threads: int = COLUMN_THREADS) -> int:
+    """Shared-memory bytes a block of the factored kind takes at n =
+    n1 x n2 (:func:`factored_split`; the launchers compute the same): per
+    channel u x n2 x cols complex64 slots, u = ceil(n1 / FACTORED_CLUSTER)
+    local sequences; K1g (``forward``) adds one complex64 sum a thread and
+    FACTORED_CLUSTER x cols of block sums; K3g the power of n1 chunks of
+    ceil(n2 / FACTORED_CLUSTER) rows, each with 2 COLUMN_HALO halo slots,
+    a column, and one float32 a thread."""
+    n1, n2 = factored_split(n)
+    cs = FACTORED_CLUSTER
+    b = nch * -(-n1 // cs) * n2 * cols * 8
+    if nch == 2 and forward:
+        b += (threads + cs * cols) * 8
+    elif nch == 2:
+        b += (n1 * (-(-n2 // cs) + 2 * COLUMN_HALO) * cols + threads) * 4
+    return b
+
+
 def column_cluster(n: int) -> int:
     """Blocks a cluster of the column pass of n points (a power of two):
     one block holds up to 512 rows of a column, so n / 512, at least 1
@@ -226,11 +309,14 @@ def column_cluster(n: int) -> int:
     return min(16, max(1, n // 512))
 
 
-def column_threads(n_az: int) -> int:
-    """Threads a block of the column pass over n_az points: COLUMN_THREADS,
-    or twice that for a chirp-z transform on clusters of 16 blocks (one
-    block an SM, whose transforms wait on latency; csrc/gmti_kernel.cu,
-    column_threads)."""
+def column_threads(n_az: int, nch: int = 1) -> int:
+    """Threads a block of the column pass over n_az points and ``nch``
+    channels: COLUMN_THREADS, or twice that for a chirp-z transform on
+    clusters of 16 blocks (one block an SM, whose transforms wait on
+    latency; csrc/gmti_kernel.cu, column_threads), or
+    FACTORED_PAIR_THREADS for the factored two-channel kernels."""
+    if factored_split(n_az):
+        return FACTORED_PAIR_THREADS if nch == 2 else COLUMN_THREADS
     wide = chirpz(n_az) and column_cluster(column_length(n_az)) > 8
     return 2 * COLUMN_THREADS if wide else COLUMN_THREADS
 
@@ -248,14 +334,21 @@ def column_plan(n_az: int, n_rg: int, nch: int,
     task a thread over the channels (nch x QB x cols = the block's
     :func:`column_threads`), never under 8 columns (one 32-byte sector of
     each plane's row segment); a last tile past n_rg is cut at the edge.
-    At 7,199 x 13,200 that is 16 columns for K1 and K3, 8 for K1g and K3g,
-    in clusters of 16 blocks of 512 threads. At 4096 x 4096 it is 16 columns
+    A factored side (:func:`factored_split`) takes tiles of 8 columns on
+    clusters of FACTORED_CLUSTER blocks of COLUMN_THREADS threads
+    (:func:`factored_smem`: at 7,199 rows 59 KB for K1 and K3, 122 KB for
+    K1g, 171 KB for K3g, whose blocks take FACTORED_PAIR_THREADS). At
+    4096 x 4096 it is 16 columns
     for K1 and K3, 8 for K1g and K3g, in clusters of 8 blocks of 68 KB
     (K1, K3), 70 KB (K1g) and 93 KB (K3g), two blocks an SM: for K3 / K3g
     the fastest of the plans timed on the H100
     (PERF.md §6, rows 3 and 10)."""
     if not supported(n_az, n_rg):
         raise ValueError(f"column_plan: shape {(n_az, n_rg)} not supported")
+    if factored_split(n_az):
+        return ColumnPlan(8, FACTORED_CLUSTER,
+                          factored_smem(n_az, 8, nch, forward,
+                                        column_threads(n_az, nch)))
     n = column_length(n_az)
     cluster = column_cluster(n)
     qb = column_split(n, cluster)[1]
@@ -325,16 +418,36 @@ class _Plan:
 @dataclasses.dataclass(frozen=True, eq=False)
 class AzimuthPlan(_Plan):
     """How the column pass (K1 / K1g forward, K3 / K3g inverse) runs an
-    n-point azimuth DFT: on m = n points where n is a power of two, else as
-    a chirp-z transform on m = :func:`chirpz_length` (n) points, its
-    m-point spectrum kept in the cluster's shared memory; one launch a call
-    either way. ``tw`` is the m-point
-    :func:`twiddle_table`; at a chirp-z side the forward DFT (``fwd_*``) and
-    the inverse with its 1/n (``inv_*``) have the chirp (n,) and the
-    spectrum of the convolution's kernel (m,), complex64 (None at a power
-    of two). Forward: X[k] = c[k] (1/m) IDFT_m(DFT_m(c x) H)[k] with c[k] =
-    exp(-j pi k^2 / n) and H the DFT of exp(j pi j^2 / n) for |j| < n,
-    wrapped into m; the inverse conjugates c and H and scales H by 1/n."""
+    n-point azimuth DFT, one launch a call whichever the kind
+    (:attr:`kind`):
+
+    ``direct``: n a power of two, on m = n points; ``tw`` the m-point
+    :func:`twiddle_table`.
+
+    ``factored``: n = n1 x n2 (:func:`factored_split`) as a Good-Thomas
+    transform, no twiddles between the legs: input row (n2 i1 + n1 i2) mod
+    n is point (i1, i2), output row k the one with k mod n1 = k1 and k mod
+    n2 = k2. Each block of the cluster runs the n2-point DFTs of its i1 =
+    rank + cluster u in shared memory on :func:`local_radices`' passes,
+    natural order in, :func:`digit_order` out; a prime n2 runs Rader's
+    convolution on L = n2 - 1 points there instead (the points g^-s
+    forward, x the kernel's spectrum, inverse, X[g^q] at slot q, X[0] at
+    slot L). The gather reads X_i1[k2] of every block and runs the n1-point
+    DFT in registers. ``tw`` holds exp(-2 pi i k / L), k < L (L = n2 for a
+    smooth n2), then exp(-2 pi i k / n1), k < n1; ``index`` (int32) the
+    output weights e1 and e2 (row = (e1 k1 + e2 k2) mod n), the radices,
+    the row offset (n1 i2) mod n of each slot and the slot of each k2;
+    ``fwd_spec`` / ``inv_spec`` Rader's DFT_L(b) / L, b[q] = exp(-/+ 2 pi
+    i g^q / n2), in the passes' order (None for a smooth n2). m = n.
+
+    ``chirpz``: every other n, on m = :func:`chirpz_length` (n) points,
+    the m-point spectrum kept in the cluster's shared memory; ``tw`` the
+    m-point table, and the forward DFT (``fwd_*``) and the inverse with its
+    1/n (``inv_*``) have the chirp (n,) and the spectrum of the
+    convolution's kernel (m,), complex64. Forward: X[k] = c[k] (1/m)
+    IDFT_m(DFT_m(c x) H)[k] with c[k] = exp(-j pi k^2 / n) and H the DFT of
+    exp(j pi j^2 / n) for |j| < n, wrapped into m; the inverse conjugates c
+    and H and scales H by 1/n."""
     n: int
     m: int
     tw: torch.Tensor
@@ -342,12 +455,27 @@ class AzimuthPlan(_Plan):
     fwd_spec: torch.Tensor | None = None
     inv_chirp: torch.Tensor | None = None
     inv_spec: torch.Tensor | None = None
+    index: torch.Tensor | None = None
+
+    @property
+    def kind(self) -> str:
+        """``direct``, ``factored`` or ``chirpz``."""
+        if self.index is not None:
+            return "factored"
+        return "direct" if self.m == self.n else "chirpz"
 
     @property
     def launches(self) -> int:
         """Kernel launches of one column-pass call: 1 at every side (the
         chirp-z transform's forward and inverse passes share the launch)."""
         return 1
+
+    @property
+    def legs(self) -> tuple:
+        """(n1, n2, L, passes) of the factored kind (L the local transform's
+        points, n2 or n2 - 1), zeros for the others: the launchers'
+        ints."""
+        return _legs(self.n) if self.index is not None else (0, 0, 0, 0)
 
     def check(self, name: str, n: int, device) -> None:
         """Raises ValueError unless this is :func:`azimuth_plan` (n) with its
@@ -357,26 +485,48 @@ class AzimuthPlan(_Plan):
         if not isinstance(self, AzimuthPlan) or (self.n, self.m) != (n, m):
             raise ValueError(f"{name}: needs the azimuth plan of {n} points")
         c64 = torch.complex64
+        if factored_split(n):
+            n1, n2, local, passes = self.legs
+            spec = None if local == n2 else ((local,), c64)
+            self._check_tables(name, device, dict(
+                tw=((local + n1,), c64), fwd_chirp=None, fwd_spec=spec,
+                inv_chirp=None, inv_spec=spec,
+                index=((2 + passes + 2 * n2,), torch.int32)))
+            return
         chirp, spec = ((n,), c64), ((m,), c64)
         if m == n:
             chirp = spec = None
         self._check_tables(name, device, dict(
             tw=((m // 2,), c64), fwd_chirp=chirp, fwd_spec=spec,
-            inv_chirp=chirp, inv_spec=spec))
+            inv_chirp=chirp, inv_spec=spec, index=None))
 
     def tables(self, inverse: bool) -> tuple:
-        """(table, chirp, spectrum) of a launch's direction; the chirp and
-        the spectrum are None at a power of two."""
+        """(table, chirp, spectrum, index) of a launch's direction; None
+        where the kind has no such table."""
         if inverse:
-            return self.tw, self.inv_chirp, self.inv_spec
-        return self.tw, self.fwd_chirp, self.fwd_spec
+            return self.tw, self.inv_chirp, self.inv_spec, self.index
+        return self.tw, self.fwd_chirp, self.fwd_spec, self.index
+
+
+@functools.lru_cache(maxsize=None)
+def _legs(n: int) -> tuple:
+    n1, n2 = factored_split(n)
+    local = n2 if _smooth(n2) else n2 - 1
+    return n1, n2, local, len(local_radices(local))
 
 
 def azimuth_plan(n: int, device=None) -> AzimuthPlan:
     """The :class:`AzimuthPlan` of n-point azimuth transforms on ``device``:
-    the chirp from k^2 mod 2n (exact in int64), then float64, the spectra by
+    integer maps exact in int64; the chirp from k^2 mod 2n, the factored
+    kind's twiddles from k / L and k / n1, then float64, the spectra by
     float64 FFT, each rounded once to complex64 (on the host once per n,
     then copied)."""
+    if factored_split(n):
+        tw, index, fwd, inv = _factored_host(n)
+        return AzimuthPlan(n, n, *(t.to(device=device, copy=True)
+                                   if t is not None else None
+                                   for t in (tw, None, fwd, None, inv,
+                                             index)))
     if not chirpz(n):
         return AzimuthPlan(n, n, twiddle_table(n, device))
     m = chirpz_length(n)
@@ -396,6 +546,50 @@ def _chirpz_host(n: int) -> tuple:
     return tuple(torch.from_numpy(v.astype(np.complex64))
                  for v in (c, np.fft.fft(h), np.conj(c),
                            np.fft.fft(np.conj(h)) / n))
+
+
+def _primitive_root(p: int) -> int:
+    """The least generator of the integers mod the prime p."""
+    q, fs = p - 1, set()
+    for d in range(2, p):
+        while q % d == 0:
+            fs.add(d)
+            q //= d
+    return next(g for g in range(2, p)
+                if all(pow(g, (p - 1) // f, p) != 1 for f in fs))
+
+
+@functools.lru_cache(maxsize=None)
+def _factored_host(n: int) -> tuple:
+    """(tw, index, fwd_spec, inv_spec) of the factored kind at n on the
+    host (the specs None for a smooth n2)."""
+    n1, n2 = factored_split(n)
+    rader = not _smooth(n2)
+    local = n2 - 1 if rader else n2
+    radices = local_radices(local)
+    order = digit_order(radices)
+    specs = (None, None)
+    if rader:
+        g = _primitive_root(n2)
+        gq = np.array([pow(g, q, n2) for q in range(local)], np.int64)
+        i2 = np.append(np.array([pow(g, -q, n2) for q in range(local)],
+                                np.int64), 0)
+        pos = np.empty(n2, np.int64)
+        pos[gq] = np.arange(local)
+        pos[0] = local
+        specs = tuple(torch.from_numpy((np.fft.fft(np.exp(
+            sign * 2j * np.pi * gq / n2))[order] / local).astype(
+                np.complex64)) for sign in (-1, 1))
+    else:
+        i2 = np.arange(n2, dtype=np.int64)
+        pos = np.argsort(order)
+    e1 = n2 * pow(n2, -1, n1) % n
+    e2 = n1 * pow(n1, -1, n2) % n
+    tw = np.concatenate([np.exp(-2j * np.pi * np.arange(local) / local),
+                         np.exp(-2j * np.pi * np.arange(n1) / n1)])
+    index = np.concatenate([[e1, e2], radices, (n1 * i2) % n, pos])
+    return (torch.from_numpy(tw.astype(np.complex64)),
+            torch.from_numpy(index.astype(np.int32)), *specs)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -547,7 +741,8 @@ def k1_call(xr, xi, f: CsaFactors, *, plan=None):
     Phi1 on natural azimuth frequencies: the forward column pass on tiles of
     adjacent columns (:func:`column_plan` with ``forward``), K1g's for one
     channel on the same split of n_az, so its result is K1g's for that
-    channel bit for bit; by chirp-z where ``plan`` takes it.
+    channel bit for bit; by chirp-z or as a
+    prime-factor transform where ``plan`` takes it.
 
     (n_az, n_rg) float32 planes in, two planes out. ``plan``: the
     :func:`azimuth_plan` of n_az (built when None)."""
@@ -565,7 +760,7 @@ def k1_call(xr, xi, f: CsaFactors, *, plan=None):
     _build.launch("k1_launch",
                   (xr, xi, f.u, f.c1, f.w, *plan.tables(inverse=False),
                    *out),
-                  (n_az, plan.m, n_rg,
+                  (n_az, plan.m, *plan.legs, n_rg,
                    *column_plan(n_az, n_rg, 1, forward=True)))
     k1_call.launches += plan.launches
     return tuple(out)
@@ -587,7 +782,8 @@ def k3_plain(xr, xi, *, plan=None, out=None):
 def k3_call(xr, xi, *, plan=None, out=None):
     """Inverse azimuth FFT (1/N) of one channel: K3g's column pass (the same
     transform on the same :func:`column_plan` split), so its result is K3g's
-    SLC for that channel bit for bit; by chirp-z where ``plan`` takes it.
+    SLC for that channel bit for bit; by chirp-z or as a
+    prime-factor transform where ``plan`` takes it.
 
     (n_az, n_rg) float32 planes in, two planes out: new ones, or ``out``, a
     pair of contiguous planes of that shape to write (and return).
@@ -605,7 +801,8 @@ def k3_call(xr, xi, *, plan=None, out=None):
     else:
         _build.check("k3_call", out, (n_az, n_rg), dev)
     _build.launch("k3_launch", (xr, xi, *plan.tables(inverse=True), *out),
-                  (n_az, plan.m, n_rg, *column_plan(n_az, n_rg, 1)))
+                  (n_az, plan.m, *plan.legs, n_rg,
+                   *column_plan(n_az, n_rg, 1)))
     k3_call.launches += plan.launches
     return tuple(out)
 
@@ -626,7 +823,8 @@ def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
     Each kernel runs under its span (``focus.k1``, ``focus.k2``,
     ``focus.k3``), and each plane counts its axis transforms (azimuth
     forward and inverse, range forward and inverse) that ran by chirp-z
-    (``cpi.chirpz_axes``) and by the mixed-radix plan
+    (``cpi.chirpz_axes``), as a prime-factor transform
+    (``cpi.factored_axes``) and by the mixed-radix plan
     (``cpi.mixed_radix_axes``), as the GMTI CPI counts its own.
 
     Raises ValueError at shapes the kernels do not take (:func:`supported`)
@@ -642,7 +840,8 @@ def apply_csa_pallas_planes(xr, xi, f: CsaFactors):
     # K3 writes each SLC plane straight into its slot of the batch
     out_r, out_i = torch.empty_like(xr), torch.empty_like(xi)
     for zr, zi, sr, si in zip(xr, xi, out_r, out_i):
-        count("cpi.chirpz_axes", 2 * (az.m != n_az))
+        count("cpi.chirpz_axes", 2 * (az.kind == "chirpz"))
+        count("cpi.factored_axes", 2 * (az.kind == "factored"))
         count("cpi.mixed_radix_axes", 2 * (rg.passes > 0))
         with span("focus.k1"):
             zr, zi = k1_call(zr, zi, f, plan=az)

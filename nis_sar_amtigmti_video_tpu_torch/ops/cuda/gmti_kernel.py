@@ -63,7 +63,8 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     tensors. The kernel writes each column's sum, from the two spectra by
     Parseval (sum_k X1 conj X2 / n_az) and reduced in a fixed order, so two
     launches give the same bits; the columns are summed here. By chirp-z
-    where ``plan`` takes it (the sums from the forward spectra, / m).
+    where ``plan`` takes it (the sums from the forward spectra, / m), or
+    as a prime-factor transform (from the gathered spectra, / n_az).
     ``plan``: the ``azimuth_plan`` of n_az (built when None)."""
     if _build.on_cpu(x1r):
         return k1_gmti_plain(x1r, x1i, x2r, x2i, f, balance=balance)
@@ -80,7 +81,7 @@ def k1_gmti_planes(x1r, x1i, x2r, x2i, f: CsaFactors, *, balance=True,
     _build.launch("k1g_launch",
                   (x1r, x1i, x2r, x2i, f.u, f.c1, f.w,
                    *plan.tables(inverse=False), *out, bal),
-                  (n_az, plan.m, n_rg, int(balance),
+                  (n_az, plan.m, *plan.legs, n_rg, int(balance),
                    *column_plan(n_az, n_rg, 2, forward=True)))
     k1_gmti_planes.launches += plan.launches
     # per-column sums -> two scalars
@@ -205,9 +206,9 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     Returns (s1r, s1i, s2r, s2i, phase_unmasked, mag1_sq, power,
     colsum_outer, colsum_inner, peaks): the colsums are the azimuth halves
     of the CFAR box sums of ``power`` (half-widths h_out, h_in); ``peaks``
-    is the (n_rg,) max |s1|^2 of each range column. By chirp-z where
-    ``plan`` takes it. ``plan``: the ``azimuth_plan`` of n_az (built when
-    None)."""
+    is the (n_rg,) max |s1|^2 of each range column. By chirp-z or as a
+    prime-factor transform where ``plan`` takes it. ``plan``: the
+    ``azimuth_plan`` of n_az (built when None)."""
     if _build.on_cpu(x1r):
         return k3_gmti_plain(x1r, x1i, x2r, x2i, cal_cos_sin, h_out=h_out,
                              h_in=h_in)
@@ -223,7 +224,7 @@ def k3_gmti_planes(x1r, x1i, x2r, x2i, cal_cos_sin, *, h_out: int,
     _build.launch("k3g_launch",
                   (x1r, x1i, x2r, x2i, cal_cos_sin, *plan.tables(inverse=True),
                    *out, peaks),
-                  (n_az, plan.m, n_rg, h_out, h_in,
+                  (n_az, plan.m, *plan.legs, n_rg, h_out, h_in,
                    *column_plan(n_az, n_rg, 2)))
     k3_gmti_planes.launches += plan.launches
     return (*out, peaks)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes inside the chirp-z column kernels (K1g, K1, K3g, K3).
 
-    python3 scripts/probe_torch_cpi_phases.py [--n 7199] [--n-rg 13200]
+    python3 scripts/probe_torch_cpi_phases.py [--n 7193] [--n-rg 13200]
 
 (GPU, from the repo root.) Builds copies of
 ``nis_sar_amtigmti_video_tpu_torch/csrc/gmti_kernel.cu`` under
@@ -90,21 +90,22 @@ MARKS = [
      "QB, kHeld>(nullptr, nullptr, nullptr,\n                              "
      "                nullptr, y, ysz, tw, t);\n  CPI_MARK(4)\n}\n"),
     # K1 / K1g
-    ("      });\n  if constexpr (SUMS) {\n    red[threadIdx.x] = s;\n",
-     "      });\n  CPI_MARK(5)\n  if constexpr (SUMS) {\n"
-     "    red[threadIdx.x] = s;\n"),
+    ("    column_gather<CZ, NCH, CS, QA, QB>(y, ysz, tw, t, emit);\n"
+     "  if constexpr (SUMS) {\n",
+     "    column_gather<CZ, NCH, CS, QA, QB>(y, ysz, tw, t, emit);\n"
+     "  CPI_MARK(5)\n  if constexpr (SUMS) {\n"),
     ("      bal[n_rg + t.col0 + threadIdx.x] = balance ? si * inv_n : 0.0f;"
      "\n    }\n  }\n}\n",
      "      bal[n_rg + t.col0 + threadIdx.x] = balance ? si * inv_n : 0.0f;"
      "\n    }\n  }\n  CPI_END(6)\n}\n"),
     # K3
-    ("        sr[idx] = v.x;\n        si[idx] = v.y;\n      });\n"
+    ("    column_gather<true, 1, CS, QA, QB>(y, 0, tw, t, emit);\n"
      "  cluster_barrier<CS>();\n}\n",
-     "        sr[idx] = v.x;\n        si[idx] = v.y;\n      });\n"
+     "    column_gather<true, 1, CS, QA, QB>(y, 0, tw, t, emit);\n"
      "  CPI_MARK(5)\n  cluster_barrier<CS>();\n  CPI_END(6)\n}\n"),
     # K3g
-    ("        pcol[pslot<J>(lr / J, lr % J, c, t)] = p;\n      });\n",
-     "        pcol[pslot<J>(lr / J, lr % J, c, t)] = p;\n      });\n"
+    ("    column_gather<true, 2, CS, QA, QB>(y, ysz, tw, t, emit);\n",
+     "    column_gather<true, 2, CS, QA, QB>(y, ysz, tw, t, emit);\n"
      "  CPI_MARK(5)\n"),
     ("  if (!local) cluster_barrier<CS>();   // others read this pcol until "
      "then\n}\n",
@@ -166,9 +167,9 @@ VARIANTS = {
         "        sincosf(__ldg(c1 + row) * du * du, &sn, &cs);\n",
         "        sn = du;\n        cs = 1.0f;\n")],
     "K3g no box sums": [(
-        "    const float2 w = column_windows<CS, QA, QB>(pcol, row, k1, jj, "
-        "c,\n                                                h_out, h_in, "
-        "t, nv);\n", "    const float2 w = make_float2(0.0f, 0.0f);\n")],
+        "    const float2 w = column_windows<CS>(pcol, row, k1, jj, c, h_out, "
+        "h_in,\n                                        t, nv, g);\n",
+        "    const float2 w = make_float2(0.0f, 0.0f);\n")],
     "K3g no atan2f": [(
         "        ph[idx] = atan2f(pi * cr - pr * ci, pr * cr + pi * ci);\n",
         "        ph[idx] = pi * cr - pr * ci;\n")],
@@ -269,7 +270,7 @@ def calls(f, x, plan, dev):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=7199)
+    ap.add_argument("--n", type=int, default=7193)
     ap.add_argument("--n-rg", type=int, default=13200)
     a = ap.parse_args()
     dev = torch.device("cuda", 0)

@@ -49,10 +49,19 @@ def test_column_plan_at_other_sides(n_az, nch, forward):
     """The plan is the column pass's at the transform's length (n_az, or
     the chirp-z length), which splits into the kernels' clusters of at
     most 16 blocks; the shared memory fits a block; the tile covers n_rg
-    with a last tile cut at the edge."""
+    with a last tile cut at the edge. A factored side (7,199, 7,200) runs
+    at its own length on tiles of 8 columns, clusters of 8 and
+    ``factored_smem``."""
     n_rg = 13200 if n_az > 4096 else 165
     plan = tck.column_plan(n_az, n_rg, nch, forward)
     n = tck.column_length(n_az)
+    if tck.factored_split(n_az):
+        assert n == n_az and not tck.chirpz(n_az)
+        assert (plan.cols, plan.cluster) == (8, tck.FACTORED_CLUSTER)
+        assert plan.smem == tck.factored_smem(
+            n_az, 8, nch, forward, tck.column_threads(n_az, nch)) \
+            <= SMEM_PER_BLOCK
+        return
     assert n & (n - 1) == 0 and (n == n_az or n >= 2 * n_az - 1)
     assert plan.cluster == tck.column_cluster(n) <= 16
     qa, qb = tck.column_split(n, plan.cluster)
@@ -63,11 +72,12 @@ def test_column_plan_at_other_sides(n_az, nch, forward):
                                         ) <= SMEM_PER_BLOCK
 
 
-# the chirp-z corners the card tests hold the kernels to: the upstream's
-# CPI shifted and unshifted, the longest chirp-z side over the longest row,
-# the shortest 16,384-point side, and the shortest chirp-z side (m = 256,
-# one block a cluster)
-CHIRPZ_CORNERS = [(7199, 13200), (7200, 13200), (8191, 16384), (4097, 693),
+# the chirp-z corners the card tests hold the kernels to: two primes over
+# the upstream's range side (7,193 and 6,007, in the place of the upstream's
+# 7,199 and 7,200, which the factored kind takes), the longest chirp-z side
+# over the longest row, the shortest 16,384-point side, and the shortest
+# chirp-z side (m = 256, one block a cluster)
+CHIRPZ_CORNERS = [(7193, 13200), (6007, 13200), (8191, 16384), (4097, 693),
                   (65, 64)]
 
 
@@ -104,20 +114,33 @@ def test_chirpz_launch_plan_at_the_corners(shape, forward, nch):
 
 
 def test_chirpz_lengths():
-    """The least power of two of at least 2 n - 1: 16,384 at the
-    upstream's 7,199 and 7,200; 256 at 65. One launch a column-pass call at
-    every side: the chirp-z transform's convolution stays in the cluster's
-    shared memory."""
-    assert tck.chirpz_length(7199) == tck.chirpz_length(7200) == 16384
+    """The least power of two of at least 2 n - 1: 16,384 at 7,193 and
+    8,191; 256 at 65. Which kind each side takes: a power of two the
+    direct pass (4096), a side ``factored_split`` takes the factored kind
+    at its own length (7,199 = 23 x 313, 7,200 = 32 x 225, 120 = 8 x 15),
+    any other the chirp-z kind (7,193 and 8,191, primes; 4,097 = 17 x 241
+    and 65 = 5 x 13, whose legs are no outer leg). One launch a
+    column-pass call at every side."""
+    assert tck.chirpz_length(7193) == tck.chirpz_length(8191) == 16384
     assert tck.chirpz_length(65) == 256 and tck.chirpz_length(4097) == 16384
+    kinds = {n: tck.azimuth_plan(n).kind
+             for n in (4096, 7199, 7200, 120, 7193, 8191, 4097, 65)}
+    assert kinds == {4096: "direct", 7199: "factored", 7200: "factored",
+                     120: "factored", 7193: "chirpz", 8191: "chirpz",
+                     4097: "chirpz", 65: "chirpz"}
+    assert tck.factored_split(7199) == (23, 313)
+    assert tck.factored_split(7200) == (32, 225)
     assert not tck.chirpz(4096) and tck.chirpz(4097)
-    assert tck.azimuth_plan(4096).launches == 1
-    assert tck.azimuth_plan(7199).launches == 1
+    assert not tck.chirpz(7199) and tck.chirpz(7193)
+    assert tck.column_length(7199) == 7199
+    assert tck.column_length(7193) == 16384
+    assert all(tck.azimuth_plan(n).launches == 1 for n in kinds)
     assert not tck.k2_mixed(4096) and tck.k2_mixed(8192)
     assert tck.k2_mixed(13200) and tck.k2_mixed(96)
 
 
-@pytest.mark.parametrize("shape", [(90, 165), (64, 128), (97, 8192)])
+@pytest.mark.parametrize("shape", [(90, 165), (64, 128), (97, 8192),
+                                   (184, 165), (120, 64)])
 def test_gmti_cpi_tables(shape):
     """GmtiCpi holds the axis plans its kernels read: the direct column
     pass or the chirp-z transform's (its length, tables and one launch), the
@@ -137,11 +160,18 @@ def test_gmti_cpi_tables(shape):
         assert az.m == m and az.tw.shape == (m // 2,) and az.launches == 1
         assert az.fwd_chirp.shape == az.inv_chirp.shape == (n_az,)
         assert az.fwd_spec.shape == az.inv_spec.shape == (m,)
-        assert cpi.chirpz_axes == 2
+        assert (cpi.chirpz_axes, cpi.factored_axes) == (2, 0)
+    elif tck.factored_split(n_az):
+        n1, n2, local, passes = az.legs
+        assert az.m == n_az and az.tw.shape == (local + n1,)
+        assert az.index.shape == (2 + passes + 2 * n2,)
+        assert az.fwd_chirp is None and az.inv_chirp is None
+        assert (az.fwd_spec is None) == (local == n2)
+        assert (cpi.chirpz_axes, cpi.factored_axes) == (0, 2)
     else:
         assert az.m == n_az and az.tw.shape == (n_az // 2,)
         assert az.launches == 1 and set(az.tensors()) == {"tw"}
-        assert cpi.chirpz_axes == 0
+        assert (cpi.chirpz_axes, cpi.factored_axes) == (0, 0)
     if tck.k2_mixed(n_rg):
         assert rg.tw.shape == rg.order.shape == (n_rg,)
         assert rg.radices.tolist() == list(tck.mixed_radices(n_rg))

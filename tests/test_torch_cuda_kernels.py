@@ -20,8 +20,9 @@ column views of wider planes, bands at both ends) and the direct-echo
 kernel at small shapes and at the full-scale GMTI chain's (512-pulse
 chunks, nfft 65,536), with the freq and pallas echo backends end to end on
 the card; the CPI kernels also at the upstream's 7,199 x 13,200 and
-7,200 x 13,200 and at two small odd shapes (chirp-z azimuth, mixed-radix
-range, tiles cut at the range edge), both CPI routes, and the auto path
+7,200 x 13,200 (the factored azimuth) and at small odd shapes (chirp-z and
+factored azimuth, mixed-radix range, tiles cut at the range edge), both
+CPI routes, and the auto path
 at the upstream's CPI with its spans and counters; HRWS's reconstruct_focus
 on the card against the CPU, and the spread's count of dropped targets
 against the CPU's. Marked ``cuda``: they skip
@@ -439,15 +440,23 @@ ODD_IDS = [f"{a}x{b}" for a, b in ODD_SHAPES]
 # longest chirp-z side over the longest row, the shortest (m = 256, one
 # block a cluster), and the shortest on 8,192 points (clusters of 16)
 COLUMN_SHAPES_CZ = ODD_SHAPES + [(8191, 16384), (65, 64), (2049, 693)]
+# the factored kind beside the upstream's 7,199 (23 x 313, Rader on 312) and
+# 7,200 (32 x 225): each outer leg (8, 16, 32, 23), smooth local legs of one
+# and two passes (15; 7 x 9), Rader's on 22, 28 and 256 points (16 x 16),
+# a last tile cut at the range edge; and the chirp-z side 7,193
+FACTORED_SHAPES = [(120, 165), (1008, 693), (96, 64), (184, 165),
+                   (667, 120), (5911, 693), (7193, 13200)]
+COLUMN_SHAPES = COLUMN_SHAPES_CZ + FACTORED_SHAPES
 
 
-@pytest.mark.parametrize("n", COLUMN_SHAPES_CZ,
-                         ids=[f"{a}x{b}" for a, b in COLUMN_SHAPES_CZ])
+@pytest.mark.parametrize("n", COLUMN_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in COLUMN_SHAPES])
 def test_column_kernels_match_plain_at_other_sides(dev, n):
     """K1g, K1, K3g and K3 against their plain versions (1e-4 of the peak;
     the ATI phase on strong pixels 1e-3 rad), the one-channel kernels bit
     for bit their pairs' channel, two launches (the second given the plan)
-    the same bits; one launch a call (the chirp-z transform's too)."""
+    the same bits; one launch a call (the chirp-z and factored transforms'
+    too)."""
     assert csa_kernel.supported(*n)
     f, x = _factors(n, dev), _planes(n, dev, 21)
     plan = csa_kernel.azimuth_plan(n[0], dev)
@@ -478,14 +487,14 @@ def test_column_kernels_match_plain_at_other_sides(dev, n):
     assert all(torch.equal(a, b) for a, b in zip(one, got[:2]))
 
 
-@pytest.mark.parametrize("n", [(4097, 693), (7199, 13200)],
-                         ids=["4097x693", "7199x13200"])
+@pytest.mark.parametrize("n", [(4097, 693), (7193, 13200)],
+                         ids=["4097x693", "7193x13200"])
 def test_chirpz_column_kernels_hold_no_planes(dev, n):
     """A chirp-z K1g call and a chirp-z K3g call each count one launch and
     allocate no (m, n_rg) plane: the rise of the card's peak allocation
     during the call stays below its outputs plus the plan's tables (the
     chirp-z planes of the two-launch form were 4 x m x n_rg floats, 2.3x
-    the outputs of K1g at 7,199 rows)."""
+    the outputs of K1g at 7,193 rows)."""
     f, x = _factors(n, dev), _planes(n, dev, 26)
     plan = csa_kernel.azimuth_plan(n[0], dev)
     assert plan.m == csa_kernel.chirpz_length(n[0]) > n[0]
@@ -511,6 +520,57 @@ def test_chirpz_column_kernels_hold_no_planes(dev, n):
         assert outputs <= rise < outputs + tables, (name, rise, outputs)
         assert rise < outputs + planes // 2, name
         del got
+
+
+@pytest.mark.parametrize("n", [(7199, 13200), (7200, 13200)],
+                         ids=["7199x13200", "7200x13200"])
+def test_factored_column_kernels_hold_no_planes(dev, n):
+    """The factored kind at the upstream's sides: K1g and K3g at 7,199 (23 x
+    313, Rader) and K1 and K3 at 7,200 (32 x 225) each count one launch per
+    call, allocate nothing beyond their outputs (the local transform and
+    the gather stay in the cluster's shared memory), give the same bits on
+    a second call, and the CPI and the formation stream count two azimuth
+    transforms as prime-factor transforms and none by chirp-z."""
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    f, x = _factors(n, dev), _planes(n, dev, 27)
+    plan = csa_kernel.azimuth_plan(n[0], dev)
+    assert plan.kind == "factored" and plan.m == n[0]
+    tables = sum(t.numel() * t.element_size()
+                 for t in plan.tensors().values())
+    cal_cs = _cal_cs(dev)
+    calls = (
+        ("k1g", gmti_kernel.k1_gmti_planes,
+         lambda: gmti_kernel.k1_gmti_planes(*x, f, plan=plan)),
+        ("k3g", gmti_kernel.k3_gmti_planes,
+         lambda: gmti_kernel.k3_gmti_planes(*x, cal_cs, h_out=H_OUT,
+                                            h_in=H_IN, plan=plan))) \
+        if n[0] == 7199 else (
+        ("k1", csa_kernel.k1_call,
+         lambda: csa_kernel.k1_call(x[0], x[1], f, plan=plan)),
+        ("k3", csa_kernel.k3_call,
+         lambda: csa_kernel.k3_call(x[0], x[1], plan=plan)))
+    for name, kernel, call in calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = kernel.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        outputs = sum(t.numel() * t.element_size() for t in got)
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        assert outputs <= rise < outputs + tables + (1 << 20), (name, rise)
+        again = call()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        del got, again
+    if n[0] == 7199:
+        cpi = fused.GmtiCpi(f)
+        assert (cpi.factored_axes, cpi.chirpz_axes) == (2, 0)
+    else:
+        with profiling.recording() as rec:
+            csa_kernel.apply_csa_pallas_planes(x[0], x[1], f)
+        assert rec.counters == {"cpi.chirpz_axes": 0, "cpi.factored_axes": 2,
+                                "cpi.mixed_radix_axes": 2}
 
 
 @pytest.mark.parametrize("n", ODD_SHAPES, ids=ODD_IDS)
@@ -586,8 +646,8 @@ def test_auto_path_takes_kernels_at_the_upstream_cpi(dev):
     """focus_and_products(path='auto') with fft_impl='pallas' runs K1g, K2
     pair, K3g and K4 at 7,199 x 13,200 (the upstream's raw after the
     one-pulse shift), with their spans and the counters: two azimuth
-    transforms by chirp-z, two range transforms by the mixed-radix plan;
-    the slc against the composed route's."""
+    transforms as prime-factor transforms (23 x 313), two range transforms
+    by the mixed-radix plan; the slc against the composed route's."""
     from nis_sar_amtigmti_video_tpu_torch.utils import profiling
     sc = config.ati_dpca()
     sc = sc.replace(processing=dataclasses.replace(sc.processing,
@@ -607,9 +667,10 @@ def test_auto_path_takes_kernels_at_the_upstream_cpi(dev):
                                   csa_kernel.k2_pair_call,
                                   gmti_kernel.k3_gmti_planes,
                                   gmti_kernel.k4_epilogue_planes)]
-    # one launch each, K1g's and K3g's chirp-z transforms too
+    # one launch each, K1g's and K3g's factored transforms too
     assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 1]
-    assert rec.counters == {"cpi.chirpz_axes": 2, "cpi.mixed_radix_axes": 2}
+    assert rec.counters == {"cpi.chirpz_axes": 0, "cpi.factored_axes": 2,
+                            "cpi.mixed_radix_axes": 2}
     tree = rec.tree()
     for k in ("k1g", "k2", "k3g", "k4"):
         assert f"focus/focus.cpi_kernels/focus.{k}" in tree, k
@@ -1807,8 +1868,9 @@ def test_hrws_reconstruct_focus_on_card(dev):
     assert float((got_rec - want_rec).abs().max()) \
         <= 1e-5 * float(want_rec.abs().max())
     assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
-    assert rec.counters == {"hrws.bands": 4, "cpi.chirpz_axes": 2,
-                            "cpi.mixed_radix_axes": 2}
+    # 800 = 32 x 25: the factored kind
+    assert rec.counters == {"hrws.bands": 4, "cpi.chirpz_axes": 0,
+                            "cpi.factored_axes": 2, "cpi.mixed_radix_axes": 2}
     tree = rec.tree()
     assert tree["hrws.focus"][0] == 1
     assert all(tree[f"hrws.focus/focus.{k}"][0] == 1

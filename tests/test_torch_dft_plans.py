@@ -8,6 +8,12 @@ kernels read, and held to NumPy's float64 FFT.
   the spectrum lies at the positions of ``csa_kernel.mixed_order``; the
   inverse runs the passes backwards with conjugate twiddles and leaves the
   natural order.
+* The factored azimuth transform (``csrc/gmti_kernel.cu``, STAGE
+  kFactored): the Good-Thomas split n = n1 x n2 of
+  ``csa_kernel.factored_split`` with the index maps, the local passes
+  (``csa_kernel.local_radices``, or Rader's convolution for a prime n2),
+  the slots of ``csa_kernel.azimuth_plan``'s index table and the n1-point
+  gather across the cluster.
 * The chirp-z azimuth transform (``csrc/gmti_kernel.cu``, the column pass's
   one chirp-z launch): the chirp, the convolution's spectrum and the
   m-point twiddle table of ``csa_kernel.azimuth_plan``, the column pass's
@@ -42,15 +48,19 @@ def _small(u, r, tw, n, inverse):
     return (u @ w).astype(np.complex64)
 
 
-def mixed_forward(x, tw, inverse=False):
+def mixed_forward(x, tw, inverse=False, radices=None, sign=None):
     """K2's mixed-radix plan over x's last axis (complex64): forward
     (spectrum at mixed_order's positions) or, with ``inverse``, the
-    unnormalised inverse from those positions to the natural order."""
+    unnormalised inverse from those positions to the natural order.
+    ``radices`` (mixed_radices(n) when None) and ``sign`` (the direction of
+    the DFTs and twiddles; ``inverse`` when None) serve the factored kind's
+    local passes, whose forward passes also run the inverse DFT (K3)."""
     n = x.shape[-1]
     tw = _c64(tw)
     lead = x.shape[:-1]
+    sign = inverse if sign is None else sign
     passes, left = [], n
-    for r in tck.mixed_radices(n):
+    for r in radices or tck.mixed_radices(n):
         passes.append((left, r))
         left //= r
     v = x.astype(np.complex64)
@@ -61,11 +71,13 @@ def mixed_forward(x, tw, inverse=False):
         s = np.arange(s_len)[:, None]
         k = np.arange(r)[None, :]
         w = tw[(s * k * (n // ln)) % n]            # W_ln^(s k)
+        if sign:
+            w = np.conj(w)
         u = np.swapaxes(u, -1, -2)                 # (..., blk, s, j)
         if inverse:
-            u = _small(u * np.conj(w), r, tw, n, True)
+            u = _small(u * w, r, tw, n, sign)
         else:
-            u = _small(u, r, tw, n, False) * w
+            u = _small(u, r, tw, n, sign) * w
         v = np.swapaxes(u, -1, -2).reshape(lead + (n,)).astype(np.complex64)
     return v
 
@@ -197,7 +209,7 @@ def chirpz_dft(x, plan, inverse):
     rows below n."""
     n, m = x.shape[0], plan.m
     cs = tck.column_plan(n, 64, 1).cluster
-    tw, chirp, spec = (t.numpy() for t in plan.tables(inverse))
+    tw, chirp, spec = (t.numpy() for t in plan.tables(inverse)[:3])
     a = np.zeros((m,) + x.shape[1:], np.complex64)
     a[:n] = x * chirp[:, None]
     a = fused_convolution(a, tw, spec, cs)
@@ -206,7 +218,87 @@ def chirpz_dft(x, plan, inverse):
     return (c[:n] * chirp[:, None]).astype(np.complex64)
 
 
-CHIRPZ_SIDES = [65, 97, 120, 165, 313, 719, 4097, 7199, 7200, 8191]
+def factored_dft(x, plan, inverse):
+    """The factored kind's transform over x's rows (n, cols) with an
+    ``azimuth_plan``'s tables, as its one launch moves the data: block
+    rank = i1 mod CS reads the rows (n2 i1 + (n1 i2) mod n) mod n of each
+    of its i1 into the slots the index table gives, runs the local passes
+    there (forward passes of the launch's direction; for a prime n2
+    Rader's: forward passes, x the spectrum with x0 added at frequency 0
+    and X[0] = x0 + A[0] kept in slot L, inverse passes), then the gather
+    reads X_i1[k2] from the slot of k2 of every i1, runs the n1-point DFT
+    and writes row (e1 k1 + e2 k2) mod n (x 1/n inverse)."""
+    n = x.shape[0]
+    n1, n2, local, passes = plan.legs
+    tw = plan.tw.numpy()
+    tl, to = tw[:local], tw[local:]
+    idx = plan.index.numpy().astype(np.int64)
+    e1, e2 = idx[:2]
+    radices = [int(r) for r in idx[2:2 + passes]]
+    rowof = idx[2 + passes:2 + passes + n2]
+    slot_of = idx[2 + passes + n2:]
+    assert np.prod(radices) == local
+    rows = (n2 * np.arange(n1)[:, None] + rowof[None, :]) % n
+    y = np.moveaxis(x[rows], -1, 1)                # (i1, col, slot)
+    if local != n2:
+        spec = plan.tables(inverse)[2].numpy()
+        x0 = y[..., local].copy()
+        a = mixed_forward(y[..., :local], tl, radices=radices, sign=False)
+        a0 = a[..., 0].copy()
+        a = (a * spec).astype(np.complex64)
+        a[..., 0] += x0
+        c = mixed_forward(a, tl, inverse=True, radices=radices)
+        y = np.concatenate([c, (x0 + a0)[..., None]], axis=-1)
+    else:
+        y = mixed_forward(y, tl, radices=radices, sign=inverse)
+    g = y[..., slot_of]                            # (i1, col, k2)
+    got = np.moveaxis(_small(np.moveaxis(g, 0, -1), n1, to, n1, inverse),
+                      -1, 0)                       # (k1, col, k2)
+    out = np.empty_like(x)
+    k = (e1 * np.arange(n1)[:, None] + e2 * np.arange(n2)[None, :]) % n
+    out[k] = np.moveaxis(got, 1, -1)
+    if inverse:
+        out = out * np.float32(1.0 / n)
+    return out.astype(np.complex64)
+
+
+FACTORED_SIDES = [7199, 7200, 120, 184, 1008, 5911, 667, 96, 6000]
+
+
+@pytest.mark.parametrize("n", FACTORED_SIDES)
+def test_factored_plan_is_the_dft(n):
+    """The factored kind, forward and inverse (with its 1/n), against
+    float64 to float32 rounding: the index maps cover every row once, the
+    output weights are the CRT's, and each side takes the split the rule
+    gives (smooth local legs and Rader's at 7,199 = 23 x 313, 184 = 8 x 23,
+    5,911 = 23 x 257, 667 = 23 x 29)."""
+    rng = np.random.default_rng(n + 2)
+    x = (rng.standard_normal((n, 8)) + 1j * rng.standard_normal((n, 8))
+         ).astype(np.complex64)
+    plan = tck.azimuth_plan(n)
+    n1, n2, local, passes = plan.legs
+    assert plan.kind == "factored" and (plan.m, n1 * n2) == (n, n)
+    assert (n1, n2) == tck.factored_split(n) and np.gcd(n1, n2) == 1
+    assert local == (n2 if tck._smooth(n2) else n2 - 1)
+    assert passes == len(tck.local_radices(local))
+    idx = plan.index.numpy().astype(np.int64)
+    rowof = idx[2 + passes:2 + passes + n2]
+    rows = (n2 * np.arange(n1)[:, None] + rowof[None, :]) % n
+    assert np.array_equal(np.sort(rows.ravel()), np.arange(n))
+    assert np.array_equal(np.sort(idx[2 + passes + n2:]), np.arange(n2))
+    e1, e2 = idx[:2]
+    assert (e1 % n1, e1 % n2, e2 % n1, e2 % n2) == (1, 0, 0, 1)
+    x64 = x.astype(np.complex128)
+    for inverse, want in ((False, np.fft.fft(x64, axis=0)),
+                          (True, np.fft.ifft(x64, axis=0))):
+        got = factored_dft(x, plan, inverse)
+        assert np.abs(got - want).max() / np.abs(want).max() < 5e-6
+
+
+# sides that keep the chirp-z kind (7,193 and 6,007 in the place of the
+# upstream's 7,199 and 7,200, and 5,003 in that of 120, which the factored
+# kind now takes: primes above 512)
+CHIRPZ_SIDES = [65, 97, 5003, 165, 313, 719, 4097, 7193, 6007, 8191]
 
 
 @pytest.mark.parametrize("n", CHIRPZ_SIDES)

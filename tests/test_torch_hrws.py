@@ -314,8 +314,9 @@ def test_kernel_route_equals_grid_phase_route():
     assert tree["hrws.reconstruct"][0] == tree["hrws.focus"][0] == 1
     for k in ("k1", "k2", "k3"):
         assert tree[f"hrws.focus/focus.{k}"][0] == 1
+    # 1,600 = 2^6 x 25 (no coprime outer leg): chirp-z
     assert r.counters == {"hrws.bands": 4, "cpi.chirpz_axes": 2,
-                          "cpi.mixed_radix_axes": 2}
+                          "cpi.factored_axes": 0, "cpi.mixed_radix_axes": 2}
     # the unfold puts the point target's energy in one azimuth cell
     img = slc_k.abs().numpy()
     prof = img[:, img.max(axis=0).argmax()]

@@ -246,20 +246,23 @@ def test_fullscale_span_tree_and_outputs(path):
         **({f"focus/focus.cpi_kernels/focus.{k}": 1
             for k in ("k1g", "k2", "k3g", "k4")}
            if path == "kernel_fused" else {})}
-    # a 256 x 256 CPI: no axis by chirp-z or by the mixed-radix plan
-    assert rec.counters == ({"cpi.chirpz_axes": 0, "cpi.mixed_radix_axes": 0}
+    # a 256 x 256 CPI: no axis by chirp-z, as a prime-factor transform or
+    # by the mixed-radix plan
+    assert rec.counters == ({"cpi.chirpz_axes": 0, "cpi.factored_axes": 0,
+                             "cpi.mixed_radix_axes": 0}
                             if path == "kernel_fused" else {})
 
 
 @pytest.mark.parametrize("k1_impl", ["fused2ch", "split"])
 @pytest.mark.parametrize("shape", [(64, 128), (90, 165), (64, 120),
-                                   (97, 128)])
+                                   (97, 128), (120, 165)])
 def test_cpi_kernel_spans_and_counters(shape, k1_impl):
     """Each CPI kernel under its span (the split route's balance, K1 and
     K2 single a channel), and the counters: the CPI's azimuth transforms
-    (forward, inverse) by chirp-z where n_az is not a power of two, its
-    range transforms by the mixed-radix plan where n_rg is not one up to
-    4096."""
+    (forward, inverse) as a prime-factor transform where
+    ``factored_split`` takes n_az (120 = 8 x 15), by chirp-z where n_az is
+    neither that nor a power of two (90, 97), its range transforms by the
+    mixed-radix plan where n_rg is not one up to 4096."""
     n_az, n_rg = shape
     f = csa.csa_factors(csa.CsaParams(
         wavelength_m=0.03, chirp_rate=6e13, fs_hz=150e6, prf_hz=6000.0,
@@ -276,8 +279,10 @@ def test_cpi_kernel_spans_and_counters(shape, k1_impl):
     else:
         want = {"focus.balance": 1, "focus.k1": 2, "focus.k2": 2}
     assert tree == {**want, "focus.k3g": 1, "focus.k4": 1}
-    odd_az = n_az & (n_az - 1) != 0
-    assert rec.counters == {"cpi.chirpz_axes": 2 * odd_az,
+    factored = n_az == 120
+    chirpz = n_az & (n_az - 1) != 0 and not factored
+    assert rec.counters == {"cpi.chirpz_axes": 2 * chirpz,
+                            "cpi.factored_axes": 2 * factored,
                             "cpi.mixed_radix_axes": 2 * (n_rg != 128)}
 
 
