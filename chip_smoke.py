@@ -159,6 +159,19 @@ and one-accumulator orders), FFT-conv and direct-echo kernels:
               simulate_two_channel(echo_backend='pallas') on phase 4's scene
               and phase 4's raw (the fused engine) each vs the plain direct
               engine's raw of that scene (<= 2e-4; the kernel launches)
+  13. rda     the stripmap cell's collect (satellite_stripmap, 7,200 x
+              13,200: the destroyer turned 90 degrees plus 5,000 clutter
+              points, the freq echo, the preset's noise) range-compressed
+              and azimuth-transformed in natural order, as
+              stripmap.focus(intermediates=False) does; the RCMC kernel
+              (rcmc_filter, one launch) on that range-Doppler plane
+              column-major (as the azimuth FFT leaves it) and row-major vs
+              its plain version on the same card tensors (<= 2e-6 of the
+              peak, the zero-filled cells alike): time of both; then
+              stripmap.focus(intermediates=False) of the collect: its
+              launches of the hand-written kernels (rcmc_filter 1, no
+              other) and time, its SLC vs the shifted route's
+              (intermediates=True, <= 1e-5 of the peak)
 
 The line before the last is a JSON record of each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -180,25 +193,29 @@ import torch
 
 import oracle
 from bench_torch.peaks import bound_by, bound_ms
+from bench_torch.work import rcmc as rcmc_work
 from nis_sar_amtigmti_video_tpu_torch import config
 from nis_sar_amtigmti_video_tpu_torch.gmti import dpca, fused
 from nis_sar_amtigmti_video_tpu_torch.gmti.cfar import CfarParams
 from nis_sar_amtigmti_video_tpu_torch.geometry import orbit
-from nis_sar_amtigmti_video_tpu_torch.models import gmti, videosar
+from nis_sar_amtigmti_video_tpu_torch.models import gmti, stripmap, videosar
 from nis_sar_amtigmti_video_tpu_torch.models.stripmap import echo_opts_for
 from nis_sar_amtigmti_video_tpu_torch.ops import (bp, bp_fast, csa, echo,
-                                                  echo_freq)
+                                                  echo_freq, rda)
 from nis_sar_amtigmti_video_tpu_torch.ops.cuda import (_build,
                                                        bp_factor_kernel,
                                                        bp_kernel, csa_kernel,
                                                        echo_kernel,
                                                        fft_kernel,
                                                        gmti_kernel,
+                                                       rcmc_kernel,
                                                        spread_kernel)
+from nis_sar_amtigmti_video_tpu_torch.ops.windows import get_window
 from nis_sar_amtigmti_video_tpu_torch.ops.echo import (
     multi_channel_phase_history, phase_history, window_start_time)
 from nis_sar_amtigmti_video_tpu_torch.scene import targets
 from nis_sar_amtigmti_video_tpu_torch.scene.clutter import ocean_clutter_field
+from nis_sar_amtigmti_video_tpu_torch.utils import profiling
 from nis_sar_amtigmti_video_tpu_torch.utils.profiling import (cuda_times_ms,
                                                                median_ms)
 from nis_sar_amtigmti_video_tpu_torch.video import scheduler
@@ -291,7 +308,14 @@ ECHO_WRAPPERS = {
         "none (the reference's direct engine is jnp: "
         "nis_sar_amtigmti_video_tpu/ops/echo.py::_direct)"),
 }
-ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL, **ECHO_WRAPPERS}
+RDA_WRAPPERS = {
+    "rcmc_filter": (rcmc_kernel.rcmc_filter,
+                    "nis_sar_amtigmti_video_tpu_torch/csrc/rcmc_kernel.cu",
+                    "none (the reference's RCMC is a searchsorted and gather "
+                    "in XLA: nis_sar_amtigmti_video_tpu/ops/rda.py::rcmc)"),
+}
+ALL_WRAPPERS = {**WRAPPERS, **CSA_WRAPPERS, **BP_ALL, **ECHO_WRAPPERS,
+                **RDA_WRAPPERS}
 # the wrapper attribute counting an entry's launches, where not .launches
 COUNTER = {"spread_qr": "launches_qr", "spread_taps": "launches_taps"}
 # f32 planes of N^2 each kernel reads plus writes (PR 1's bytes column)
@@ -974,7 +998,7 @@ def phase_golden(raw, sc, t0):
     assert not bad, bad
 
 
-def bound(n_bytes: float, n_flops: float, n_sfu: float = 0.0,
+def bound(n_bytes: float, n_flops: float = 0.0, n_sfu: float = 0.0,
           n_tc: float = 0.0) -> dict:
     """The least time of the work on the card and which side sets it, by
     the benchmark's peaks (bench_torch/peaks.py)."""
@@ -2003,6 +2027,89 @@ def phase_echo_gold(dev, sc, raw4, sc4):
     return n
 
 
+def phase_rda(dev) -> tuple:
+    """The RCMC kernel at the stripmap cell's 7,200 x 13,200 on the cell's
+    own range-Doppler plane, both layouts, against its plain version; then
+    one stripmap.focus(intermediates=False) of the collect. Returns (the
+    kernel's record, its launches in that focus)."""
+    sc = config.satellite_stripmap()
+    sc = sc.replace(collect=dataclasses.replace(
+        sc.collect, window_start_mode="centered", echo_backend="freq",
+        echo_oversample=2))
+    rng = np.random.default_rng(26)
+    scene = targets.PointTargets.concatenate([
+        targets.destroyer().rotate_z(90.0),
+        ocean_clutter_field(rng, num_points=5000)])
+    raw, _, t0, _ = stripmap.simulate_raw(sc, scene, seed=26,
+                                          avg_rcs=50000.0, device=dev)
+    n_az, n_rg = raw.shape
+    p = stripmap.rda_params(sc, n_az, n_rg)
+    # focus_rda's natural-order route up to the RCMC
+    full, start = rda._compressed_full(raw, p)
+    win = get_window(p.azimuth_window, n_az, device=dev)[:, None]
+    cols = torch.fft.fft(full[:, start:start + n_rg] * win, dim=-2)
+    del full
+    assert not cols.is_contiguous() and cols.t().is_contiguous()
+    t = rda.rcmc_tables(p, dev)
+    kw = dict(lam2=t.lam2, den=t.den, hk=t.hk, row_shift=n_az // 2)
+    rec = {}
+    for layout, rd in (("column", cols), ("row", cols.contiguous())):
+        reset_launches()
+        with profiling.recording() as counts:
+            out, _ = rcmc_kernel.rcmc_filter(rd, t.r, t.fd, **kw)
+            torch.cuda.synchronize(dev)
+        assert rcmc_kernel.rcmc_filter.launches == 1
+        assert out.stride() == rd.stride()
+        want, want_v, zeroed = rcmc_kernel.rcmc_filter_plain(rd, t.r, t.fd,
+                                                             **kw)
+        peak = float(want_v.abs().max())
+        err = float((out - want).abs().max())
+        assert err <= 2e-6 * peak, (layout, err / peak)
+        assert counts.counters["rda.rcmc_zeroed"] == int(zeroed) > 0
+        del out, want, want_v
+        rec[layout] = dict(
+            max_abs_err=err, rel=err / peak, zeroed=int(zeroed),
+            ms=median_ms(lambda: rcmc_kernel.rcmc_filter(rd, t.r, t.fd,
+                                                         **kw)),
+            plain_ms=median_ms(lambda: rcmc_kernel.rcmc_filter_plain(
+                rd, t.r, t.fd, **kw)))
+        torch.cuda.empty_cache()
+    del cols, rd
+    b = bound(**rcmc_work.work(dict(n_az=n_az, n_rg=n_rg)))
+    for layout, r in rec.items():
+        print(f"[13 rda] rcmc_filter {layout}-major at {n_az} x {n_rg}: "
+              f"{r['rel']:.2e} of the peak from plain (<= 2e-6), "
+              f"{r['zeroed']} cells zero-filled alike; {r['ms']:.3f} ms vs "
+              f"plain {r['plain_ms']:.3f} ms; {b['bound_ms'] / r['ms']:.1%} "
+              f"of its bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+
+    reset_launches()
+    with profiling.recording() as counts:
+        slc, _ = stripmap.focus(raw, sc, t0, intermediates=False)
+        torch.cuda.synchronize(dev)
+    launches = launch_counts(ALL_WRAPPERS)
+    assert launches == {k: int(k == "rcmc_filter") for k in launches}, \
+        launches
+    assert list(counts.tree()) == ["focus", "focus/focus.range",
+                                   "focus/focus.azimuth", "focus/focus.rcmc",
+                                   "focus/focus.compress"]
+    shifted, _ = stripmap.focus(raw, sc, t0)
+    err = rel_err(slc, shifted)
+    assert err <= 1e-5, err
+    del shifted
+    focus_ms = median_ms(lambda: stripmap.focus(raw, sc, t0,
+                                                intermediates=False))
+    print(f"[13 rda] stripmap.focus(intermediates=False) of the collect: "
+          f"rcmc_filter 1 launch, no other hand-written kernel; "
+          f"{focus_ms:.3f} ms; SLC {err:.2e} of the peak from the shifted "
+          f"route's (<= 1e-5)")
+    r = rec["column"]
+    return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], library_ms=None,
+                rows_ms=rec["row"]["ms"], focus_ms=focus_ms, **b), \
+        launches["rcmc_filter"]
+
+
 def timed_phase(name, fn, *args):
     t = time.perf_counter()
     out = fn(*args)
@@ -2061,6 +2168,9 @@ def main():
     launches["echo_accumulate"] = timed_phase(
         "echo gold", phase_echo_gold, dev, config.ati_dpca(), raw, sc)
     del raw
+    torch.cuda.empty_cache()
+    rec["rcmc_filter"], launches["rcmc_filter"] = timed_phase(
+        "rda", phase_rda, dev)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **rec[k])
                for k, (_, src, rep) in ALL_WRAPPERS.items()]

@@ -191,6 +191,14 @@ def count_device(name: str, make: Callable[[], torch.Tensor]) -> None:
         rec._on_device[name] = n if prev is None else prev + n
 
 
+def device_counting() -> bool:
+    """True while recording with device counts: a count that the card
+    forms inside a kernel it launches anyway (``rda.rcmc_zeroed``) needs
+    its accumulator before the launch, and :func:`count_device` after."""
+    rec = _record
+    return rec is not None and rec.device_counts
+
+
 @contextlib.contextmanager
 def recording(device_counts: bool = True):
     """Turns recording on for the ``with`` block and yields its

@@ -1908,3 +1908,116 @@ def test_echo_dropped_counts_on_card(dev):
             counts[win, str(d)] = rec.counters.get("echo.dropped", 0)
     assert counts[None, str(dev)] == counts[None, "cpu"] == 0
     assert counts[512, str(dev)] == counts[512, "cpu"] > 0
+
+
+def _rda_fullscale():
+    """The satellite_stripmap_rda cell's RdaParams: 7,200 x 13,200."""
+    from nis_sar_amtigmti_video_tpu_torch.models import stripmap
+    sc = config.satellite_stripmap()
+    sc = sc.replace(collect=dataclasses.replace(
+        sc.collect, window_start_mode="centered"))
+    return stripmap.rda_params(sc, 7200, 13200)
+
+
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("route", ["natural", "shifted"])
+def test_rcmc_kernel_matches_plain_at_fullscale(dev, route, keep, layout):
+    """The RCMC kernel against its plain version (run on the card's
+    tensors) at the upstream's 7,200 x 13,200, row-major and column-major
+    (as the azimuth FFT leaves it), one launch a plane: the RCMC alone
+    within 1e-6 of the peak (the same float64 interval and weight, the
+    same float32 interpolation), times H within 2e-6 (sincosf against
+    torch's cos and sin), in the plane's layout; the zero-filled cells
+    counted alike."""
+    from nis_sar_amtigmti_video_tpu_torch.ops import rda
+    from nis_sar_amtigmti_video_tpu_torch.ops.cuda import rcmc_kernel
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    t = rda.rcmc_tables(_rda_fullscale(), dev)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rd = torch.randn((7200, 13200), dtype=torch.complex64, device=dev,
+                     generator=gen)
+    if layout == "cols":
+        rd = rd.t().contiguous().t()
+    shift = 3600 if route == "natural" else 0
+    kw = dict(lam2=t.lam2, den=t.den, hk=t.hk, row_shift=shift)
+    before = rcmc_kernel.rcmc_filter.launches
+    with profiling.recording() as rec:
+        out, v = rcmc_kernel.rcmc_filter(rd, t.r, t.fd, keep=keep, **kw)
+        torch.cuda.synchronize()
+    assert rcmc_kernel.rcmc_filter.launches == before + 1
+    assert out.stride() == rd.stride()
+    want, want_v, zeroed = rcmc_kernel.rcmc_filter_plain(rd, t.r, t.fd,
+                                                         **kw)
+    peak = float(want_v.abs().max())
+    assert float((out - want).abs().max()) <= 2e-6 * peak
+    if keep:
+        assert float((v - want_v).abs().max()) <= 1e-6 * peak
+    else:
+        assert v is None
+    assert rec.counters == {"rda.rcmc_rows": 7200,
+                            "rda.rcmc_zeroed": int(zeroed)}
+    assert int(zeroed) > 0
+
+
+def test_rcmc_kernel_refuses_what_it_does_not_take(dev):
+    from nis_sar_amtigmti_video_tpu_torch.ops import rda
+    from nis_sar_amtigmti_video_tpu_torch.ops.cuda import rcmc_kernel
+    p = _rda_fullscale()
+    t = rda.rcmc_tables(p, dev)
+    kw = dict(lam2=t.lam2, den=t.den, hk=t.hk)
+    rd = torch.zeros((7200, 13200), dtype=torch.complex64, device=dev)
+    with pytest.raises(TypeError, match="complex64"):
+        rcmc_kernel.rcmc_filter(rd.to(torch.complex128), t.r, t.fd, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros((7200, 26400), dtype=torch.complex64, device=dev)
+        rcmc_kernel.rcmc_filter(wide[:, ::2], t.r, t.fd, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        rcmc_kernel.rcmc_filter(rd[:, :100].contiguous(), t.r, t.fd, **kw)
+
+
+def test_stripmap_focus_on_card(dev):
+    """``stripmap.focus`` at the upstream's 7,200 x 13,200 on the card
+    against the same on the CPU (the kernel's plain version), with and
+    without the viewer planes: the SLC within 2e-5 of its peak; the RCMC
+    kernel launched once, under ``focus.rcmc``, and nothing else of the
+    stage record's shape differs from the CPU's."""
+    from nis_sar_amtigmti_video_tpu_torch.models import stripmap
+    from nis_sar_amtigmti_video_tpu_torch.ops.cuda import _build, rcmc_kernel
+    from nis_sar_amtigmti_video_tpu_torch.utils import profiling
+    sc = config.satellite_stripmap()
+    sc = sc.replace(collect=dataclasses.replace(
+        sc.collect, window_start_mode="centered"))
+    gen = torch.Generator().manual_seed(27)
+    raw = torch.randn((7200, 13200), dtype=torch.complex64, generator=gen)
+    want, _ = stripmap.focus(raw, sc, 0.0, intermediates=False)
+    sites = []
+    orig = _build.launch
+
+    def spy(name, *a, **kw):
+        if name == "rcmc_launch":
+            sites.append(profiling._record._stack()[-1].name)
+        return orig(name, *a, **kw)
+    for inter in (False, True):
+        sites.clear()
+        before = rcmc_kernel.rcmc_filter.launches
+        with profiling.recording() as rec:
+            _build.launch = spy
+            try:
+                got, prod = stripmap.focus(raw.to(dev), sc, 0.0,
+                                           intermediates=inter)
+            finally:
+                _build.launch = orig
+            torch.cuda.synchronize()
+        assert rcmc_kernel.rcmc_filter.launches == before + 1
+        assert sites == ["focus.rcmc"]
+        got = got.cpu()
+        assert float((got - want).abs().max()) \
+            <= 2e-5 * float(want.abs().max())
+        assert (prod is None) == (not inter)
+        assert list(rec.tree()) == ["focus", "focus/focus.range",
+                                    "focus/focus.azimuth",
+                                    "focus/focus.rcmc",
+                                    "focus/focus.compress"]
+        assert rec.counters["rda.rcmc_rows"] == 7200
+        del got, prod

